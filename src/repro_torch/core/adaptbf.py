@@ -29,17 +29,9 @@ import torch
 
 from repro_torch.core.remainder import integerize, passthrough
 from repro_torch.core.state import AllocatorState
+from repro_torch.kernels.numerics import row_sum
 
 _EPS = 1e-12
-
-
-def row_sum(x: torch.Tensor) -> torch.Tensor:
-    """[..., J] float32 -> [..., 1]: accumulated in float64 and rounded once.
-
-    The CUDA kernels reduce a row in another order than PyTorch does; with
-    double accumulation both round to the same float32 sum, so each kernel
-    agrees with its plain version although their orders differ."""
-    return x.sum(dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
 
 
 def alloc_rows(demand, nodes, record, remainder, alloc_prev, capacity,

@@ -108,22 +108,14 @@ def integerize(raw: torch.Tensor, remainder: torch.Tensor, budget,
     def _g(r):
         return torch.minimum(mfloored, r).sum(dim=-1, keepdim=True)
 
-    # Only rows with delta < 0 read the excess terms, so the descent is
-    # skipped when no row has one: an exact identity (the reference's
-    # `specialize`), decided on the host because eager PyTorch can branch.
-    if bool((delta < 0).any()):
-        p = torch.zeros_like(delta_i)
-        for bit in range(_P_BITS - 1, -1, -1):
-            cand = p | (1 << bit)
-            p = torch.where(_g(cand.to(torch.float32)) <= d_dn, cand, p)
-        p_f = p.to(torch.float32)
-        k_dn = torch.clamp_max(d_dn - _g(p_f), 2.0**30).to(torch.int32)
-        elig = mask & (floored >= p_f + 1.0)
-        take_full = torch.minimum(mfloored, p_f)
-    else:
-        k_dn = torch.zeros_like(delta_i)
-        elig = torch.zeros_like(mask)
-        take_full = zero
+    p = torch.zeros_like(delta_i)
+    for bit in range(_P_BITS - 1, -1, -1):
+        cand = p | (1 << bit)
+        p = torch.where(_g(cand.to(torch.float32)) <= d_dn, cand, p)
+    p_f = p.to(torch.float32)
+    k_dn = torch.clamp_max(d_dn - _g(p_f), 2.0**30).to(torch.int32)
+    elig = mask & (floored >= p_f + 1.0)
+    take_full = torch.minimum(mfloored, p_f)
 
     is_up = delta > 0
     sel = topk_mask(

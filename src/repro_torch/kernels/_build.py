@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -87,21 +87,21 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _LIBS[name] = lib
-    return lib
+def load(name: str, argtypes) -> Callable[..., int]:
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built first if
+    needed, bound to ``argtypes`` once and cached."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(ctypes.CDLL(str(build([name])[name])), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
 
 
 def launch(name: str, argtypes, *args) -> None:
-    """Call the C entry point ``name`` of ``csrc/<name>.cu`` (it launches
-    its kernel on the given stream and returns the launch's cudaError_t);
-    raise if the launch failed."""
-    fn = getattr(load(name), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    err = fn(*args)
+    """Call the C entry point ``name`` (it launches its kernel on the given
+    stream and returns the launch's cudaError_t); raise if the launch
+    failed."""
+    err = load(name, argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

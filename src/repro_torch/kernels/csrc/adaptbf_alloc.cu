@@ -28,9 +28,9 @@
 // the bit map; delta is clipped to +-2^30 before the int cast.  Built with
 // --fmad=false and without fast math, so `u + u * p` and friends round as in
 // the reference; every float constant carries an f suffix.  Float row sums
-// accumulate in double and round once, as the plain version's do, so the
-// two agree although they reduce in other orders; against the reference's
-// float32 sums, shares differ by ulps.
+// accumulate in double and round once, as the plain version's do; in
+// other orders, so the two agree to a float32 ulp (in practice bitwise);
+// against the reference's float32 sums, shares differ by ulps.
 #include "common.cuh"
 
 namespace {

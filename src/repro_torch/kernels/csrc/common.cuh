@@ -8,9 +8,10 @@
 // stay uniform.
 //
 // Float row sums accumulate in double and round once to float, as the plain
-// PyTorch versions do (a float64 sum cast to float32): the kernel reduces
-// in another order than the plain version, and the double accumulation
-// makes the rounded float32 result the same all the same.
+// PyTorch versions do (kernels/numerics.py::row_sum).  The kernel reduces in
+// another order, so the double sums may differ in their last bit and, near a
+// float32 rounding midpoint, round apart: kernel and plain version agree to
+// a float32 ulp, in practice bitwise.
 #pragma once
 
 #include <cuda_runtime.h>

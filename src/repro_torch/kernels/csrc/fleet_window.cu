@@ -21,9 +21,9 @@
 // Numerics: built with --fmad=false and without fast math, so every
 // expression rounds as the plain version's does; inf behaves as in IEEE
 // (min(rate, inf), inf - issued, an unruled budget stays inf).  Row sums
-// accumulate in double and round once, as the plain version's do, so the
-// two agree although they reduce in other orders; against the reference's
-// float32 sums, values differ by ulps.
+// accumulate in double and round once, as the plain version's do; in
+// other orders, so the two agree to a float32 ulp (in practice bitwise);
+// against the reference's float32 sums, values differ by ulps.
 #include "common.cuh"
 
 namespace {

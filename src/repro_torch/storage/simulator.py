@@ -37,7 +37,6 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.adaptbf import row_sum
 from repro_torch.core.policies import (
     ControlPolicy,
     PolicyContext,
@@ -46,6 +45,7 @@ from repro_torch.core.policies import (
 )
 from repro_torch.core.state import AllocatorState
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.kernels.numerics import row_sum
 from repro_torch.storage.faults import FaultPlan
 
 _EPS = 1e-9
