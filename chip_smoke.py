@@ -5,22 +5,29 @@
 
 Phases, each of which raises on failure (the run then exits non-zero):
 
-1. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
+1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source, in parallel.
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main path's shapes (O=256 OSTs, J=4096 jobs,
-   W=10 ticks per window); the allocation over chained rounds, so its
-   remainder carry is read and checked too.
-3. Drive the main path: ``simulate_fleet`` under AdapTBF with
-   ``serve_backend="fused"`` and ``alloc_backend="pallas"`` on a seeded
-   256-OST x 4096-job fleet (``random_fleet(0, profile="mixed")``, 20
-   windows of trace tiled to 60), count the kernel launches, and compare
-   with the plain ``("scan", "core")`` run of the same fleet on the card:
-   the first window, alloc and record in every window, and per-OST
-   horizon service.
-4. Time each kernel and its plain version with CUDA events, and both
+   W=10 ticks per window): the allocation over chained rounds, so its
+   remainder carry is read and checked too; the window megakernel for
+   each built-in policy and for coded dispatch, over three chained rounds
+   from an evolved state and one round with a fault row.
+3. Drive the main paths on a seeded 256-OST x 4096-job fleet
+   (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled to
+   60) under AdapTBF, each with every launch counter set to 0 just before
+   it and read just after: ``serve_backend="fused"`` with
+   ``alloc_backend="pallas"`` (one launch of each of the first two kernels
+   a window), compared with the plain ``("scan", "core")`` run on the card
+   (the first window, alloc and record in every window, per-OST horizon
+   service); then ``serve_backend="mega"`` (one megakernel launch a
+   window and nothing else), compared with the fused/pallas run the same
+   way; then ``control="coded"`` with AdapTBF's code under "mega", which
+   must equal the direct run bitwise.
+4. Time each kernel and its plain version with CUDA events, and the
    main-path configurations in windows per second.
-5. Trace one kernel-path run with ``torch.profiler``: device busy time,
-   idle share and device time by kernel.
+5. Trace one fused/pallas run and one mega run with ``torch.profiler``:
+   device busy time, idle share and device time by kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel.  Without a CUDA
@@ -134,10 +141,145 @@ def alloc_work(o, j):
     return 4 * (8 * o * j + o), per_lane * o * j
 
 
+def mega_work(o, j, w):
+    """(bytes, operations) of one megakernel round under AdapTBF without
+    faults: the [W, O, J] rates, eight [O, J] inputs (queue, volume,
+    allocation, backlog caps, nodes, record, remainder, previous
+    allocation) and two [O] capacities read once, seven [O, J] outputs
+    (queue, volume, served, demand, allocation, record, remainder) written
+    once; the window service's and the allocation round's operations."""
+    _, serve_ops = window_work(o, j, w)
+    _, alloc_ops = alloc_work(o, j)
+    return 4 * ((w + 15) * o * j + 2 * o), serve_ops + alloc_ops
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
+
+
+MEGA_LEAVES = ("queue", "vol_left", "served", "demand", "obs_served",
+               "obs_demand", "obs_alloc")
+
+
+def mega_case(torch, policy, o, j, w, seed, dev, code=None):
+    """A running fleet's round inputs for ``policy``: queues, volumes,
+    integer allocations with stopped rules (unruled rows under aimd),
+    nonzero lend/borrow records and fractional remainders (adaptbf),
+    carried rates (aimd).  Capacities of 2000-6000 RPCs a tick leave some
+    rows saturated and others not.  Returns (ctx, cap_tick, backlog,
+    queue, vol, alloc, held, pstate) on ``dev`` and the numpy generator
+    for the rate trace."""
+    from repro_torch.core.policies import (
+        AdapTBFPolicy, AIMDPolicy, CodedPolicy, NoBWPolicy, PolicyContext,
+        StaticPolicy)
+    from repro_torch.core.state import AllocatorState
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=dev)
+
+    nodes = t(rng.integers(1, 128, (o, j)))
+    cap_tick = t(rng.integers(2000, 6000, (o,)))
+    ctx = PolicyContext(nodes=nodes, cap_w=cap_tick * w, control_code=code)
+    alloc = np.where(rng.random((o, j)) < 0.3, 0.0,
+                     rng.integers(1, 20, (o, j))).astype(np.float32)
+
+    def state_of(member):
+        if isinstance(member, AdapTBFPolicy):
+            return AllocatorState(
+                record=t(rng.integers(-200, 200, (o, j))),
+                remainder=t(rng.random((o, j)) - 0.5),
+                alloc_prev=t(rng.integers(0, 30, (o, j))))
+        if isinstance(member, AIMDPolicy):
+            alloc[rng.random(o) < 0.5] = np.inf
+            return t(1.0 + rng.random((o, j)) * 40.0)
+        return member.init_state(ctx)
+
+    if isinstance(policy, CodedPolicy):
+        pstate = tuple(state_of(m) for m in policy.members)
+    else:
+        pstate = state_of(policy)
+    if isinstance(policy, (StaticPolicy, NoBWPolicy)):
+        alloc_t = policy.init_alloc(ctx)   # their standing allocation
+    else:
+        alloc_t = t(alloc)
+    zeros = torch.zeros((o, j), device=dev)
+    queue = t(rng.random((o, j)) * 12)
+    vol = t(np.where(rng.random((o, j)) < 0.3, np.inf,
+                     rng.integers(0, 200, (o, j))))
+    backlog = t(rng.choice([16.0, 64.0, 256.0], (o, j)))
+    return (ctx, cap_tick, backlog, queue, vol, alloc_t,
+            (zeros, zeros.clone(), alloc_t), pstate), rng
+
+
+def check_mega_kernel(torch, mega_ops, dev, rounds=3):
+    """The megakernel against its plain version for each built-in policy
+    and for coded dispatch over the default members with each code: three
+    chained rounds from an evolved state (each round fed the plain
+    version's outputs of the one before), then a round with a fault row
+    (OST 0 loses telemetry, OST 1 is down, OST 2 at half capacity).  Every
+    output leaf within atol 1e-3 with equal finite masks."""
+    from repro_torch.core.policies import CodedPolicy, get_policy
+    from repro_torch.storage import DEFAULT_CODED_POLICIES, FLEET_CONTROL_CODES
+    cases = [(name, get_policy(name), None) for name in
+             ("adaptbf", "static", "nobw", "static_wc", "aimd")]
+    cases += [(f"coded[{name}]", CodedPolicy(DEFAULT_CODED_POLICIES), code)
+              for name, code in FLEET_CONTROL_CODES.items()]
+    up = torch.ones(O, device=dev)
+    up[1] = 0.0
+    telem = torch.ones(O, device=dev)
+    telem[0] = 0.0
+    scale = torch.ones(O, device=dev)
+    scale[2] = 0.5
+    worst, timed = 0.0, None
+    for k, (name, policy, code) in enumerate(cases):
+        inputs, rng = mega_case(torch, policy, O, J, W, seed=300 + k,
+                                dev=dev, code=code)
+        ctx, cap_tick, backlog, queue, vol, alloc, held, pstate = inputs
+        errs = {}
+        for r in range(rounds + 1):
+            rates = torch.as_tensor(
+                rng.integers(0, 3 + 3 * (r % 2), (W, O, J)).astype(np.float32),
+                device=dev)
+            faults = ()
+            if r == rounds:
+                cap_r = cap_tick * up * scale
+                args = (policy, ctx._replace(cap_w=cap_r * W), cap_r,
+                        backlog, queue, vol, alloc, held, pstate,
+                        rates * up[None, :, None])
+                faults = (telem, up)
+            else:
+                args = (policy, ctx, cap_tick, backlog, queue, vol, alloc,
+                        held, pstate, rates)
+                if name == "adaptbf" and r == 0:
+                    timed = args
+            got = mega_ops.mega_window_round(*args, *faults)
+            want = mega_ops.ref.mega_round_ref(*args, *faults)
+            names = (list(MEGA_LEAVES)
+                     + [f"state{i}" for i in range(len(mega_ops._leaves(want[7])))]
+                     + ["alloc_next"])
+            flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+            for leaf, g, w in zip(names, flat(got), flat(want), strict=True):
+                if not torch.equal(g.isfinite(), w.isfinite()):
+                    raise AssertionError(f"window_mega {name} round {r}: "
+                                         f"{leaf} finite masks differ")
+                fin = w.isfinite()
+                e = float((g[fin].double() - w[fin].double()).abs().max()) \
+                    if bool(fin.any()) else 0.0
+                if e > 1e-3:
+                    raise AssertionError(f"window_mega {name} round {r}: "
+                                         f"{leaf} off by {e} > 1e-3")
+                errs[leaf] = max(errs.get(leaf, 0.0), e)
+            queue, vol = want[0], want[1]
+            held, pstate, alloc = tuple(want[4:7]), want[7], want[8]
+        worst = max(worst, max(errs.values()))
+        print(f"window_mega kernel vs plain, {name}, at O={O} J={J} W={W}, "
+              f"{rounds} chained rounds + 1 faulted: max |err| per leaf "
+              + json.dumps(errs))
+    return timed, worst
 
 
 # --------------------------------------------------------------- phases
@@ -240,6 +382,33 @@ def check_main_path(torch, name, res, inputs, cap_w):
         raise AssertionError(f"{name}: served more than a job's volume")
 
 
+def trace(torch, label, run):
+    """One run under ``torch.profiler``: device busy time, idle share and
+    device time by kernel, printed; returns nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies): a CPU op's row repeats
+    # the device time of the kernels it launched
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+    busy = sum(device_us.values()) / 1e6
+    if busy == 0:
+        print(f"trace ({label}): the profiler recorded no device time "
+              "(not measured)")
+        return
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    print(f"trace ({label}, {N_WINDOWS} windows, {wall * 1e3:.1f} ms wall "
+          f"under the profiler): device busy {busy * 1e3:.2f} ms, idle share "
+          f"{1 - busy / wall:.3f}; device time by kernel: "
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # keep lines if cut short
     try:
@@ -255,33 +424,41 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
     from repro_torch.kernels.fleet_window import ops as fw_ops
-    from repro_torch.storage import FleetConfig, random_fleet, simulate_fleet
+    from repro_torch.kernels.window_mega import ops as mega_ops
+    from repro_torch.storage import (
+        FLEET_CONTROL_CODES, FleetConfig, random_fleet, simulate_fleet)
 
     dev = torch.device(DEVICE)
     card = _smi()
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    counters = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
+                "window_mega": mega_ops}
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(["fleet_window", "adaptbf_alloc"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (both kernels, nvcc "
-          "in parallel)")
+    libs = _build.build(list(counters))
+    print(f"build: {time.perf_counter() - t0:.1f} s (three kernels, one "
+          "nvcc each, in parallel)")
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         for line in lines:
-            lpt = re.search(r"entry function .*_kernelILi(\d+)E", line)
-            if lpt:                              # the template argument
-                print(f"  {name}, {lpt.group(1)} lanes a thread:")
+            entry = re.search(r"entry function .*_kernelILi(\d+)E(?:Li(\d+)E)?",
+                              line)
+            if entry:                            # the template arguments
+                case = (f", policy case {entry.group(2)}"
+                        if entry.group(2) else "")
+                print(f"  {name}, {entry.group(1)} lanes a thread{case}:")
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     # 2. each kernel against its plain version, at the main path's shapes
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
     al_args, al_err = check_alloc_kernel(torch, alloc_ops, dev)
+    mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
 
-    # 3. the main path ---------------------------------------------------
+    # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
     scn = random_fleet(0, n_ost=O, n_jobs=J, profile="mixed", duration_s=2.0)
     print(f"fleet: random_fleet(0, n_ost={O}, n_jobs={J}, mixed, 2.0 s) "
@@ -295,26 +472,59 @@ def main() -> int:
     inputs["trace_windows"] = scn.issue_rate.shape[0] // W
     cap_w = inputs["cap"].double() * W
 
-    def run(serve, alloc):
-        cfg = FleetConfig(control="adaptbf", serve_backend=serve,
+    def run(serve, alloc, control="adaptbf", code=None):
+        cfg = FleetConfig(control=control, serve_backend=serve,
                           alloc_backend=alloc)
         res = simulate_fleet(cfg, inputs["nodes"], inputs["rates"],
                              inputs["volume"], inputs["cap"],
-                             inputs["backlog"], n_windows=N_WINDOWS,
-                             device=dev)
+                             inputs["backlog"], control_code=code,
+                             n_windows=N_WINDOWS, device=dev)
         torch.cuda.synchronize()
         return res
 
-    fw_ops.launches = alloc_ops.launches = 0
-    kernel_res = run("fused", "pallas")
-    launches = {"fleet_window": fw_ops.launches,
-                "adaptbf_alloc": alloc_ops.launches}
-    print(f"main path (fused, pallas), {N_WINDOWS} windows: launches "
-          f"{launches}")
-    for name, n in launches.items():
-        if n != N_WINDOWS:
-            raise AssertionError(f"{name} launched {n} times, expected "
-                                 f"{N_WINDOWS} (one per window)")
+    def counted(label, want, *config):
+        """One run with every launch counter set to 0 just before it and
+        read just after; ``want`` maps each kernel to its expected count."""
+        for mod in counters.values():
+            mod.launches = 0
+        res = run(*config)
+        got = {name: mod.launches for name, mod in counters.items()}
+        print(f"main path ({label}), {N_WINDOWS} windows: launches {got}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        return res, got
+
+    def compare(label, res, base):
+        """alloc and record in every window within atol 1e-3 (unruled masks
+        equal), per-OST horizon service within 1e-3 relative, and which
+        fields are bitwise equal; held while the closed loop has not forked
+        (on this fleet it has not: the kernel paths agree bitwise)."""
+        per_window = 0.0
+        for f in ("alloc", "record"):
+            k, p = getattr(res, f), getattr(base, f)
+            if not torch.equal(k.isinf(), p.isinf()):
+                raise AssertionError(f"{label}: {f} unruled masks differ")
+            fin = k.isfinite()
+            e = float((k[fin].double() - p[fin].double()).abs().max())
+            if e > 1e-3:
+                raise AssertionError(f"{label}: {f} off by {e} in some "
+                                     "window")
+            per_window = max(per_window, e)
+        k_tot = res.served.double().sum((0, 2))
+        p_tot = base.served.double().sum((0, 2))
+        rel = float(((k_tot - p_tot).abs() / p_tot.clamp_min(1.0)).max())
+        if rel > 1e-3:
+            raise AssertionError(f"{label}: horizon served per OST off by "
+                                 f"{rel} relative")
+        same = {f: bool(torch.equal(getattr(res, f), getattr(base, f)))
+                for f in ("served", "demand", "alloc", "record",
+                          "queue_final")}
+        return per_window, rel, same
+
+    kernel_res, launches = counted(
+        "fused, pallas", {"fleet_window": N_WINDOWS,
+                          "adaptbf_alloc": N_WINDOWS, "window_mega": 0},
+        "fused", "pallas")
     plain_res = run("scan", "core")
     check_main_path(torch, "fused/pallas", kernel_res, inputs, cap_w)
     check_main_path(torch, "scan/core", plain_res, inputs, cap_w)
@@ -323,32 +533,36 @@ def main() -> int:
                 for f in ("served", "demand", "record"))
     if first > 1e-3:
         raise AssertionError(f"first window: kernel path off by {first}")
-    # the integer token state, every window: alloc and record are
-    # integer-valued, and alloc reads the remainder carried from window to
-    # window, so a wrong carry shows here; held while the closed loop has
-    # not forked (it has not on this fleet: the paths agree bitwise)
-    per_window = 0.0
-    for f in ("alloc", "record"):
-        k, p = getattr(kernel_res, f), getattr(plain_res, f)
-        if not torch.equal(k.isinf(), p.isinf()):
-            raise AssertionError(f"{f}: unruled masks differ between paths")
-        fin = k.isfinite()
-        e = float((k[fin].double() - p[fin].double()).abs().max())
-        if e > 1e-3:
-            raise AssertionError(f"{f}: kernel path off by {e} in some window")
-        per_window = max(per_window, e)
-    k_tot = kernel_res.served.double().sum((0, 2))
-    p_tot = plain_res.served.double().sum((0, 2))
-    rel = float(((k_tot - p_tot).abs() / p_tot.clamp_min(1.0)).max())
-    if rel > 1e-3:
-        raise AssertionError(f"horizon served per OST off by {rel} relative")
-    same = {f: bool(torch.equal(getattr(kernel_res, f), getattr(plain_res, f)))
-            for f in ("served", "demand", "alloc", "record", "queue_final")}
+    per_window, rel, same = compare("fused/pallas vs scan/core", kernel_res,
+                                    plain_res)
     print(f"kernel path vs plain path: first window max |err| {first}; "
           f"alloc/record max |err| over all {N_WINDOWS} windows {per_window}; "
           f"horizon served per OST max rel err {rel}; bitwise equal: {same}; "
           "invariants hold on both")
-    del kernel_res, plain_res
+    del plain_res
+
+    mega_res, mega_launches = counted(
+        "mega", {"fleet_window": 0, "adaptbf_alloc": 0,
+                 "window_mega": N_WINDOWS}, "mega", "core")
+    check_main_path(torch, "mega", mega_res, inputs, cap_w)
+    per_window, rel, same = compare("mega vs fused/pallas", mega_res,
+                                    kernel_res)
+    print(f"mega path vs fused/pallas path: alloc/record max |err| over all "
+          f"{N_WINDOWS} windows {per_window}; horizon served per OST max rel "
+          f"err {rel}; bitwise equal: {same}; invariants hold")
+    del kernel_res
+    code = FLEET_CONTROL_CODES["adaptbf"]
+    coded_res, _ = counted(
+        f"mega, coded, code {code}", {"fleet_window": 0, "adaptbf_alloc": 0,
+                                      "window_mega": N_WINDOWS},
+        "mega", "core", "coded", code)
+    for f in ("served", "demand", "alloc", "record", "queue_final"):
+        if not torch.equal(getattr(coded_res, f), getattr(mega_res, f)):
+            raise AssertionError(f"coded (code {code}) differs from direct "
+                                 f"adaptbf in {f}")
+    print(f"coded dispatch, code {code} (adaptbf), under mega: bitwise equal "
+          "to direct adaptbf in served, demand, alloc, record, queue_final")
+    del coded_res, mega_res
 
     # 4. times -----------------------------------------------------------
     fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
@@ -357,48 +571,36 @@ def main() -> int:
     al_ms = cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20)
     al_plain = cuda_ms(lambda: alloc_ops.fleet_alloc_ref(*al_args), reps=3,
                        groups=3)
+    mega_ms = cuda_ms(lambda: mega_ops.mega_window_round(*mega_args), reps=20)
+    mega_plain = cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
+                         reps=3, groups=3)
     rates = {}
-    for serve, alloc in (("fused", "pallas"), ("scan", "core")):
+    for serve, alloc in (("fused", "pallas"), ("mega", "core"),
+                         ("scan", "core")):
         secs = []
         for _ in range(3):
             t0 = time.perf_counter()
             run(serve, alloc)
             secs.append(time.perf_counter() - t0)
         rates[f"{serve}/{alloc}"] = N_WINDOWS / statistics.median(secs)
+    fw_b, fw_by = bound_ms(*window_work(O, J, W))
+    al_b, al_by = bound_ms(*alloc_work(O, J))
+    mega_b, mega_by = bound_ms(*mega_work(O, J, W))
     card = _smi()
     print(f"kernel times at O={O} J={J} W={W} on {card}: fleet_window "
-          f"{fw_ms:.4f} ms (plain {fw_plain:.4f} ms); adaptbf_alloc "
-          f"{al_ms:.4f} ms (plain {al_plain:.4f} ms)")
+          f"{fw_ms:.4f} ms (plain {fw_plain:.4f} ms, bound {fw_b:.4f} ms); "
+          f"adaptbf_alloc {al_ms:.4f} ms (plain {al_plain:.4f} ms, bound "
+          f"{al_b:.4f} ms); window_mega (adaptbf) {mega_ms:.4f} ms (plain "
+          f"{mega_plain:.4f} ms, bound {mega_b:.4f} ms by {mega_by})")
     print(f"main path windows/s at O={O} J={J} on {card}: "
           + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # 5. where the time goes: one kernel-path run under torch.profiler ----
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run("fused", "pallas")
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): a CPU op's row repeats
-    # the device time of the kernels it launched
-    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0}
-    busy = sum(device_us.values()) / 1e6
-    if busy == 0:
-        print("trace: the profiler recorded no device time (not measured)")
-    else:
-        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
-        print(f"trace (fused/pallas, {N_WINDOWS} windows, {wall * 1e3:.1f} ms "
-              f"wall under the profiler): device busy {busy * 1e3:.2f} ms, "
-              f"idle share {1 - busy / wall:.3f}; device time by kernel: "
-              + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    # 5. where the time goes: one run of each kernel path under the profiler
+    trace(torch, "fused/pallas", lambda: run("fused", "pallas"))
+    trace(torch, "mega", lambda: run("mega", "core"))
 
-    fw_b, fw_by = bound_ms(*window_work(O, J, W))
-    al_b, al_by = bound_ms(*alloc_work(O, J))
     kernels = [
         {"name": "fleet_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_window.cu",
@@ -412,6 +614,12 @@ def main() -> int:
          "launches": launches["adaptbf_alloc"], "max_abs_err": al_err,
          "ms": al_ms, "plain_ms": al_plain, "bound_ms": al_b,
          "bound_by": al_by, "library_ms": None},
+        {"name": "window_mega", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/window_mega.cu",
+         "replaces": "src/repro/kernels/window_mega/kernel.py:168",
+         "launches": mega_launches["window_mega"], "max_abs_err": mega_err,
+         "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
+         "bound_by": mega_by, "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,12 +2,15 @@
 from repro_torch.core.adaptbf import allocate, fleet_allocate
 from repro_torch.core.baselines import static_allocate
 from repro_torch.core.policies import (
+    CodedPolicy,
     ControlPolicy,
     PolicyContext,
     WindowObs,
+    control_codes,
     get_policy,
     list_policies,
     register_policy,
+    select_by_code,
 )
 from repro_torch.core.remainder import (
     integerize,
@@ -25,12 +28,15 @@ __all__ = [
     "allocate",
     "fleet_allocate",
     "static_allocate",
+    "CodedPolicy",
     "ControlPolicy",
     "PolicyContext",
     "WindowObs",
+    "control_codes",
     "get_policy",
     "list_policies",
     "register_policy",
+    "select_by_code",
     "integerize",
     "passthrough",
     "rank_desc",

@@ -9,13 +9,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.numerics import row_sum
+
 
 def static_allocate(nodes: torch.Tensor, capacity) -> torch.Tensor:
     """Static TBF rates: capacity * n_x / sum_all(n), tokens per window.
 
     nodes: [..., J]; capacity: [...] (a scalar for one target)."""
     nodes = nodes.to(torch.float32)
-    share = nodes / torch.clamp_min(nodes.sum(dim=-1, keepdim=True), 1e-12)
+    share = nodes / torch.clamp_min(row_sum(nodes), 1e-12)
     capacity = torch.as_tensor(capacity, dtype=torch.float32,
                                device=nodes.device)
     return capacity[..., None] * share

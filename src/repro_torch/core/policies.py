@@ -32,16 +32,26 @@ Built-in policies:
                    is re-granted to backlogged jobs by priority.
 * ``aimd``      -- additive-increase / multiplicative-decrease throttler
                    driven by server-side saturation.
+
+``CodedPolicy`` is the coded combinator: it evaluates every member policy
+each window and selects element-wise by ``ctx.control_code`` (the member's
+index), so one configuration runs any member of a policy subset.
+
+Each built-in declares a ``device_id``: the case of the window megakernel
+(``kernels/csrc/window_mega.cu``) that runs its gate and step on the card.
+A policy without one of its own (a custom policy, or a subclass of a
+built-in) runs the megakernel's plain version on the CPU only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import adaptbf, baselines
 from repro_torch.core.state import AllocatorState, init_fleet_state
 from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
+from repro_torch.kernels.numerics import row_sum
 
 _EPS = 1e-9
 
@@ -55,8 +65,8 @@ class PolicyContext(NamedTuple):
     integer_tokens: integerize allocations with remainder fairness.
     alloc_backend:  "core" (plain PyTorch) | "pallas" (the allocation
                     kernel, ``kernels/adaptbf_alloc``) for adaptbf rounds.
-    control_code:   selects the member of a coded policy; None under direct
-                    dispatch (coded dispatch is not ported yet).
+    control_code:   selects the member of a ``CodedPolicy`` (a host int or a
+                    0-d integer tensor); None under direct dispatch.
     """
 
     nodes: torch.Tensor
@@ -89,6 +99,9 @@ class ControlPolicy:
     minimum.  All tensors are [O, J]; no method may mix rows."""
 
     name: str = "?"
+    #: the megakernel's case for this policy (``csrc/window_mega.cu``);
+    #: only a class that declares its own id runs there
+    device_id: Optional[int] = None
 
     def init_state(self, ctx: PolicyContext) -> Any:
         """Policy state carried across windows (default: none)."""
@@ -170,6 +183,8 @@ def _open_zero(alloc: torch.Tensor) -> torch.Tensor:
 class AdapTBFPolicy(ControlPolicy):
     """The paper's decentralized adaptive token borrowing allocator."""
 
+    device_id = 0
+
     def init_state(self, ctx):
         n_ost, n_jobs = ctx.nodes.shape
         return init_fleet_state(n_ost, n_jobs, device=ctx.nodes.device)
@@ -220,6 +235,8 @@ class StaticPolicy(ControlPolicy):
     """Static TBF: fixed rules sized by each job's share of the total
     system, never stopped, never adapted (paper Section IV-C)."""
 
+    device_id = 1
+
     def init_alloc(self, ctx):
         return _static_alloc(ctx)   # rules apply from t=0
 
@@ -231,6 +248,8 @@ class StaticPolicy(ControlPolicy):
 class NoBWPolicy(ControlPolicy):
     """No bandwidth control: every job is unruled and the simulator
     arbitrates by backlog share (Lustre default)."""
+
+    device_id = 2
 
     def init_alloc(self, ctx):
         return _unruled(ctx)
@@ -246,6 +265,8 @@ class StaticWorkConservingPolicy(ControlPolicy):
     backlogged jobs, weighted by the same shares.  No lend/borrow records:
     the ablation between ``static`` and ``adaptbf``."""
 
+    device_id = 3
+
     def init_alloc(self, ctx):
         return _static_alloc(ctx)   # rules from t=0, like static
 
@@ -257,12 +278,10 @@ class StaticWorkConservingPolicy(ControlPolicy):
         zero = torch.zeros_like(share)
         active = obs.demand > 0
         base = torch.where(active, torch.minimum(share, obs.demand), zero)
-        spare = torch.clamp_min(
-            ctx.cap_w[:, None] - base.sum(dim=-1, keepdim=True), 0.0)
+        spare = torch.clamp_min(ctx.cap_w[:, None] - row_sum(base), 0.0)
         needy = active & (obs.demand > share)
         weight = torch.where(needy, share, zero)
-        extra = spare * weight / torch.clamp_min(
-            weight.sum(dim=-1, keepdim=True), _EPS)
+        extra = spare * weight / torch.clamp_min(row_sum(weight), _EPS)
         alloc = torch.where(active, base + extra, zero)
         if ctx.integer_tokens:
             alloc = torch.floor(alloc)
@@ -274,6 +293,8 @@ class AIMDPolicy(ControlPolicy):
     """Feedback throttler: priority-weighted rate rules exist only while the
     server is saturated (served ~ capacity), and the carried per-job rates
     evolve by additive increase / multiplicative decrease."""
+
+    device_id = 4
 
     ai_frac: float = 0.08     # additive increase per window, x cap_w x share
     md: float = 0.7           # multiplicative decrease on saturation
@@ -290,9 +311,8 @@ class AIMDPolicy(ControlPolicy):
         return _open_zero(alloc)
 
     def step(self, rate, obs, ctx):
-        p = ctx.nodes / torch.clamp_min(
-            ctx.nodes.sum(dim=-1, keepdim=True), _EPS)
-        served_tot = obs.served.sum(dim=-1, keepdim=True)
+        p = ctx.nodes / torch.clamp_min(row_sum(ctx.nodes), _EPS)
+        served_tot = row_sum(obs.served)
         cap_col = ctx.cap_w[:, None]
         # a zeroed capacity (down OST) reads as "nothing to throttle"
         congested = (served_tot >= self.sat * cap_col) & (cap_col > 0.0)
@@ -311,3 +331,80 @@ class AIMDPolicy(ControlPolicy):
         alloc = torch.where(congested, throttled,
                             torch.full_like(throttled, torch.inf))
         return rate, alloc
+
+
+# ------------------------------------------------------- coded combinator
+
+
+def _where(cond, a, b):
+    """``torch.where`` for a tensor condition; a plain pick for a host bool
+    (a host control code), which selects the same values."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    return a if cond else b
+
+
+def _tree_map2(fn, a, b):
+    """``fn`` over the paired leaves of two policy states of one structure
+    (tensors inside tuples and named tuples)."""
+    if isinstance(a, torch.Tensor):
+        return fn(a, b)
+    mapped = [_tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return type(a)(*mapped) if hasattr(a, "_fields") else type(a)(mapped)
+
+
+def select_by_code(code, values: Sequence[torch.Tensor]):
+    """Element-wise select ``values[code]`` by a where-chain: a code outside
+    ``[0, len(values))`` selects the last value."""
+    out = values[-1]
+    for i in range(len(values) - 2, -1, -1):
+        out = _where(code == i, values[i], out)
+    return out
+
+
+def control_codes(policies: Sequence[str]) -> Dict[str, int]:
+    """Name -> code mapping for a coded-policy subset (code = index)."""
+    return {name: i for i, name in enumerate(policies)}
+
+
+class CodedPolicy(ControlPolicy):
+    """Coded combinator over any registered policy subset.
+
+    Every member's round is computed each window and the result selected
+    element-wise by ``ctx.control_code`` (the member's index).  The combined
+    state is the tuple of member states; only the selected member's state
+    advances."""
+
+    name = "coded"
+
+    def __init__(self, policies: Sequence[str]):
+        self.names = tuple(policies)
+        if not self.names:
+            raise ValueError("coded dispatch needs >= 1 member policy")
+        self.members = tuple(get_policy(n) for n in self.names)
+
+    def init_state(self, ctx):
+        return tuple(m.init_state(ctx) for m in self.members)
+
+    def init_alloc(self, ctx):
+        return select_by_code(
+            ctx.control_code, [m.init_alloc(ctx) for m in self.members])
+
+    def gate(self, alloc, ctx):
+        return select_by_code(
+            ctx.control_code, [m.gate(alloc, ctx) for m in self.members])
+
+    def step(self, state, obs, ctx):
+        outs = [m.step(s, obs, ctx) for m, s in zip(self.members, state)]
+        new_state = []
+        for i, (nxt, old) in enumerate(zip((o[0] for o in outs), state)):
+            is_i = ctx.control_code == i
+            new_state.append(_tree_map2(
+                lambda a, b, sel=is_i: _where(sel, a, b), nxt, old))
+        alloc = select_by_code(ctx.control_code, [o[1] for o in outs])
+        return tuple(new_state), alloc
+
+    def record(self, state, ctx):
+        return select_by_code(
+            ctx.control_code,
+            [m.record(s, ctx) for m, s in zip(self.members, state)])

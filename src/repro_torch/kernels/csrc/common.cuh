@@ -1,6 +1,7 @@
-// Shared pieces of the per-row kernels (fleet_window.cu, adaptbf_alloc.cu).
+// Shared pieces of the per-row kernels (fleet_window.cu, adaptbf_alloc.cu,
+// window_mega.cu; serve.cuh and alloc_round.cuh build on them).
 //
-// Both kernels run one thread block per OST row.  Thread t owns the lanes
+// Every kernel runs one thread block per OST row.  Thread t owns the lanes
 // j = t + i * THREADS (i < LPT) of the row in registers; lanes at or past J
 // are absent from every sum and count.  A row reduction is a warp butterfly
 // plus one shared-memory slot per warp, and every thread comes out with the

@@ -16,21 +16,18 @@
 // decentralization).  The per-lane state (queue, vol_left, budget, backlog
 // cap, served accumulator) stays in registers across all W ticks; only the
 // tick's rate row is read, coalesced, each tick, and only the window
-// results are written.  Sums use common.cuh's block reductions.
+// results are written.  The tick loop is serve.cuh's serve_window, shared
+// with the window megakernel (window_mega.cu).
 //
-// Numerics: built with --fmad=false and without fast math, so every
-// expression rounds as the plain version's does; inf behaves as in IEEE
-// (min(rate, inf), inf - issued, an unruled budget stays inf).  Row sums
-// accumulate in double and round once, as the plain version's do; in
-// other orders, so the two agree to a float32 ulp (in practice bitwise);
-// against the reference's float32 sums, values differ by ulps.
-#include "common.cuh"
+// Numerics: see serve.cuh.  Row sums accumulate in double and round once,
+// as the plain version's do; in other orders, so the two agree to a float32
+// ulp (in practice bitwise); against the reference's float32 sums, values
+// differ by ulps.
+#include "serve.cuh"
 
 namespace {
 
 using namespace repro;
-
-constexpr float EPS = 1e-9f;
 
 template <int LPT>
 __global__ void __launch_bounds__(THREADS)
@@ -61,60 +58,9 @@ fleet_window_kernel(const float* __restrict__ queue_in,
     acc[i] = 0.0f;
   }
 
-#pragma unroll 1
-  for (int t = 0; t < n_ticks; ++t) {
-    const float* rate_t = rates + (static_cast<size_t>(t) * n_ost + o) * n_jobs;
-    float w1[LPT];
-    double part = 0.0;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int j = threadIdx.x + i * THREADS;
-      w1[i] = 0.0f;
-      if (j < n_jobs) {
-        // client issuance bounded by volume and backlog headroom
-        const float headroom = fmaxf(bl[i] - q[i], 0.0f);
-        const float issued = fminf(fminf(rate_t[j], v[i]), headroom);
-        q[i] = q[i] + issued;
-        v[i] = v[i] - issued;
-        q[i] = fmaxf(q[i], 0.0f);
-        // phase 1: token-gated service for ruled (finite-budget) jobs
-        w1[i] = isfinite(b[i]) ? fminf(q[i], fmaxf(b[i], 0.0f)) : 0.0f;
-        part += w1[i];
-      }
-    }
-    const float scale1 = fminf(1.0f, cap / fmaxf(block_sum(part, scratch), EPS));
-
-    float s1[LPT];
-    part = 0.0;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      s1[i] = w1[i] * scale1;
-      part += s1[i];
-    }
-    // phase 2: the fallback queue served from idle capacity only
-    const float spare = fmaxf(cap - block_sum(part, scratch), 0.0f);
-
-    part = 0.0;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int j = threadIdx.x + i * THREADS;
-      if (j < n_jobs && !isfinite(b[i])) part += q[i];
-    }
-    const float scale2 = fminf(1.0f, spare / fmaxf(block_sum(part, scratch), EPS));
-
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int j = threadIdx.x + i * THREADS;
-      if (j < n_jobs) {
-        const float w2 = isfinite(b[i]) ? 0.0f : q[i];
-        // clamp: proportional scaling can overshoot the queue by an ulp
-        const float served = fminf(s1[i] + w2 * scale2, q[i]);
-        q[i] = q[i] - served;
-        b[i] = b[i] - served;  // inf stays inf for unruled jobs
-        acc[i] = acc[i] + served;
-      }
-    }
-  }
+  serve_window<LPT>(q, v, b, bl, acc, rates + row,
+                    static_cast<size_t>(n_ost) * n_jobs, n_ticks, cap, n_jobs,
+                    scratch);
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {

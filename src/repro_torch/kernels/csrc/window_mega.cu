@@ -1,0 +1,302 @@
+// The whole per-window control round in one launch: gate, all W service
+// ticks, the lost-telemetry observation select and the policy's step.
+//
+// Replaces the TPU kernel src/repro/kernels/window_mega/kernel.py
+// (mega_window_pallas -> kernel -> mega_round_block).  Its plain PyTorch
+// version is repro_torch/kernels/window_mega/ref.py::mega_round_ref, the
+// straight composition policy.gate -> fleet_window_ref -> where(telem_ok)
+// -> policy.step.
+//
+// What bounds it on the H100: bytes.  Under adaptbf without faults a window
+// reads the [W, O, J] rate block and eight [O, J] arrays (queue, volume,
+// allocation, backlog caps, nodes, record, remainder, previous allocation)
+// and writes seven (queue, volume, served, demand, next allocation, record,
+// remainder): (W + 15) * O * J * 4 bytes, 105 MB at W=10, O=256, J=4096,
+// 31 us at 3.35 TB/s.  Under the byte bound sit the two latency chains of
+// the kernels it fuses: three row sums per tick, and about 230 dependent
+// row reductions in the allocation round.
+//
+// Design: one thread block per OST row, as in fleet_window.cu and
+// adaptbf_alloc.cu, whose device code it shares (serve.cuh, alloc_round.cuh).
+// The row's serve state lives in registers across the ticks; the window's
+// results are written out as soon as the ticks end, so only the observation
+// the step reads stays live into it, and the step reads the rest of its
+// inputs (nodes, policy state) from device memory.  Which policy runs is a
+// template argument, chosen on the host from the policy's device id, so each
+// case has its own register allocation and no branch on it runs in the
+// kernel; a coded policy launches the case of its selected member.  The
+// standing allocation is not updated in place: every output is a fresh
+// buffer (the caller still reads the allocation after the round).  The
+// cost of fusing: the serve ticks run at the step's register budget (128
+// a thread under adaptbf, one 512-thread block an SM), where the separate
+// window kernel fits two blocks an SM, so on the H100 this round is slower
+// than fleet_window + adaptbf_alloc (PERF.md).
+//
+// Numerics: as serve.cuh and alloc_round.cuh.  The policy constants (AIMD's
+// ai_frac, md, sat, floor) come from the Python class as float arguments;
+// each expression keeps the plain version's order, e.g. (ai_frac * cap) * p
+// and (spare * weight) / den.
+#include "alloc_round.cuh"
+#include "serve.cuh"
+
+namespace repro {
+
+// Mirrors repro_torch/kernels/window_mega/ops.py::_Params field for field.
+// Arrays are [O, J] unless noted; unused pointers are null.
+struct MegaParams {
+  const float* queue;
+  const float* vol;
+  const float* alloc;
+  const float* held_served;   // read only under faults
+  const float* held_demand;
+  const float* held_alloc;
+  const float* state0;        // adaptbf: record; aimd: rate
+  const float* state1;        // adaptbf: remainder
+  const float* state2;        // adaptbf: previous allocation
+  const float* nodes;
+  const float* backlog;
+  const float* rates;         // [W, O, J]
+  const float* cap_tick;      // [O]
+  const float* cap_w;         // [O]
+  const float* telem_ok;      // [O], faults only
+  const float* up;            // [O], faults only
+  float* queue_out;
+  float* vol_out;
+  float* served_out;
+  float* demand_out;
+  float* obs_served_out;      // faults only
+  float* obs_demand_out;
+  float* obs_alloc_out;
+  float* alloc_out;
+  float* state0_out;          // adaptbf: record; aimd: rate
+  float* state1_out;          // adaptbf: remainder
+  int n_ost;
+  int n_jobs;
+  int n_ticks;
+  int policy;
+  int has_faults;
+  int integer_tokens;
+  float u_max;
+  float ai_frac;
+  float md;
+  float sat;
+  float floor;
+};
+
+}  // namespace repro
+
+namespace {
+
+using namespace repro;
+
+// Device ids: must equal the `device_id` attributes of the policy classes
+// in repro_torch/core/policies.py.
+enum PolicyId : int {
+  POLICY_ADAPTBF = 0,
+  POLICY_STATIC = 1,
+  POLICY_NOBW = 2,
+  POLICY_STATIC_WC = 3,
+  POLICY_AIMD = 4,
+};
+
+constexpr float STATIC_EPS = 1e-12f;  // baselines.static_allocate
+constexpr float POLICY_EPS = 1e-9f;   // policies._EPS
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Row-wide sum of this thread's nodes, with the nodes kept for the lanes.
+template <int LPT>
+__device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
+                                           float (&nd)[LPT], int n_jobs,
+                                           Scratch& s) {
+  double part = 0.0;
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int j = lane_of(i);
+    nd[i] = j < n_jobs ? nodes_row[j] : 0.0f;
+    part += nd[i];
+  }
+  return block_sum(part, s);
+}
+
+template <int LPT, int POLICY>
+__global__ void __launch_bounds__(THREADS)
+window_mega_kernel(const MegaParams p) {
+  __shared__ Scratch s;
+  const int o = blockIdx.x;
+  const int n_jobs = p.n_jobs;
+  const size_t row = static_cast<size_t>(o) * n_jobs;
+  const float cap_w = p.cap_w[o];
+  const bool delivered = !p.has_faults || p.telem_ok[o] > 0.0f;
+
+  // gate + serve ------------------------------------------------------
+  // adaptbf, static_wc and aimd stop a rule at a zero allocation (the job
+  // falls back to the unruled queue); static and nobw gate with the
+  // allocation itself
+  constexpr bool OPEN_ZERO = POLICY == POLICY_ADAPTBF ||
+                             POLICY == POLICY_STATIC_WC ||
+                             POLICY == POLICY_AIMD;
+  float q[LPT], v[LPT], b[LPT], bl[LPT], acc[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int j = lane_of(i);
+    const bool in = j < n_jobs;
+    q[i] = in ? p.queue[row + j] : 0.0f;
+    v[i] = in ? p.vol[row + j] : 0.0f;
+    bl[i] = in ? p.backlog[row + j] : 0.0f;
+    const float a = in ? p.alloc[row + j] : 0.0f;
+    b[i] = OPEN_ZERO ? (a > 0.0f ? a : inf_f()) : a;
+    acc[i] = 0.0f;
+  }
+  serve_window<LPT>(q, v, b, bl, acc, p.rates + row,
+                    static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
+                    p.cap_tick[o], n_jobs, s);
+
+  // observe: demand = served + standing queue; a lost-telemetry row hands
+  // the step the last delivered observation instead
+  float os[LPT], od[LPT], oa[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int j = lane_of(i);
+    os[i] = od[i] = oa[i] = 0.0f;
+    if (j < n_jobs) {
+      const float demand = acc[i] + q[i];
+      p.queue_out[row + j] = q[i];
+      p.vol_out[row + j] = v[i];
+      p.served_out[row + j] = acc[i];
+      p.demand_out[row + j] = demand;
+      if (delivered) {
+        os[i] = acc[i];
+        od[i] = demand;
+        oa[i] = p.alloc[row + j];
+      } else {
+        os[i] = p.held_served[row + j];
+        od[i] = p.held_demand[row + j];
+        oa[i] = p.held_alloc[row + j];
+      }
+      if (p.has_faults) {
+        p.obs_served_out[row + j] = os[i];
+        p.obs_demand_out[row + j] = od[i];
+        p.obs_alloc_out[row + j] = oa[i];
+      }
+    }
+  }
+
+  // step --------------------------------------------------------------
+  float next[LPT];
+  if constexpr (POLICY == POLICY_ADAPTBF) {
+    float rec[LPT], rem[LPT];
+    adaptbf_round<LPT>(od, p.nodes + row, p.state0 + row, p.state1 + row,
+                       p.state2 + row, cap_w, p.u_max, p.integer_tokens != 0,
+                       next, rec, rem, n_jobs, s);
+    // lender-side ledger reclaim: a down OST's record is pinned to zero
+    const bool up = !p.has_faults || p.up[o] > 0.0f;
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const int j = lane_of(i);
+      if (j < n_jobs) {
+        p.state0_out[row + j] = up ? rec[i] : 0.0f;
+        p.state1_out[row + j] = rem[i];
+      }
+    }
+  } else if constexpr (POLICY == POLICY_STATIC) {
+    float nd[LPT];
+    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, nd, n_jobs, s),
+                            STATIC_EPS);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) next[i] = cap_w * (nd[i] / den);
+  } else if constexpr (POLICY == POLICY_NOBW) {
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) next[i] = inf_f();
+  } else if constexpr (POLICY == POLICY_STATIC_WC) {
+    // static shares; each window's unused share re-granted to backlogged
+    // jobs by the same shares
+    float share[LPT], base[LPT], weight[LPT];
+    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, share, n_jobs, s),
+                            STATIC_EPS);
+    double part = 0.0;
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      share[i] = cap_w * (share[i] / den);
+      base[i] = od[i] > 0.0f ? fminf(share[i], od[i]) : 0.0f;
+      part += base[i];
+    }
+    const float spare = fmaxf(cap_w - block_sum(part, s), 0.0f);
+    part = 0.0;
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const bool needy = od[i] > 0.0f && od[i] > share[i];
+      weight[i] = needy ? share[i] : 0.0f;
+      part += weight[i];
+    }
+    const float w_tot = fmaxf(block_sum(part, s), POLICY_EPS);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const float extra = spare * weight[i] / w_tot;
+      const float a = od[i] > 0.0f ? base[i] + extra : 0.0f;
+      next[i] = p.integer_tokens ? floorf(a) : a;
+    }
+  } else if constexpr (POLICY == POLICY_AIMD) {
+    // rules only while the row is saturated; carried rates move by
+    // additive increase / multiplicative decrease
+    float pr[LPT];
+    const float n_tot = fmaxf(nodes_sum<LPT>(p.nodes + row, pr, n_jobs, s),
+                              POLICY_EPS);
+    double part = 0.0;
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) part += os[i];
+    const float served_tot = block_sum(part, s);
+    // a zeroed capacity (down OST) reads as "nothing to throttle"
+    const bool congested = served_tot >= p.sat * cap_w && cap_w > 0.0f;
+    const float ai = p.ai_frac * cap_w;
+    const float hi = fmaxf(cap_w, p.floor);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const int j = lane_of(i);
+      pr[i] = pr[i] / n_tot;
+      float rate = j < n_jobs ? p.state0[row + j] : 0.0f;
+      // decrease only jobs whose own rule was binding in a congested window
+      const bool gated = isfinite(oa[i]) && oa[i] > 0.0f;
+      const bool binding = gated && os[i] >= p.sat * oa[i];
+      rate = (congested && binding) ? rate * p.md
+                                    : (congested ? rate : rate + ai * pr[i]);
+      rate = fminf(fmaxf(rate, p.floor), hi);
+      float thr = od[i] > 0.0f ? rate : 0.0f;
+      if (p.integer_tokens) thr = floorf(thr);
+      next[i] = congested ? thr : inf_f();
+      if (j < n_jobs) p.state0_out[row + j] = rate;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int j = lane_of(i);
+    if (j < n_jobs) p.alloc_out[row + j] = next[i];
+  }
+}
+
+template <int POLICY>
+cudaError_t launch(const MegaParams& p, cudaStream_t s) {
+  REPRO_DISPATCH_LPT(p.n_jobs, window_mega_kernel<LPT, POLICY>
+                     <<<p.n_ost, THREADS, 0, s>>>(p));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One control round for every OST row.  Launches on `stream`, does not
+// synchronise, allocates nothing; returns the launch's cudaError_t.
+extern "C" int window_mega(const MegaParams* params, void* stream) {
+  const MegaParams& p = *params;
+  if (p.n_jobs < 1 || p.n_jobs > MAX_J || p.n_ost < 1 || p.n_ticks < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.policy) {
+    case POLICY_ADAPTBF: return static_cast<int>(launch<POLICY_ADAPTBF>(p, s));
+    case POLICY_STATIC: return static_cast<int>(launch<POLICY_STATIC>(p, s));
+    case POLICY_NOBW: return static_cast<int>(launch<POLICY_NOBW>(p, s));
+    case POLICY_STATIC_WC: return static_cast<int>(launch<POLICY_STATIC_WC>(p, s));
+    case POLICY_AIMD: return static_cast<int>(launch<POLICY_AIMD>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

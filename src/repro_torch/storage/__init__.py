@@ -1,10 +1,18 @@
 """Storage substrate: the discrete-time fleet simulator, client striping
 policies and the seeded scenario generator."""
-from repro_torch.core.policies import get_policy, list_policies, register_policy
+from repro_torch.core.policies import (
+    ControlPolicy,
+    control_codes,
+    get_policy,
+    list_policies,
+    register_policy,
+)
 from repro_torch.storage import faults, scengen
 from repro_torch.storage.faults import FaultPlan, no_faults, random_fault_plan
 from repro_torch.storage.scengen import PROFILES, JobSpec, Trace, build_fleet, random_fleet
 from repro_torch.storage.simulator import (
+    DEFAULT_CODED_POLICIES,
+    FLEET_CONTROL_CODES,
     FleetConfig,
     FleetResult,
     HeldObs,
@@ -23,6 +31,8 @@ from repro_torch.storage.striping import FleetDemand, route, stripe_weights
 from repro_torch.storage.workloads import FleetScenario, Scenario
 
 __all__ = [
+    "ControlPolicy",
+    "control_codes",
     "get_policy",
     "list_policies",
     "register_policy",
@@ -36,6 +46,8 @@ __all__ = [
     "Trace",
     "build_fleet",
     "random_fleet",
+    "DEFAULT_CODED_POLICIES",
+    "FLEET_CONTROL_CODES",
     "FleetConfig",
     "FleetResult",
     "HeldObs",

@@ -24,8 +24,16 @@ into preallocated ``[n_windows, O, J]`` trajectories.
 
 ``serve_backend="fused"`` serves each window with one launch of the CUDA
 kernel ``kernels/csrc/fleet_window.cu``; ``alloc_backend="pallas"`` runs each
-allocation round with one launch of ``kernels/csrc/adaptbf_alloc.cu``.  The
-default "scan"/"core" pair runs the plain PyTorch versions on any device.
+allocation round with one launch of ``kernels/csrc/adaptbf_alloc.cu``;
+``serve_backend="mega"`` runs the whole control round (gate, every tick,
+observation select, policy step) with one launch of
+``kernels/csrc/window_mega.cu``.  The default "scan"/"core" pair runs the
+plain PyTorch versions on any device, and on CPU tensors every kernel
+backend takes its kernel's plain version.
+
+``control="coded"`` runs the ``CodedPolicy`` combinator over
+``cfg.coded_policies``, the member picked by ``control_code``
+(``FLEET_CONTROL_CODES`` for the default subset).
 
 Entry points run on the card: ``device=None`` means CUDA and raises when no
 GPU is present; pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -38,9 +46,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.policies import (
+    CodedPolicy,
     ControlPolicy,
     PolicyContext,
     WindowObs,
+    control_codes,
     get_policy,
 )
 from repro_torch.core.state import AllocatorState
@@ -50,12 +60,10 @@ from repro_torch.storage.faults import FaultPlan
 
 _EPS = 1e-9
 
-#: default member subset of a coded policy (field kept so one FleetConfig
-#: reads the same in both packages; coded dispatch is not ported yet)
+#: Default coded-policy subset (order defines the codes): the paper's three
+#: evaluation modes.
 DEFAULT_CODED_POLICIES = ("adaptbf", "static", "nobw")
-
-
-_MEGA_ITEM = 'queue A, "B3 window_mega and coded dispatch"'
+FLEET_CONTROL_CODES = control_codes(DEFAULT_CODED_POLICIES)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -81,7 +89,7 @@ class FleetConfig(NamedTuple):
     capacity_per_tick: float = 20.0    # default per-OST capacity (RPCs/tick)
     window_ticks: int = 10
     tick_seconds: float = 0.01
-    control: str = "adaptbf"           # any registered policy name
+    control: str = "adaptbf"           # any registered policy name | coded
     u_max: float = 64.0
     integer_tokens: bool = True
     max_backlog: float = 256.0
@@ -89,10 +97,12 @@ class FleetConfig(NamedTuple):
                                        #   CUDA allocation kernel)
     serve_backend: str = "scan"        # scan (plain per-tick loop) | fused
                                        #   (the CUDA window kernel, one
-                                       #   launch per window) | mega (not
-                                       #   ported)
+                                       #   launch per window) | mega (the
+                                       #   whole control round, one launch
+                                       #   of the CUDA megakernel)
     telemetry: str = "trajectory"      # trajectory (streaming: not ported)
     coded_policies: tuple = DEFAULT_CODED_POLICIES
+                                       # member subset for control="coded"
     partition: str = "none"            # none (ost_shard: not ported)
 
 
@@ -208,16 +218,12 @@ def _check_config(cfg: FleetConfig) -> None:
                           'queue A, "Streaming telemetry"')
     if cfg.telemetry != "trajectory":
         raise ValueError(f"unknown telemetry mode: {cfg.telemetry!r}")
-    if cfg.serve_backend == "mega":
-        raise _not_ported('serve_backend="mega"', _MEGA_ITEM)
-    if cfg.serve_backend not in ("scan", "fused"):
+    if cfg.serve_backend not in ("scan", "fused", "mega"):
         raise ValueError(f"unknown serve_backend: {cfg.serve_backend!r}")
     if cfg.partition == "ost_shard":
         raise _not_ported('partition="ost_shard"', 'queue A, "Sharding"')
     if cfg.partition != "none":
         raise ValueError(f"unknown partition: {cfg.partition!r}")
-    if cfg.control == "coded":
-        raise _not_ported('control="coded"', _MEGA_ITEM)
 
 
 def init_carry(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
@@ -278,22 +284,35 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
         rates_w = rates_w * faults_w.up[None, :, None]
         ctx_w = ctx._replace(cap_w=cap_tick_w * cfg.window_ticks)
         up_col = faults_w.up[:, None]
-    budget0 = policy.gate(carry.alloc, ctx_w)
-    queue, vol_left, served_w = _serve_window(
-        cfg, carry.queue, carry.vol_left, budget0, rates_w, backlog_cap,
-        cap_tick_w)
-    demand = served_w + queue
-    if faults_w is None:
-        obs_served, obs_demand, obs_alloc = served_w, demand, carry.alloc
+    if cfg.serve_backend == "mega":
+        # the whole control round in one call: one megakernel launch on
+        # the card, its plain version on the CPU
+        from repro_torch.kernels.window_mega import ops as mega_ops
+        (queue, vol_left, served_w, demand, obs_served, obs_demand,
+         obs_alloc, pstate, alloc_next) = mega_ops.mega_window_round(
+            policy, ctx_w, cap_tick_w, backlog_cap, carry.queue,
+            carry.vol_left, carry.alloc, carry.held, carry.policy_state,
+            rates_w,
+            telem_ok=None if faults_w is None else faults_w.telem_ok,
+            up=None if faults_w is None else faults_w.up)
     else:
-        delivered = faults_w.telem_ok[:, None] > 0
-        obs_served = torch.where(delivered, served_w, carry.held.served)
-        obs_demand = torch.where(delivered, demand, carry.held.demand)
-        obs_alloc = torch.where(delivered, carry.alloc, carry.held.alloc)
-    pstate, alloc_next = policy.step(
-        carry.policy_state,
-        WindowObs(served=obs_served, demand=obs_demand, alloc=obs_alloc,
-                  up=up_col), ctx_w)
+        budget0 = policy.gate(carry.alloc, ctx_w)
+        queue, vol_left, served_w = _serve_window(
+            cfg, carry.queue, carry.vol_left, budget0, rates_w, backlog_cap,
+            cap_tick_w)
+        demand = served_w + queue
+        if faults_w is None:
+            obs_served, obs_demand, obs_alloc = served_w, demand, carry.alloc
+        else:
+            delivered = faults_w.telem_ok[:, None] > 0
+            obs_served = torch.where(delivered, served_w, carry.held.served)
+            obs_demand = torch.where(delivered, demand, carry.held.demand)
+            obs_alloc = torch.where(delivered, carry.alloc,
+                                    carry.held.alloc)
+        pstate, alloc_next = policy.step(
+            carry.policy_state,
+            WindowObs(served=obs_served, demand=obs_demand, alloc=obs_alloc,
+                      up=up_col), ctx_w)
     out = WindowOut(served=served_w, demand=demand, alloc=carry.alloc,
                     record=policy.record(pstate, ctx_w))
     return WindowCarry(window=carry.window + 1, queue=queue,
@@ -304,12 +323,14 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
 
 
 def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
-                 volume, cap_tick, backlog_cap, n_windows: Optional[int],
+                 volume, cap_tick, backlog_cap, control_code: Optional[int],
+                 n_windows: Optional[int],
                  fault_plan: Optional[FaultPlan] = None):
     """The single window loop behind both entry points.
 
     nodes/volume/backlog_cap: [O, J]; rates: [T, O, J]; cap_tick: [O], all
-    float32 on one device.  ``n_windows`` extends (or trims) the horizon by
+    float32 on one device; ``control_code`` a host int or None.
+    ``n_windows`` extends (or trims) the horizon by
     indexing the trace periodically; None runs exactly the windows the trace
     covers.  ``fault_plan`` ([n_windows, O] leaves) covers the *run* horizon,
     one row per executed window, and is never tiled.
@@ -336,7 +357,8 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
         trace_windows, cfg.window_ticks, n_ost, n_jobs)
     ctx = PolicyContext(
         nodes=nodes, cap_w=cap_tick * cfg.window_ticks, u_max=cfg.u_max,
-        integer_tokens=cfg.integer_tokens, alloc_backend=cfg.alloc_backend)
+        integer_tokens=cfg.integer_tokens, alloc_backend=cfg.alloc_backend,
+        control_code=control_code)
 
     carry = init_carry(cfg, policy, ctx, volume)
     outs = WindowOut(*(rates.new_empty((n_windows, n_ost, n_jobs))
@@ -358,10 +380,27 @@ def _f32(x, device: torch.device) -> torch.Tensor:
 
 
 def _resolve_policy(cfg, control_code) -> ControlPolicy:
-    if control_code is not None:
-        raise _not_ported("control_code (coded dispatch)", _MEGA_ITEM)
     _check_config(cfg)
+    coded = cfg.control == "coded"
+    if coded and control_code is None:
+        raise ValueError('cfg.control == "coded" requires control_code')
+    if not coded and control_code is not None:
+        raise ValueError('control_code requires cfg.control == "coded"')
+    if coded:
+        return CodedPolicy(cfg.coded_policies)
     return get_policy(cfg.control)
+
+
+def _host_code(control_code) -> Optional[int]:
+    """A Python int or 0-d integer tensor (or array) -> a host int, read once
+    per run rather than once per window."""
+    if control_code is None:
+        return None
+    code = torch.as_tensor(control_code)
+    if code.ndim != 0 or code.is_floating_point() or code.is_complex():
+        raise ValueError("control_code must be an integer scalar; got "
+                         f"{code.dtype} of shape {tuple(code.shape)}")
+    return int(code)
 
 
 # ------------------------------------------------------------ single target
@@ -398,7 +437,7 @@ def simulate(cfg: SimConfig, nodes, issue_rate, volume, max_backlog=None,
         rates[:, None, :].contiguous(), _f32(volume, dev).reshape(1, n_jobs),
         torch.full((1,), cfg.capacity_per_tick, dtype=torch.float32,
                    device=dev),
-        backlog_cap, n_windows)
+        backlog_cap, None, n_windows)
     served, demand, alloc, record = (x[:, 0] for x in outs)
     return SimResult(served=served, demand=demand, alloc=alloc,
                      record=record, queue_final=queue[0],
@@ -416,14 +455,17 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
     """Simulate ``n_ost`` storage targets with striped client demand.
 
     Args:
-      cfg: FleetConfig.  ``cfg.control`` names a registered policy.
+      cfg: FleetConfig.  ``cfg.control`` names a registered policy, or
+        ``"coded"`` (see ``control_code``).
       nodes: [J] or [O, J] compute nodes per job.
       issue_rate: [T, O, J] per-target client issue attempts (RPCs/tick).
       volume: [O, J] total RPCs per job per target (inf = unbounded).
       capacity_per_tick: optional [O] per-OST service rates (default
         cfg.capacity_per_tick everywhere).
       max_backlog: optional [O, J] per-target client in-flight caps.
-      control_code: coded dispatch; not ported (must be None).
+      control_code: a Python int or 0-d integer tensor selecting the member
+        of ``cfg.coded_policies`` (default codes: ``FLEET_CONTROL_CODES``);
+        requires ``cfg.control == "coded"``.
       n_windows: optional horizon override; the rate trace is indexed
         periodically beyond its own length.
       fault_plan: optional ``FaultPlan`` ([n_windows, O] leaves, one row per
@@ -454,8 +496,8 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
     else:
         backlog_cap = _f32(max_backlog, dev)
     queue, outs = _run_windows(cfg, policy, nodes, rates, _f32(volume, dev),
-                               cap_tick, backlog_cap, n_windows,
-                               fault_plan=fault_plan)
+                               cap_tick, backlog_cap, _host_code(control_code),
+                               n_windows, fault_plan=fault_plan)
     return FleetResult(*outs, queue_final=queue,
                        window_seconds=cfg.window_ticks * cfg.tick_seconds)
 
@@ -466,34 +508,58 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
 #: format's keys), in the reference's flattening order
 _CARRY_ARRAYS = (".queue", ".vol_left")
 _HELD = tuple(f".held.{f}" for f in HeldObs._fields)
-_STATE = tuple(f".policy_state.{f}" for f in AllocatorState._fields)
+_STATE = ".policy_state"
+
+
+def _state_to_numpy(state, prefix: str) -> Dict[str, np.ndarray]:
+    """Policy-state leaves under ``prefix``: an ``AllocatorState`` as
+    ``prefix.record`` ..., one tensor as ``prefix``, a coded state tuple as
+    ``prefix[i]...`` per member (a stateless member has no leaves)."""
+    if isinstance(state, torch.Tensor):
+        return {prefix: state.detach().cpu().numpy()}
+    if isinstance(state, AllocatorState):
+        return {f"{prefix}.{f}": x.detach().cpu().numpy()
+                for f, x in zip(AllocatorState._fields, state)}
+    leaves = {}
+    for i, member in enumerate(state):
+        leaves.update(_state_to_numpy(member, f"{prefix}[{i}]"))
+    return leaves
+
+
+def _state_from_numpy(leaves, prefix: str, tensor):
+    if f"{prefix}.{AllocatorState._fields[0]}" in leaves:
+        return AllocatorState(*(tensor(f"{prefix}.{f}")
+                                for f in AllocatorState._fields))
+    if prefix in leaves:
+        return tensor(prefix)
+    return ()
 
 
 def carry_to_numpy(carry: WindowCarry) -> Dict[str, np.ndarray]:
     """A ``WindowCarry`` as numpy leaves keyed by the reference's pytree path
-    strings (``.window``, ``.queue``, ``.policy_state.record``, ...)."""
+    strings (``.window``, ``.queue``, ``.policy_state.record``,
+    ``.policy_state[0].record`` for a coded carry, ...)."""
     def arr(x):
         return x.detach().cpu().numpy()
 
     leaves = {".window": np.asarray(carry.window, np.int32),
               ".queue": arr(carry.queue), ".vol_left": arr(carry.vol_left)}
-    ps = carry.policy_state
-    if isinstance(ps, AllocatorState):
-        leaves.update(zip(_STATE, map(arr, ps)))
-    elif isinstance(ps, torch.Tensor):
-        leaves[".policy_state"] = arr(ps)
+    leaves.update(_state_to_numpy(carry.policy_state, _STATE))
     leaves[".alloc"] = arr(carry.alloc)
     leaves.update(zip(_HELD, map(arr, carry.held)))
     return leaves
 
 
-def carry_from_numpy(leaves: Mapping[str, np.ndarray],
-                     device=None) -> WindowCarry:
+def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None, *,
+                     policy: Optional[ControlPolicy] = None) -> WindowCarry:
     """Rebuild a ``WindowCarry`` from numpy leaves keyed by the reference's
     pytree path strings -- the same keys its checkpoints use -- so a mid-run
     carry of the reference engine continues here.  Policy state is an
     ``AllocatorState`` (``.policy_state.record`` ...), one tensor
-    (``.policy_state``) or none, as the leaves say."""
+    (``.policy_state``, aimd's rates) or none, as the leaves say.  A coded
+    carry (``.policy_state[i]...``) needs ``policy``, the run's
+    ``CodedPolicy``: its member count sizes the state tuple, since a
+    stateless member leaves no key."""
     dev = resolve_device(device)
     if any(k.startswith(".stats") for k in leaves):
         raise _not_ported("a streaming-telemetry carry",
@@ -507,12 +573,14 @@ def carry_from_numpy(leaves: Mapping[str, np.ndarray],
         return torch.tensor(np.asarray(leaves[key]), dtype=torch.float32,
                             device=dev)
 
-    if _STATE[0] in leaves:
-        policy_state = AllocatorState(*map(t, _STATE))
-    elif ".policy_state" in leaves:
-        policy_state = t(".policy_state")
+    if isinstance(policy, CodedPolicy):
+        policy_state = tuple(_state_from_numpy(leaves, f"{_STATE}[{i}]", t)
+                             for i in range(len(policy.members)))
+    elif any(k.startswith(f"{_STATE}[") for k in leaves):
+        raise ValueError("a coded carry (.policy_state[i] leaves) needs "
+                         "policy=, the run's CodedPolicy")
     else:
-        policy_state = ()
+        policy_state = _state_from_numpy(leaves, _STATE, t)
     return WindowCarry(
         window=int(leaves[".window"]), queue=t(".queue"),
         vol_left=t(".vol_left"), policy_state=policy_state,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at widths that take every lanes-per-thread variant the kernels compile
-(J = 1 to the 8192 maximum), plus the wrappers' input checks and the
-kernel path of ``simulate_fleet``.
+(J = 1 to the 8192 maximum) -- the window megakernel for every policy case
+and for coded dispatch -- plus the wrappers' input checks and the kernel
+paths of ``simulate_fleet``.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -13,10 +14,23 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.policies import (
+    AdapTBFPolicy,
+    CodedPolicy,
+    PolicyContext,
+    get_policy,
+)
+from repro_torch.core.state import AllocatorState
 from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
 from repro_torch.kernels.dispatch import MAX_JOBS
 from repro_torch.kernels.fleet_window import ops as fw_ops
-from repro_torch.storage import FleetConfig, random_fleet, simulate_fleet
+from repro_torch.kernels.window_mega import ops as mega_ops
+from repro_torch.storage import (
+    DEFAULT_CODED_POLICIES,
+    FleetConfig,
+    random_fleet,
+    simulate_fleet,
+)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -93,6 +107,119 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wide = _window_case(1, MAX_JOBS + 1, 1, seed=2, dev=cuda)
     with pytest.raises(ValueError, match=str(MAX_JOBS)):
         fw_ops.fleet_window_serve(*wide)
+
+
+MEGA_CASES = ["adaptbf", "static", "nobw", "static_wc", "aimd", "coded0",
+              "coded2"]
+
+
+def _mega_round(name, j, seed, dev):
+    """An evolved round at width j: integer allocations with stopped rules,
+    nonzero records and fractional remainders (adaptbf), carried rates and
+    unruled rows (aimd); coded over the default members."""
+    rng = np.random.default_rng(seed)
+    o, w = 3, 10
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    code = int(name[5:]) if name.startswith("coded") else None
+    policy = (CodedPolicy(DEFAULT_CODED_POLICIES) if code is not None
+              else get_policy(name))
+    cap_tick = t(rng.integers(1, 3, (o,)) * max(j // 2, 2))
+    ctx = PolicyContext(nodes=t(rng.integers(1, 64, (o, j))),
+                        cap_w=cap_tick * w, control_code=code)
+    alloc = np.where(rng.random((o, j)) < 0.3, 0.0,
+                     rng.integers(1, 20, (o, j))).astype(np.float32)
+    pstate = policy.init_state(ctx)
+    evolved = AllocatorState(t(rng.integers(-50, 50, (o, j))),
+                             t(rng.random((o, j)) - 0.5),
+                             t(rng.integers(0, 30, (o, j))))
+    if name == "adaptbf":
+        pstate = evolved
+    elif code is not None:
+        pstate = (evolved, (), ())
+    elif name == "aimd":
+        pstate = t(1.0 + rng.random((o, j)) * 30.0)
+        alloc[0] = np.inf
+    alloc = (policy.init_alloc(ctx) if name in ("static", "nobw")
+             else t(alloc))
+    zeros = torch.zeros((o, j), device=dev)
+    args = [policy, ctx, cap_tick, t(rng.choice([16.0, 64.0], (o, j))),
+            t(rng.random((o, j)) * 12),
+            t(np.where(rng.random((o, j)) < 0.3, np.inf, 150.0)), alloc,
+            (zeros, zeros, alloc), pstate,
+            t(rng.integers(0, 4, (w, o, j)))]
+    faults = (t([0.0, 1.0, 1.0]), t([1.0, 0.0, 1.0]))
+    return args, faults
+
+
+def _mega_leaves(out):
+    return [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+
+
+@pytest.mark.parametrize("j", WIDTHS)
+@pytest.mark.parametrize("name", MEGA_CASES)
+def test_mega_kernel_matches_plain(cuda, name, j):
+    """One round, then a round with OST 0's telemetry lost and OST 1 down,
+    at every lanes-per-thread width, for every policy case and coded."""
+    args, faults = _mega_round(name, j, seed=j, dev=cuda)
+    for extra in ((), faults):
+        before = mega_ops.launches
+        got = mega_ops.mega_window_round(*args, *extra)
+        assert mega_ops.launches == before + 1
+        want = mega_ops.ref.mega_round_ref(*args, *extra)
+        for i, (g, w) in enumerate(zip(_mega_leaves(got), _mega_leaves(want),
+                                       strict=True)):
+            assert torch.equal(g.isfinite(), w.isfinite()), (name, i)
+            fin = w.isfinite()
+            torch.testing.assert_close(g[fin], w[fin], rtol=0, atol=1e-3,
+                                       msg=f"{name} leaf {i}")
+        args[4:9] = [want[0], want[1], want[8], tuple(want[4:7]), want[7]]
+
+
+def test_mega_raises_for_what_the_kernel_has_no_case_for(cuda):
+    """A policy without a device id of its own and rows past 8192 jobs
+    raise on CUDA tensors, before any launch, and never fall back to the
+    plain round."""
+    class Custom(AdapTBFPolicy):
+        pass
+
+    args, _ = _mega_round("adaptbf", 64, seed=1, dev=cuda)
+    before = mega_ops.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mega_ops.mega_window_round(Custom(), *args[1:])
+    wide, _ = _mega_round("adaptbf", MAX_JOBS + 1, seed=2, dev=cuda)
+    with pytest.raises(NotImplementedError, match=str(MAX_JOBS)):
+        mega_ops.mega_window_round(*wide)
+    bad = list(args)
+    bad[8] = AllocatorState(*(x[:, :8].contiguous() for x in args[8]))
+    with pytest.raises(ValueError, match="O, J"):
+        mega_ops.mega_window_round(*bad)
+    assert mega_ops.launches == before
+
+
+def test_simulate_fleet_mega_path_matches_plain_path(cuda):
+    """serve_backend="mega" launches the megakernel once a window and
+    nothing else, and matches the plain path; coded equals direct."""
+    scn = random_fleet(3, n_ost=8, n_jobs=300, profile="mixed",
+                       duration_s=1.0)
+    args = (scn.nodes, scn.issue_rate, scn.volume, scn.capacity_per_tick,
+            scn.max_backlog)
+    fw_ops.launches = alloc_ops.launches = mega_ops.launches = 0
+    mega = simulate_fleet(FleetConfig(serve_backend="mega"), *args)
+    n_windows = mega.served.shape[0]
+    assert (mega_ops.launches, fw_ops.launches, alloc_ops.launches) == (
+        n_windows, 0, 0)
+    plain = simulate_fleet(FleetConfig(), *args, device="cuda")
+    coded = simulate_fleet(FleetConfig(control="coded",
+                                       serve_backend="mega"), *args,
+                           control_code=0)
+    for f in ("served", "demand", "alloc", "record", "queue_final"):
+        a, b = getattr(mega, f), getattr(plain, f)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3, equal_nan=True,
+                                   msg=f)
+        assert torch.equal(getattr(coded, f), a), f
 
 
 def test_simulate_fleet_kernel_path_matches_plain_path(cuda):

@@ -10,7 +10,8 @@ plain versions of its kernels, against the reference engine.
 * Other options: the kernel backends' strings on the CPU, ``n_windows``
   tiling, a fault plan (outage plus telemetry loss), ``simulate`` as the
   O=1 view.
-* Carry across: a reference carry after k windows continues in the port.
+* Carry across: a reference carry after k windows continues in the port,
+  a coded one too.
 * Device rule: ``device=None`` needs a GPU.
 """
 import jax
@@ -20,6 +21,7 @@ import pytest
 import torch
 from test_invariants import WINDOW_TICKS, _build_case, _check_invariants
 
+from repro.core.policies import CodedPolicy as JCodedPolicy
 from repro.core.policies import PolicyContext as JContext
 from repro.core.policies import get_policy as jget_policy
 from repro.storage import FleetConfig as JConfig
@@ -38,7 +40,7 @@ from repro_torch.storage import (
     simulate_fleet,
     window_step,
 )
-from repro_torch.core.policies import PolicyContext
+from repro_torch.core.policies import CodedPolicy, PolicyContext
 
 torch.set_num_threads(1)
 
@@ -273,20 +275,79 @@ def test_device_none_needs_a_gpu(monkeypatch):
                  volume[0], backlog[0])
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(telemetry="streaming"), NotImplementedError),
-    (dict(partition="ost_shard"), NotImplementedError),
-    (dict(serve_backend="mega"), NotImplementedError),
-    (dict(control="coded"), NotImplementedError),
-    (dict(serve_backend="warp"), ValueError),
-    (dict(partition="mesh"), ValueError),
+@pytest.mark.parametrize("kw,code,err,match", [
+    (dict(telemetry="streaming"), None, NotImplementedError, "ROADMAP"),
+    (dict(partition="ost_shard"), None, NotImplementedError, "ROADMAP"),
+    (dict(control="coded"), None, ValueError, "requires control_code"),
+    (dict(), 0, ValueError, 'requires cfg.control == "coded"'),
+    (dict(serve_backend="warp"), None, ValueError, "unknown"),
+    (dict(partition="mesh"), None, ValueError, "unknown"),
 ])
-def test_unported_and_unknown_options_raise(kw, err):
+def test_unported_and_unknown_options_raise(kw, code, err, match):
+    """Options not ported name their ROADMAP item; coded dispatch follows
+    the reference's rules (a code exactly when ``control="coded"``)."""
     case = _build_case(1, seed=3)
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "unknown"):
+    with pytest.raises(err, match=match):
         simulate_fleet(FleetConfig(window_ticks=WINDOW_TICKS, **kw), *case,
-                       device="cpu")
+                       control_code=code, device="cpu")
+
+
+def test_reference_coded_carry_continues_in_the_port():
+    """A coded carry written by the reference (``.policy_state[i]...``
+    leaves, a stateless member leaving none) continues in the port: three
+    reference windows under ``control="coded"``, the carry handed over by
+    its pytree path strings, then one more window on each side (atol
+    1e-4, one window is open loop)."""
+    case = _build_case(2, seed=41)
+    nodes, rates, volume, caps, backlog = case
+    o, j = volume.shape
+    members, code, k = ("static", "adaptbf", "aimd"), 1, 3
+    jcfg = JConfig(window_ticks=WINDOW_TICKS, control="coded",
+                   coded_policies=members)
+    jpol = JCodedPolicy(members)
+    jctx = JContext(nodes=jnp.broadcast_to(jnp.asarray(nodes), (o, j)),
+                    cap_w=jnp.asarray(caps) * WINDOW_TICKS,
+                    control_code=jnp.int32(code))
+    step = jax.jit(lambda c, r: jsim.window_step(
+        jcfg, jpol, jctx, jnp.asarray(caps), jnp.asarray(backlog), c, r))
+    rates_w = rates.reshape(-1, WINDOW_TICKS, o, j)
+    jcarry = jsim.init_carry(jcfg, jpol, jctx, jnp.asarray(volume))
+    for w in range(k):
+        jcarry, _ = step(jcarry, jnp.asarray(rates_w[w]))
+    flat, _ = jax.tree_util.tree_flatten_with_path(jcarry)
+    leaves = {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
+    assert ".policy_state[1].record" in leaves
+    assert ".policy_state[2]" in leaves         # aimd's rate leaf
+
+    policy = CodedPolicy(members)
+    with pytest.raises(ValueError, match="CodedPolicy"):
+        carry_from_numpy(leaves, device="cpu")
+    carry = carry_from_numpy(leaves, device="cpu", policy=policy)
+    assert carry.policy_state[0] == ()
+    back = carry_to_numpy(carry)
+    assert list(back) == list(leaves)           # same paths, same order
+    for key, x in leaves.items():
+        np.testing.assert_array_equal(back[key], x, err_msg=key)
+
+    jcarry2, jout = step(jcarry, jnp.asarray(rates_w[k]))
+    ctx = PolicyContext(nodes=torch.from_numpy(nodes).expand(o, j).contiguous(),
+                        cap_w=torch.from_numpy(caps) * WINDOW_TICKS,
+                        control_code=code)
+    carry2, out = window_step(
+        FleetConfig(window_ticks=WINDOW_TICKS, control="coded",
+                    coded_policies=members), policy, ctx,
+        torch.from_numpy(caps), torch.from_numpy(backlog), carry,
+        torch.from_numpy(np.ascontiguousarray(rates_w[k])))
+    for name, g, w in zip(out._fields, out, jout):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   err_msg=name)
+    flat2, _ = jax.tree_util.tree_flatten_with_path(jcarry2)
+    got2 = carry_to_numpy(carry2)
+    assert list(got2) == [jax.tree_util.keystr(p) for p, _ in flat2]
+    for p, x in flat2:
+        key = jax.tree_util.keystr(p)
+        np.testing.assert_allclose(got2[key], np.asarray(x), atol=1e-4,
+                                   err_msg=key)
 
 
 def test_fault_plan_must_cover_the_run_horizon():
