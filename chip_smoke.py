@@ -5,29 +5,49 @@
 
 Phases, each of which raises on failure (the run then exits non-zero):
 
-1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   nvcc per source, in parallel.
+1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source, in parallel, and print ptxas's registers and spills.
 2. Hold each kernel against its plain PyTorch version on the card, on
-   seeded fixtures at the main path's shapes (O=256 OSTs, J=4096 jobs,
-   W=10 ticks per window): the allocation over chained rounds, so its
-   remainder carry is read and checked too; the window megakernel for
-   each built-in policy and for coded dispatch, over three chained rounds
-   from an evolved state and one round with a fault row.
-3. Drive the main paths on a seeded 256-OST x 4096-job fleet
-   (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled to
-   60) under AdapTBF, each with every launch counter set to 0 just before
-   it and read just after: ``serve_backend="fused"`` with
+   seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
+   J=4096 jobs, W=10 ticks per window): the allocation over chained
+   rounds, so its remainder carry is read and checked too; the window
+   megakernel for each built-in policy and for coded dispatch, over three
+   chained rounds from an evolved state and one round with a fault row.
+   LM kernels, at the tolerances of the reference's kernel tests
+   (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
+   attention causal at the prefill's shape (B=4, S=2048, 32 heads of 80)
+   in both types, non-causal GQA 8/2 and a ragged S=1000 at D=96; flash
+   decode at the engine's shape with lengths {1, 37, 128, 128}, 8
+   sequences of up to 32768 positions (2.7 GB of KV) and GQA 8/2; the SSD
+   scan at the prefill's shape (80 heads of P=64, N=64) in both types and
+   a ragged S=2000.
+3. Drive the main paths, each with every launch counter set to 0 just
+   before it and read just after.  The fleet: a seeded 256-OST x 4096-job
+   fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
+   to 60) under AdapTBF: ``serve_backend="fused"`` with
    ``alloc_backend="pallas"`` (one launch of each of the first two kernels
    a window), compared with the plain ``("scan", "core")`` run on the card
    (the first window, alloc and record in every window, per-OST horizon
    service); then ``serve_backend="mega"`` (one megakernel launch a
    window and nothing else), compared with the fused/pallas run the same
    way; then ``control="coded"`` with AdapTBF's code under "mega", which
-   must equal the direct run bitwise.
-4. Time each kernel and its plain version with CUDA events, and the
-   main-path configurations in windows per second.
-5. Trace one fused/pallas run and one mega run with ``torch.profiler``:
-   device busy time, idle share and device time by kernel.
+   must equal the direct run bitwise.  The LM serving path: zamba2-2.7b at
+   full width and depth on weights from ``torch.Generator(0)``; the
+   prefill step (``make_prefill_step``, bfloat16, B=4 x S=2048; 9 flash
+   attention and 54 SSD launches) against the plain path on the card,
+   with float32 runs of both as the yardstick; then the serving
+   launcher's workload through ``ServingEngine`` and
+   ``AdapTBFController`` (8 requests, 16 new tokens, 4 slots, float32; 9
+   flash decode launches a step), the plain path teacher-forced on the
+   kernel run's inputs and compared at every step.
+4. Time each kernel and its plain version with CUDA events (and, for the
+   attention kernels, ``scaled_dot_product_attention`` on the same inputs
+   as the library yardstick), the fleet paths in windows per second, the
+   prefill in tokens per second on both paths and the engine in
+   generated tokens per second.
+5. Trace one fused/pallas run, one mega run and one engine run with
+   ``torch.profiler``: device busy time, idle share and device time by
+   kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel.  Without a CUDA
@@ -52,6 +72,12 @@ N_WINDOWS = 60                    # 20 trace windows, tiled three times
 DEVICE = "cuda"
 HBM_BYTES_S = 3.35e12             # H100 SXM device memory rate
 FP32_OPS_S = 67e12                # H100 SXM float32 rate outside tensor cores
+BF16_OPS_S = 989e12               # H100 SXM dense bfloat16 tensor-core rate
+LM_ARCH = "zamba2-2.7b"           # the LM serving path's model, full width
+PREFILL_B, PREFILL_S = 4, 2048    # the prefill step's batch
+SERVE = dict(requests=8, prompt=4, max_new=16, slots=4, max_len=128)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def _fail(msg: str) -> int:
@@ -153,8 +179,8 @@ def mega_work(o, j, w):
     return 4 * ((w + 15) * o * j + 2 * o), serve_ops + alloc_ops
 
 
-def bound_ms(n_bytes, n_ops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
+def bound_ms(n_bytes, n_ops, ops_s=FP32_OPS_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -382,7 +408,7 @@ def check_main_path(torch, name, res, inputs, cap_w):
         raise AssertionError(f"{name}: served more than a job's volume")
 
 
-def trace(torch, label, run):
+def trace(torch, label, run, what=f"{N_WINDOWS} windows"):
     """One run under ``torch.profiler``: device busy time, idle share and
     device time by kernel, printed; returns nothing."""
     from torch.autograd import DeviceType
@@ -394,19 +420,361 @@ def trace(torch, label, run):
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): a CPU op's row repeats
     # the device time of the kernels it launched
-    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0}
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_us = {e.key: e.self_device_time_total for e in device}
     busy = sum(device_us.values()) / 1e6
     if busy == 0:
         print(f"trace ({label}): the profiler recorded no device time "
               "(not measured)")
         return
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
-    print(f"trace ({label}, {N_WINDOWS} windows, {wall * 1e3:.1f} ms wall "
-          f"under the profiler): device busy {busy * 1e3:.2f} ms, idle share "
+    print(f"trace ({label}, {what}, {wall * 1e3:.1f} ms wall "
+          f"under the profiler): {sum(e.count for e in device)} device "
+          f"operations, device busy {busy * 1e3:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}; device time by kernel: "
           + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+# ------------------------------------------------------- the LM serving path
+
+
+def close_err(got, want, tol):
+    """max |got - want| (float64), after raising unless every element is
+    within atol + rtol * |want| (atol = rtol = ``tol``, the reference's
+    kernel-test rule) and both are finite."""
+    g, w = got.double(), want.double()
+    if not bool(g.isfinite().all()):
+        raise AssertionError("non-finite kernel output")
+    diff = (g - w).abs()
+    if bool((diff > tol + tol * w.abs()).any()):
+        raise AssertionError(f"off by {float(diff.max())} (atol = rtol = {tol})")
+    return float(diff.max())
+
+
+def _randn(torch, gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def check_attention_kernel(torch, attn_ops, dev):
+    """B4 against its plain version: causal at the prefill's shape in both
+    types, non-causal GQA 8/2 at D=64, a ragged S=1000 at D=96.  Returns
+    the prefill-shape bfloat16 inputs (for timing) and the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    cases = [(PREFILL_B, PREFILL_S, 32, 32, 80, True, dt)
+             for dt in ("float32", "bfloat16")]
+    cases += [(1, 512, 8, 2, 64, False, dt) for dt in ("float32", "bfloat16")]
+    cases += [(2, 1000, 4, 4, 96, True, dt) for dt in ("float32", "bfloat16")]
+    worst, timed = 0.0, None
+    for b, s, hq, hkv, d, causal, name in cases:
+        dt = getattr(torch, name)
+        q = _randn(torch, gen, (b, s, hq, d), dt)
+        k = _randn(torch, gen, (b, s, hkv, d), dt)
+        v = _randn(torch, gen, (b, s, hkv, d), dt)
+        o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+        wo, wl = attn_ops.ref.mha_lse(q, attn_ops.ref.broadcast_kv(k, hq),
+                                      attn_ops.ref.broadcast_kv(v, hq),
+                                      causal=causal)
+        e_o = close_err(o, wo, ATTN_TOL[name])
+        e_l = close_err(lse, wl, ATTN_TOL[name])
+        print(f"flash_attention kernel vs plain, B={b} S={s} Hq={hq} "
+              f"Hkv={hkv} D={d} causal={causal} {name}: max |err| o {e_o}, "
+              f"lse {e_l} (atol = rtol = {ATTN_TOL[name]})")
+        worst = max(worst, e_o)
+        if (s, name) == (PREFILL_S, "bfloat16"):
+            timed = (q, k, v)
+    return timed, worst
+
+
+def check_decode_kernel(torch, attn_ops, dev):
+    """B5 against its plain version: the engine's shape (4 slots, T=128,
+    32 heads of 80) with lengths {1, 37, 128, 128} in both types, 8
+    sequences of up to 32768 positions in bfloat16 (2.7 GB of KV), and GQA
+    8/2.  The caches are views of fused [B, T, Hkv * D] buffers, as the
+    model hands them.  Returns the engine-shape float32 inputs and the
+    largest error."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    cases = [(128, 32, 32, 80, (1, 37, 128, 128), dt)
+             for dt in ("float32", "bfloat16")]
+    cases += [(32768, 32, 32, 80, (32768, 30000, 1, 17, 20000, 32767, 5000,
+                                   12345), "bfloat16"),
+              (1024, 8, 2, 64, (1024, 1, 500, 999), "float32")]
+    worst, timed = 0.0, None
+    for t, hq, hkv, d, lens, name in cases:
+        dt = getattr(torch, name)
+        b = len(lens)
+        q = _randn(torch, gen, (b, 1, hq, d), dt)
+        kc = _randn(torch, gen, (b, t, hkv * d), dt).view(b, t, hkv, d)
+        vc = _randn(torch, gen, (b, t, hkv * d), dt).view(b, t, hkv, d)
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = attn_ops.decode_attention(q, kc, vc, length)
+        want = attn_ops.ref.decode_attention(
+            q, attn_ops.ref.broadcast_kv(kc, hq),
+            attn_ops.ref.broadcast_kv(vc, hq), length)
+        err = close_err(got, want, ATTN_TOL[name])
+        print(f"flash_decode kernel vs plain, B={b} T={t} Hq={hq} Hkv={hkv} "
+              f"D={d} lengths {list(lens)} {name}: max |err| {err} "
+              f"(atol = rtol = {ATTN_TOL[name]})")
+        worst = max(worst, err)
+        if t == 128 and name == "float32":
+            timed = (q, kc, vc, length)
+        if t == 32768:
+            # the long-cache case timed here, while its 2.7 GB are alive
+            ms = cuda_ms(lambda: attn_ops.decode_attention(q, kc, vc, length),
+                         reps=20)
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < length[:, None])[:, None, None, :]
+            lib = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask), reps=20)
+            bnd, by = bound_ms(*decode_work(lens, hq, hkv, d, 2))
+            print(f"flash_decode at B={b} T={t} (bfloat16, lengths above): "
+                  f"{ms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+                  f"bound {bnd:.4f} ms by {by} on {_smi()}")
+        del q, kc, vc, got, want
+    return timed, worst
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, dt):
+    x = _randn(torch, gen, (b, s, h, p), dt)
+    dtt = torch.nn.functional.softplus(
+        _randn(torch, gen, (b, s, h), torch.float32) - 1.0)
+    a = -torch.exp(torch.rand(h, generator=gen, device=gen.device) * 1.5)
+    B = (_randn(torch, gen, (b, s, n), torch.float32) * n ** -0.5).to(dt)
+    C = (_randn(torch, gen, (b, s, n), torch.float32) * n ** -0.5).to(dt)
+    d_skip = torch.linspace(0.5, 1.5, h, device=gen.device)
+    return x, dtt, a, B, C, d_skip
+
+
+def check_ssd_kernel(torch, ssd_ops, dev):
+    """B6 against its plain version: the prefill's shape (B=4, S=2048,
+    80 heads of P=64, N=64, chunks of 64) in both types, y and final state,
+    and a ragged S=2000.  Returns the prefill-shape bfloat16 inputs and the
+    largest error."""
+    gen = torch.Generator(device=dev).manual_seed(47)
+    cases = [(PREFILL_B, PREFILL_S, 80, 64, 64, dt)
+             for dt in ("float32", "bfloat16")]
+    cases += [(2, 2000, 80, 64, 64, dt) for dt in ("float32", "bfloat16")]
+    worst, timed = 0.0, None
+    for b, s, h, p, n, name in cases:
+        args = ssd_inputs(torch, gen, b, s, h, p, n, getattr(torch, name))
+        y, st = ssd_ops.ssd(*args[:5], d_skip=args[5])
+        wy, wst = ssd_ops.ref.ssd_chunked(*args[:5], d_skip=args[5])
+        e_y = close_err(y, wy, SSD_TOL[name])
+        e_s = close_err(st, wst, SSD_TOL[name])
+        print(f"ssd_scan kernel vs plain, B={b} S={s} H={h} P={p} N={n} "
+              f"{name}: max |err| y {e_y}, state {e_s} "
+              f"(atol = rtol = {SSD_TOL[name]})")
+        worst = max(worst, e_y, e_s)
+        if (s, name) == (PREFILL_S, "bfloat16"):
+            timed = args
+    return timed, worst
+
+
+def attention_work(b, s, h, d, elem):
+    """(bytes, operations) of causal attention: q, k, v read and o written
+    once, lse [B,S,H] float32 written once; 2*B*H*S^2*D operations (the
+    QK^T and PV products over the causal half)."""
+    return elem * 4 * b * s * h * d + 4 * b * s * h, 2 * b * h * s * s * d
+
+
+def decode_work(lengths, hq, hkv, d, elem):
+    """(bytes, operations) of one-token attention: the K and V rows below
+    each length read once, q read and o written once; 4*D operations a key
+    and query head."""
+    keys = sum(lengths)
+    return (elem * (2 * keys * hkv * d + 2 * len(lengths) * hq * d),
+            4 * keys * hq * d)
+
+
+def ssd_work(b, s, h, p, n, elem, q=64):
+    """(bytes, operations) of the chunked scan: x, B, C read and y written
+    once in the compute type, dt read and the state written once in
+    float32; NC (2 Q^2 N + 2 Q^2 P + 4 Q N P) operations a (sequence,
+    head)."""
+    nc = -(-s // q)
+    n_bytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h
+                                                                + b * h * n * p)
+    return n_bytes, b * h * nc * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
+
+
+def lm_main_path(torch, dev, counts, zero_counts):
+    """zamba2-2.7b at full width on seeded weights: the prefill step (bf16)
+    on the kernels and on the plain path, and in float32 both ways as the
+    yardstick; then the launcher's serving workload through ServingEngine
+    and AdapTBFController (float32), the plain path teacher-forced on the
+    kernel run's inputs.  Returns the numbers for the report."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.window_mega.ops import _leaves
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.storage import AdapTBFController
+    cfg = get_config(LM_ARCH)
+    out = {}
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in _leaves(params))
+    print(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, {cfg.ssm_heads} SSD heads of "
+          f"P={cfg.ssm_head_dim} N={cfg.ssm_state}; {n_params} parameters "
+          f"(analytic param_count {cfg.param_count()}), float32 on the card from "
+          f"torch.Generator(0) in {time.perf_counter() - t0:.1f} s")
+
+    # prefill ------------------------------------------------------------
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), device=dev)
+    batch = {"tokens": tokens}
+    logits = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        w = models.cast_params(params, dt)
+        for kernels in (True, False):
+            step = make_prefill_step(cfg, compute_dtype=dt, kernels=kernels)
+            zero_counts()
+            t0 = time.perf_counter()
+            lg = step(w, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counts()
+            want = ({"flash_attention": cfg.n_layers // cfg.shared_attn_every,
+                     "ssd_scan": cfg.n_layers} if kernels else {})
+            nonzero = {k: v for k, v in got.items() if v}
+            if nonzero != want:
+                raise AssertionError(f"prefill ({name}, kernels={kernels}): "
+                                     f"launches {got}, expected {want}")
+            if tuple(lg.shape) != (PREFILL_B, 1, cfg.vocab) or \
+                    not bool(lg.isfinite().all()):
+                raise AssertionError("prefill logits malformed")
+            logits[(name, kernels)] = lg[:, -1].double()
+            label = "kernel" if kernels else "plain"
+            print(f"prefill step, {name}, {label} path, B={PREFILL_B} "
+                  f"S={PREFILL_S}: launches {got}; first call {secs:.3f} s")
+            if name == "bfloat16":
+                out[f"prefill_launches_{label}"] = got
+                # steady-state time: the kernel path three times, the slow
+                # plain path once
+                reps = 3 if kernels else 1
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    step(w, batch)
+                torch.cuda.synchronize()
+                out[f"prefill_tok_s_{label}"] = (
+                    reps * PREFILL_B * PREFILL_S / (time.perf_counter() - t0))
+        del w
+    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref32 = logits[("float32", False)]
+    scale = float(ref32.abs().max())
+    e32 = float((logits[("float32", True)] - ref32).abs().max())
+    if e32 > 1e-3 * max(1.0, scale):
+        raise AssertionError(f"float32 prefill: kernel path off the plain "
+                             f"path by {e32} (max |logit| {scale})")
+    k16, p16 = logits[("bfloat16", True)], logits[("bfloat16", False)]
+    e16 = float((k16 - p16).abs().max())
+    ours, theirs = (k16 - ref32).abs(), (p16 - ref32).abs()
+    if ours.mean() > 1.25 * theirs.mean() or ours.max() > 2 * theirs.max():
+        raise AssertionError(
+            f"bfloat16 prefill: the kernel path is farther from the float32 "
+            f"logits (mean {float(ours.mean())}, max {float(ours.max())}) "
+            f"than the plain path (mean {float(theirs.mean())}, max "
+            f"{float(theirs.max())})")
+    agree16 = float((k16.argmax(-1) == p16.argmax(-1)).double().mean())
+    print(f"prefill last-token logits (max |logit| {scale:.3f}): float32 "
+          f"kernel vs plain max |err| {e32} (bound 1e-3 x max(1, max "
+          f"|logit|)); bfloat16 kernel vs plain max |err| {e16}, argmax "
+          f"agreement {agree16}; against the float32 plain logits, "
+          f"bfloat16 kernel path mean/max |err| {float(ours.mean()):.5f}/"
+          f"{float(ours.max()):.5f}, bfloat16 plain path "
+          f"{float(theirs.mean()):.5f}/{float(theirs.max()):.5f} (bound: "
+          f"mean within 1.25x, max within 2x)")
+    out.update(prefill_err_bf16=e16, prefill_err_f32=e32,
+               prefill_argmax_agree=agree16)
+
+    # serving ------------------------------------------------------------
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, cfg.vocab, SERVE["prompt"]).tolist(),
+             "interactive" if i % 2 == 0 else "batch")
+            for i in range(SERVE["requests"])]
+
+    def serve(record=None):
+        ctl = AdapTBFController(n_targets=1, capacity_rpc_per_s=2000,
+                                window_s=0.05, device=dev)
+        eng = ServingEngine(cfg, params, slots=SERVE["slots"],
+                            max_len=SERVE["max_len"], controller=ctl,
+                            classes={"interactive": 3.0, "batch": 1.0})
+        reqs = [Request(prompt=p, max_new_tokens=SERVE["max_new"], klass=k)
+                for p, k in work]
+        for r in reqs:
+            eng.submit(r)
+        decode = models.decode_step
+        if record is not None:
+            def recording(p, cache, cfg_, tokens, pos, **kw):
+                lg, cache = decode(p, cache, cfg_, tokens, pos, **kw)
+                record.append((tokens.clone(), pos.clone(), lg[:, -1].clone()))
+                return lg, cache
+            models.decode_step = recording
+        try:
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            models.decode_step = decode
+        return reqs, done, secs, ctl
+
+    steps_in = []
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    reqs, done, secs, ctl = serve(steps_in)
+    got = counts()
+    n_steps = len(steps_in)
+    want = {"flash_decode": n_steps * (cfg.n_layers // cfg.shared_attn_every)}
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"engine: launches {got}, expected {want}")
+    if len(done) != len(reqs) or any(len(r.output) != SERVE["max_new"]
+                                     for r in reqs):
+        raise AssertionError(f"engine answered {len(done)}/{len(reqs)}")
+    n_tok = sum(len(r.output) for r in reqs)
+    out.update(engine_launches=got, engine_steps=n_steps,
+               engine_tok_s=n_tok / secs, engine_answered=len(done),
+               engine_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               engine_windows=ctl.windows_run)
+    print(f"engine ({LM_ARCH}, float32, {SERVE}): answered "
+          f"{len(done)}/{len(reqs)}, {n_tok} tokens in {n_steps} steps, "
+          f"{secs:.3f} s ({n_tok / secs:.2f} generated tokens/s); AdapTBF "
+          f"windows {ctl.windows_run}; launches {got}; peak device memory "
+          f"{out['engine_peak_gib']:.2f} GiB")
+
+    # the plain path, teacher-forced on the kernel run's inputs
+    cache = models.init_cache(cfg, SERVE["slots"], SERVE["max_len"],
+                              dtype=torch.float32, device=dev)
+    worst, agree = 0.0, []
+    zero_counts()
+    for t, (tok, pos, lg) in enumerate(steps_in):
+        plg, cache = models.decode_step(params, cache, cfg, tok, pos,
+                                        dtype=torch.float32, kernels=False)
+        plg = plg[:, -1]
+        e = float((plg.double() - lg.double()).abs().max())
+        bound = 1e-3 * max(1.0, float(plg.abs().max()))
+        if e > bound:
+            raise AssertionError(f"engine step {t}: kernel path off the "
+                                 f"plain path by {e} > {bound}")
+        worst = max(worst, e)
+        agree.append(float((plg.argmax(-1) == lg.argmax(-1)).double().mean()))
+    if any(counts().values()):
+        raise AssertionError(f"plain replay launched kernels: {counts()}")
+    out.update(engine_err=worst, engine_argmax_agree=float(np.mean(agree)))
+    print(f"engine, plain path teacher-forced over the {n_steps} steps: "
+          f"logits max |err| {worst} (bound 1e-3 x max(1, max |logit|) a "
+          f"step), argmax agreement {np.mean(agree)}")
+
+    trace(torch, "engine", lambda: serve(), what=f"{n_steps} steps")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    return out
 
 
 def main() -> int:
@@ -423,7 +791,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
+    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.fleet_window import ops as fw_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.window_mega import ops as mega_ops
     from repro_torch.storage import (
         FLEET_CONTROL_CODES, FleetConfig, random_fleet, simulate_fleet)
@@ -432,13 +802,27 @@ def main() -> int:
     card = _smi()
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    counters = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
-                "window_mega": mega_ops}
+    fleet = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
+             "window_mega": mega_ops}
+    names = [*fleet, "flash_attention", "flash_decode", "ssd_scan"]
+
+    def counts():
+        """Every kernel wrapper's launch count."""
+        got = {name: mod.launches for name, mod in fleet.items()}
+        got.update(attn_ops.launches, ssd_scan=ssd_ops.launches)
+        return got
+
+    def zero_counts():
+        for mod in fleet.values():
+            mod.launches = 0
+        for name in attn_ops.launches:
+            attn_ops.launches[name] = 0
+        ssd_ops.launches = 0
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(list(counters))
-    print(f"build: {time.perf_counter() - t0:.1f} s (three kernels, one "
+    libs = _build.build(names)
+    print(f"build: {time.perf_counter() - t0:.1f} s (six kernels, one "
           "nvcc each, in parallel)")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -446,7 +830,12 @@ def main() -> int:
         for line in lines:
             entry = re.search(r"entry function .*_kernelILi(\d+)E(?:Li(\d+)E)?",
                               line)
-            if entry:                            # the template arguments
+            typed = re.search(r"entry function .*_kernelI(f|13__nv_bfloat16)"
+                              r"Li(\d+)E", line)
+            if typed:                            # element type, dim bound
+                kind = "float32" if typed.group(1) == "f" else "bfloat16"
+                print(f"  {name}, {kind}, dims up to {typed.group(2)}:")
+            elif entry:                          # the template arguments
                 case = (f", policy case {entry.group(2)}"
                         if entry.group(2) else "")
                 print(f"  {name}, {entry.group(1)} lanes a thread{case}:")
@@ -457,6 +846,9 @@ def main() -> int:
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
     al_args, al_err = check_alloc_kernel(torch, alloc_ops, dev)
     mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
+    fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
+    fd_args, fd_err = check_decode_kernel(torch, attn_ops, dev)
+    ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
 
     # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
@@ -484,12 +876,13 @@ def main() -> int:
 
     def counted(label, want, *config):
         """One run with every launch counter set to 0 just before it and
-        read just after; ``want`` maps each kernel to its expected count."""
-        for mod in counters.values():
-            mod.launches = 0
+        read just after; ``want`` maps each kernel to its expected count
+        (every other kernel: 0)."""
+        zero_counts()
         res = run(*config)
-        got = {name: mod.launches for name, mod in counters.items()}
+        got = counts()
         print(f"main path ({label}), {N_WINDOWS} windows: launches {got}")
+        want = {name: want.get(name, 0) for name in names}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         return res, got
@@ -563,6 +956,11 @@ def main() -> int:
     print(f"coded dispatch, code {code} (adaptbf), under mega: bitwise equal "
           "to direct adaptbf in served, demand, alloc, record, queue_final")
     del coded_res, mega_res
+    torch.cuda.empty_cache()
+
+    # 3b. the LM serving path: zamba2-2.7b prefill and engine ------------
+    lm = lm_main_path(torch, dev, counts, zero_counts)
+    torch.cuda.empty_cache()
 
     # 4. times -----------------------------------------------------------
     fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
@@ -574,6 +972,32 @@ def main() -> int:
     mega_ms = cuda_ms(lambda: mega_ops.mega_window_round(*mega_args), reps=20)
     mega_plain = cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
                          reps=3, groups=3)
+    fa_ms = cuda_ms(lambda: attn_ops.attention(*fa_args), reps=20)
+    fa_plain = cuda_ms(lambda: attn_ops.ref.mha(
+        fa_args[0], *(attn_ops.ref.broadcast_kv(x, 32) for x in fa_args[1:])),
+        reps=2, groups=3)
+    fa_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in fa_args), is_causal=True), reps=20)
+    q, kc, vc, length = fd_args
+    fd_ms = cuda_ms(lambda: attn_ops.decode_attention(q, kc, vc, length),
+                    reps=20)
+    fd_plain = cuda_ms(lambda: attn_ops.ref.decode_attention(
+        q, kc, vc, length), reps=20)
+    t_mask = (torch.arange(kc.shape[1], device=dev)[None, :]
+              < length[:, None])[:, None, None, :]
+    fd_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=t_mask), reps=20)
+    ssd_ms = cuda_ms(lambda: ssd_ops.ssd(*ssd_args[:5], d_skip=ssd_args[5]),
+                     reps=20)
+    ssd_plain = cuda_ms(lambda: ssd_ops.ref.ssd_chunked(
+        *ssd_args[:5], d_skip=ssd_args[5]), reps=2, groups=3)
+    lens = [int(x) for x in length.tolist()]
+    fa_b, fa_by = bound_ms(*attention_work(PREFILL_B, PREFILL_S, 32, 80, 2),
+                           BF16_OPS_S)
+    fd_b, fd_by = bound_ms(*decode_work(lens, 32, 32, 80, 4))
+    ssd_b, ssd_by = bound_ms(*ssd_work(PREFILL_B, PREFILL_S, 80, 64, 64, 2),
+                             BF16_OPS_S)
     rates = {}
     for serve, alloc in (("fused", "pallas"), ("mega", "core"),
                          ("scan", "core")):
@@ -594,6 +1018,22 @@ def main() -> int:
           f"{mega_plain:.4f} ms, bound {mega_b:.4f} ms by {mega_by})")
     print(f"main path windows/s at O={O} J={J} on {card}: "
           + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    print(f"LM kernel times on {card}: flash_attention (B={PREFILL_B} "
+          f"S={PREFILL_S} H=32 D=80 causal bfloat16) {fa_ms:.4f} ms (plain "
+          f"{fa_plain:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms, "
+          f"bound {fa_b:.4f} ms by {fa_by}); flash_decode (engine shape, 4 "
+          f"slots, T=128, lengths {lens}, float32) {fd_ms:.4f} ms (plain "
+          f"{fd_plain:.4f} ms, scaled_dot_product_attention {fd_lib:.4f} ms, "
+          f"bound {fd_b:.5f} ms by {fd_by}); ssd_scan (B={PREFILL_B} "
+          f"S={PREFILL_S} H=80 P=64 N=64 bfloat16) {ssd_ms:.4f} ms (plain "
+          f"{ssd_plain:.4f} ms, bound {ssd_b:.4f} ms by {ssd_by})")
+    print(f"{LM_ARCH} on {card}: prefill (B={PREFILL_B} S={PREFILL_S}, "
+          f"bfloat16) {lm['prefill_tok_s_kernel']:.1f} tokens/s on the "
+          f"kernels, {lm['prefill_tok_s_plain']:.1f} on the plain path; "
+          f"engine {lm['engine_tok_s']:.2f} generated tokens/s, "
+          f"{lm['engine_answered']}/{SERVE['requests']} requests answered; "
+          f"peak device memory {lm['prefill_peak_gib']:.2f} GiB over the "
+          f"prefill runs, {lm['peak_gib']:.2f} GiB over the engine runs")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -620,6 +1060,24 @@ def main() -> int:
          "launches": mega_launches["window_mega"], "max_abs_err": mega_err,
          "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
          "bound_by": mega_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/attention/kernel.py:79",
+         "launches": lm["prefill_launches_kernel"]["flash_attention"],
+         "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
+         "bound_ms": fa_b, "bound_by": fa_by, "library_ms": fa_lib},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/attention/kernel.py:184",
+         "launches": lm["engine_launches"]["flash_decode"],
+         "max_abs_err": fd_err, "ms": fd_ms, "plain_ms": fd_plain,
+         "bound_ms": fd_b, "bound_by": fd_by, "library_ms": fd_lib},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:78",
+         "launches": lm["prefill_launches_kernel"]["ssd_scan"],
+         "max_abs_err": ssd_err, "ms": ssd_ms, "plain_ms": ssd_plain,
+         "bound_ms": ssd_b, "bound_by": ssd_by, "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,138 @@
+"""Dispatching wrappers for the attention kernels: CUDA tensors launch the
+flash-attention forward (``kernels/csrc/flash_attention.cu``) or the
+one-token decode (``kernels/csrc/flash_decode.cu``); CPU tensors take the
+plain versions (``ref.py``); anything else raises.
+
+The kernels take KV with its own head count and map query head h to KV
+head ``h // (Hq // Hkv)``; the plain versions broadcast KV to the query
+heads first, as the reference's model does before its call.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.attention import ref
+from repro_torch.kernels.dispatch import route
+
+#: kernel launches made by ``attention``/``attention_lse`` (flash_attention)
+#: and by ``decode_attention`` (flash_decode), never by the plain versions
+launches = {"flash_attention": 0, "flash_decode": 0}
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _FlashParams(ctypes.Structure):
+    """``FlashParams`` of ``csrc/flash_attention.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "o", "lse")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
+                    "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh")]
+                + [(n, ctypes.c_int) for n in (
+                    "B", "S", "T", "Hq", "Hkv", "D", "causal", "dtype")]
+                + [("scale", ctypes.c_float)])
+
+
+class _DecodeParams(ctypes.Structure):
+    """``DecodeParams`` of ``csrc/flash_decode.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "length",
+                                                 "o")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "q_sb", "q_sh", "k_sb", "k_st", "k_sh", "v_sb", "v_st",
+                    "v_sh", "o_sb", "o_sh")]
+                + [(n, ctypes.c_int) for n in (
+                    "B", "T", "Hq", "Hkv", "D", "dtype")]
+                + [("scale", ctypes.c_float)])
+
+
+def _check(q, k, v):
+    """Raise unless q [B,*,Hq,D] and k/v [B,T,Hkv,D] are what the kernels
+    take: one float32 or bfloat16 type, Hq a multiple of Hkv, D <= 128,
+    the head dim contiguous."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the attention kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype} but q is {q.dtype}")
+        if x.ndim != 4 or q.ndim != 4:
+            raise ValueError("q, k and v must be [B, S, H, D] tensors")
+    b, _, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if hq % k.shape[2]:
+        raise ValueError(f"{hq} query heads are not a multiple of "
+                         f"{k.shape[2]} KV heads")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+
+
+def attention_lse(q, k, v, *, causal: bool = True):
+    """GQA flash attention with its log-sum-exp.  q [B,S,Hq,D]; k/v
+    [B,T,Hkv,D].  Returns (o [B,S,Hq,D] in q's type, lse [B,S,Hq]
+    float32)."""
+    if not route(q, k, v):
+        return ref.mha_lse(q, ref.broadcast_kv(k, q.shape[2]),
+                           ref.broadcast_kv(v, q.shape[2]), causal=causal)
+    _check(q, k, v)
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
+    p = _FlashParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], b, s, t, hq, hkv, d, int(causal), _DTYPES[q.dtype],
+        d ** -0.5)
+    _build.launch("flash_attention", [ctypes.POINTER(_FlashParams),
+                                      ctypes.c_void_p], ctypes.byref(p),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    launches["flash_attention"] += 1
+    return o, lse
+
+
+def attention(q, k, v, *, causal: bool = True):
+    """GQA attention.  q [B,S,Hq,D]; k/v [B,T,Hkv,D] -> [B,S,Hq,D]."""
+    return attention_lse(q, k, v, causal=causal)[0]
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """One-token attention.  q [B,1,Hq,D]; caches [B,T,Hkv,D] (any strides
+    with the head dim contiguous, e.g. a view of the fused [B,T,Hkv*D]
+    cache); length [B] int32: positions >= length are masked.  Returns
+    [B,1,Hq,D] in q's type."""
+    if not route(q, k_cache, v_cache, length):
+        hq = q.shape[2]
+        return ref.decode_attention(
+            q, ref.broadcast_kv(k_cache, hq).to(q.dtype),
+            ref.broadcast_kv(v_cache, hq).to(q.dtype), length)
+    _check(q, k_cache, v_cache)
+    b, one, hq, d = q.shape
+    if one != 1:
+        raise ValueError(f"decode takes one query token, got {one}")
+    if length.dtype != torch.int32 or tuple(length.shape) != (b,) \
+            or not length.is_contiguous():
+        raise ValueError(f"length must be a contiguous int32 [{b}] tensor")
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    o = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    p = _DecodeParams(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        length.data_ptr(), o.data_ptr(), q.stride(0), q.stride(2),
+        *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0),
+        o.stride(2), b, t, hq, hkv, d, _DTYPES[q.dtype], d ** -0.5)
+    _build.launch("flash_decode", [ctypes.POINTER(_DecodeParams),
+                                   ctypes.c_void_p], ctypes.byref(p),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    launches["flash_decode"] += 1
+    return o
+

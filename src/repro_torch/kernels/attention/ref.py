@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the attention kernels: the blockwise
+online-softmax forward (``_fwd``, returning o and lse) and one-token
+attention over a KV cache, op for op the reference package's
+``kernels/attention/ref.py``.  The backward waits for training (ROADMAP.md,
+queue A, "LM stack: training").
+
+Head convention, as in the reference: q/k/v all carry H = n_q_heads (the
+wrapper in ``ops.py`` broadcasts KV heads to query heads first):
+  q: [B, S, H, D]   k/v: [B, T, H, D]
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _blocks(x, block):
+    """Zero-pad axis 1 to a multiple of ``block``; returns [B, n, block, ...]."""
+    b, t = x.shape[0], x.shape[1]
+    n = (t + block - 1) // block
+    pad = n * block - t
+    if pad:
+        x = torch.cat([x, x.new_zeros((b, pad) + tuple(x.shape[2:]))], dim=1)
+    return x.reshape((b, n, block) + tuple(x.shape[2:])), n
+
+
+def _fwd(q, k, v, causal: bool, block_kv: int):
+    """Returns (o [B,S,H,D] in q's dtype, lse [B,S,H] float32)."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    scale = d ** -0.5
+    kb, n = _blocks(k, block_kv)          # [B,n,Bk,H,D]
+    vb, _ = _blocks(v, block_kv)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((b, s, h), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, s, h), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+    for i in range(n):
+        k_i, v_i = kb[:, i], vb[:, i]
+        logits = torch.einsum("bshd,bthd->bsht", q, k_i) * scale
+        kv_pos = i * block_kv + torch.arange(block_kv, device=q.device)[None, :]
+        valid = kv_pos < t
+        if causal:
+            valid = valid & (kv_pos <= q_pos)
+        logits = logits.masked_fill(~valid[None, :, None, :], NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bsht,bthd->bshd", p.to(v_i.dtype), v_i)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    o = (acc / l_safe[..., None]).to(q.dtype)
+    lse = m + torch.log(l_safe)
+    return o, lse
+
+
+def mha_lse(q, k, v, *, causal: bool = True, block_kv: int = 1024):
+    """Flash attention (plain) with its log-sum-exp.  q [B,S,H,D]; k/v
+    [B,T,H,D].  Returns (o [B,S,H,D], lse [B,S,H] float32)."""
+    assert q.shape[2] == k.shape[2], "broadcast KV to query heads first"
+    block_kv = min(block_kv, max(k.shape[1], 128))
+    return _fwd(q, k, v, causal, block_kv)
+
+
+def mha(q, k, v, *, causal: bool = True, block_kv: int = 1024):
+    """Flash attention (plain).  q [B,S,H,D]; k/v [B,T,H,D]."""
+    return mha_lse(q, k, v, causal=causal, block_kv=block_kv)[0]
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """One-token attention: q [B,1,H,D] over cache [B,T,H,D], positions
+    >= ``length`` masked out."""
+    d = q.shape[-1]
+    t = k_cache.shape[1]
+    logits = torch.einsum("bshd,bthd->bsht", q, k_cache) * (d ** -0.5)
+    valid = torch.arange(t, device=q.device)[None, :] < length[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits.to(torch.float32), dim=-1)
+    out = torch.einsum("bsht,bthd->bshd", w.to(v_cache.dtype), v_cache)
+    return out.to(q.dtype)
+
+
+def broadcast_kv(k, n_q: int):
+    """[B,T,Hkv,D] -> [B,T,Hq,D] by group broadcast (a view when the group
+    is 1, a copy otherwise)."""
+    b, t, hkv, d = k.shape
+    g = n_q // hkv
+    if g == 1:
+        return k
+    return k[:, :, :, None, :].expand(b, t, hkv, g, d).reshape(b, t, n_q, d)

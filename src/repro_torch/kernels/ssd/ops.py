@@ -1,0 +1,98 @@
+"""Dispatching wrappers for the Mamba-2 SSD: CUDA tensors launch the chunked
+scan kernel (``kernels/csrc/ssd_scan.cu``), CPU tensors take the plain
+version (``ref.py``), anything else raises.  The one-token update is plain
+PyTorch on every device, as in the reference."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.ssd import ref
+
+#: kernel launches made by ``ssd`` (never by the plain version)
+launches = 0
+
+CHUNK = 64          # the kernel's chunk length
+MAX_HEAD_DIM = 64   # P
+MAX_STATE = 128     # N
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _SsdParams(ctypes.Structure):
+    """``SsdParams`` of ``csrc/ssd_scan.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+                    "x", "dt", "a", "bm", "cm", "d_skip", "y", "state")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "x_sb", "x_ss", "x_sh", "dt_sb", "dt_ss", "b_sb", "b_ss",
+                    "c_sb", "c_ss", "y_sb", "y_ss", "y_sh")]
+                + [(n, ctypes.c_int) for n in ("B", "S", "H", "P", "N",
+                                               "dtype")])
+
+
+def _check(x, dt, a, B, C):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the SSD kernel takes float32 or bfloat16 x, got "
+                        f"{x.dtype}")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    for name, t, shape, dtype in (("dt", dt, (b, s, h), torch.float32),
+                                  ("a", a, (h,), torch.float32),
+                                  ("B", B, (b, s, n), x.dtype),
+                                  ("C", C, (b, s, n), x.dtype)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous")
+    if x.stride(3) != 1:
+        raise ValueError("x's head dim must be contiguous")
+    if p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"the SSD kernel takes P <= {MAX_HEAD_DIM} and "
+                         f"N <= {MAX_STATE}, got P={p}, N={n}")
+
+
+def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
+    """Chunked SSD scan (prefill).  x [B,S,H,P]; dt [B,S,H] float32; a [H]
+    float32; B/C [B,S,N] in x's type; d_skip [H] or None.  Returns
+    (y [B,S,H,P] in x's type, final state [B,H,P,N]: float32 from the
+    kernel, x's type from the plain version, as in the reference)."""
+    global launches
+    if not route(x, dt, a, B, C):
+        return ref.ssd_chunked(x, dt, a, B, C, d_skip=d_skip,
+                               initial_state=initial_state, chunk=chunk)
+    if initial_state is not None:
+        raise NotImplementedError(
+            "the SSD kernel starts from a zero state; a warm-started scan "
+            "(initial_state) is not ported to the card (ROADMAP.md, queue A, "
+            "\"LM stack\")")
+    if chunk != CHUNK:
+        raise ValueError(f"the SSD kernel runs chunks of {CHUNK}, got "
+                         f"chunk={chunk}")
+    _check(x, dt, a, B, C)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    skip = (torch.zeros(h, dtype=torch.float32, device=x.device)
+            if d_skip is None else d_skip.to(torch.float32).contiguous())
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    prm = _SsdParams(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
+        C.data_ptr(), skip.data_ptr(), y.data_ptr(), state.data_ptr(),
+        *x.stride()[:3], *dt.stride()[:2], *B.stride()[:2], *C.stride()[:2],
+        *y.stride()[:3], b, s, h, p, n, _DTYPES[x.dtype])
+    _build.launch("ssd_scan", [ctypes.POINTER(_SsdParams), ctypes.c_void_p],
+                  ctypes.byref(prm),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    launches += 1
+    return y, state.transpose(2, 3)
+
+
+def ssd_update(state, x_t, dt_t, a, B_t, C_t, d_skip=None):
+    """O(1) one-token decode update (plain PyTorch on every device)."""
+    return ref.ssd_update(state, x_t, dt_t, a, B_t, C_t, d_skip=d_skip)

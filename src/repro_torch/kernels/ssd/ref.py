@@ -1,0 +1,113 @@
+"""Plain PyTorch versions of the Mamba-2 SSD (state-space duality) scan
+[arXiv:2405.21060], op for op the reference package's ``kernels/ssd/ref.py``.
+
+Chunked formulation: within a chunk of length Q the recurrence is expanded as
+a masked quadratic form; across chunks the state h [B,H,P,N] is carried by a
+short loop.  Single B/C group (n_groups=1).
+
+  x:  [B, S, H, P]   (P = head dim)
+  dt: [B, S, H]      (> 0, already softplus'ed + bias)
+  a:  [H]            (< 0, = -exp(a_log))
+  B, C: [B, S, N]    (N = state dim)
+
+``ssd_chunked`` is the prefill path; ``ssd_update`` is the O(1) one-token
+decode path (plain on every device, as in the reference).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _pad_seq(x, pad):
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))],
+                     dim=1)
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    d_skip: Optional[torch.Tensor] = None,
+    initial_state: Optional[torch.Tensor] = None,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B,S,H,P], final_state [B,H,P,N] in x's dtype)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    orig_s = s
+    pad = (-s) % chunk
+    if pad:
+        x, dt, B, C = (_pad_seq(t, pad) for t in (x, dt, B, C))  # dt=0: no-op steps
+        s = s + pad
+    nc = s // chunk
+    dtype = x.dtype
+
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h).to(torch.float32)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+
+    dA = dtc * a.to(torch.float32)                   # [b,nc,q,h], <= 0
+    cum = torch.cumsum(dA, dim=2)                    # running within-chunk decay
+    seg_total = cum[:, :, -1, :]                     # [b,nc,h]
+    xw = xc * dtc[..., None].to(dtype)               # dt-weighted inputs
+
+    # ---- intra-chunk (quadratic, masked) ------------------------------------
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # [b,nc,q,q]
+    # exponent <= 0 on the valid (lower) triangle; the clamp keeps the masked
+    # upper triangle from overflowing to inf
+    decay = torch.exp(torch.clamp_max(
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], 0.0))  # [b,nc,q,q,h]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    w = torch.where(tri[None, None, :, :, None], scores[..., None] * decay,
+                    torch.zeros((), dtype=torch.float32, device=x.device))
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w.to(dtype), xw)
+
+    # ---- per-chunk end states ------------------------------------------------
+    state_decay = torch.exp(seg_total[:, :, None, :] - cum)        # [b,nc,q,h]
+    h_chunk = torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bc,
+                           state_decay.to(dtype), xw)              # [b,nc,h,p,n]
+
+    # ---- inter-chunk scan ----------------------------------------------------
+    gamma = torch.exp(seg_total)                     # [b,nc,h]
+    if initial_state is None:
+        h_prev = torch.zeros((b, h, p, n), dtype=dtype, device=x.device)
+    else:
+        h_prev = initial_state.to(dtype)
+    y_inter = []
+    for c in range(nc):
+        y_inter.append(torch.einsum(
+            "bqn,bqh,bhpn->bqhp", Cc[:, c], torch.exp(cum[:, c]).to(dtype),
+            h_prev))
+        h_prev = h_prev * gamma[:, c, :, None, None].to(dtype) + h_chunk[:, c]
+    y = y_intra + torch.stack(y_inter, dim=1)
+    if d_skip is not None:
+        y = y + d_skip[None, None, None, :, None].to(dtype) * xc
+    y = y.reshape(b, s, h, p)[:, :orig_s]
+    return y.to(x.dtype), h_prev
+
+
+def ssd_update(
+    state: torch.Tensor,
+    x_t: torch.Tensor,
+    dt_t: torch.Tensor,
+    a: torch.Tensor,
+    B_t: torch.Tensor,
+    C_t: torch.Tensor,
+    d_skip: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  state [B,H,P,N], x_t [B,H,P], dt_t [B,H], B_t/C_t [B,N].
+    Returns (new_state, y [B,H,P])."""
+    dt_t = dt_t.to(torch.float32)
+    g = torch.exp(dt_t * a.to(torch.float32))       # [B,H]
+    state = state * g[..., None, None].to(state.dtype) + torch.einsum(
+        "bn,bh,bhp->bhpn", B_t, dt_t.to(x_t.dtype), x_t)
+    y = torch.einsum("bn,bhpn->bhp", C_t, state)
+    if d_skip is not None:
+        y = y + d_skip[None, :, None].to(y.dtype) * x_t
+    return state, y

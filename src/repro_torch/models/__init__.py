@@ -1,0 +1,26 @@
+"""Composable model definitions (plain dictionaries of tensors)."""
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.model import (
+    cache_defs,
+    cast_params,
+    decode_step,
+    forward,
+    forward_hidden,
+    init_cache,
+    init_params,
+    model_defs,
+    params_from_numpy,
+)
+
+__all__ = [
+    "ModelConfig",
+    "model_defs",
+    "init_params",
+    "params_from_numpy",
+    "cast_params",
+    "forward",
+    "forward_hidden",
+    "init_cache",
+    "cache_defs",
+    "decode_step",
+]

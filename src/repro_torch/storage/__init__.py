@@ -1,5 +1,6 @@
 """Storage substrate: the discrete-time fleet simulator, client striping
-policies and the seeded scenario generator."""
+policies, the seeded scenario generator and the AdapTBF I/O control plane
+for the framework's own traffic."""
 from repro_torch.core.policies import (
     ControlPolicy,
     control_codes,
@@ -8,6 +9,7 @@ from repro_torch.core.policies import (
     register_policy,
 )
 from repro_torch.storage import faults, scengen
+from repro_torch.storage.controller import RPC_BYTES, AdapTBFController
 from repro_torch.storage.faults import FaultPlan, no_faults, random_fault_plan
 from repro_torch.storage.scengen import PROFILES, JobSpec, Trace, build_fleet, random_fleet
 from repro_torch.storage.simulator import (
@@ -37,6 +39,8 @@ __all__ = [
     "list_policies",
     "register_policy",
     "faults",
+    "RPC_BYTES",
+    "AdapTBFController",
     "scengen",
     "FaultPlan",
     "no_faults",

@@ -2,7 +2,9 @@
 at widths that take every lanes-per-thread variant the kernels compile
 (J = 1 to the 8192 maximum) -- the window megakernel for every policy case
 and for coded dispatch -- plus the wrappers' input checks and the kernel
-paths of ``simulate_fleet``.
+paths of ``simulate_fleet``; and the LM kernels (flash attention, flash
+decode, the SSD scan) over head dims 64-128, GQA groups 1 and 4, ragged
+lengths and both element types, with their wrappers' input checks.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -238,3 +240,126 @@ def test_simulate_fleet_kernel_path_matches_plain_path(cuda):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3, equal_nan=True,
                                    msg=f)
+
+
+# ------------------------------------------------------------ LM kernels
+
+from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_flash_attention_matches_plain(cuda, d, group, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(d + group)
+    b, s, hq = 2, 200, 8                      # S ragged against 64-row tiles
+    q = _rand(gen, (b, s, hq, d), dtype)
+    k = _rand(gen, (b, s, hq // group, d), dtype)
+    v = _rand(gen, (b, s, hq // group, d), dtype)
+    before = attn_ops.launches["flash_attention"]
+    o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+    assert attn_ops.launches["flash_attention"] == before + 1
+    wo, wl = attn_ops.ref.mha_lse(q, attn_ops.ref.broadcast_kv(k, hq),
+                                  attn_ops.ref.broadcast_kv(v, hq),
+                                  causal=causal)
+    tol = ATTN_TOL[dtype]
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wl, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_flash_decode_matches_plain(cuda, d, group, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(d * group)
+    t, hq = 300, 8
+    lens = [300, 1, 37, 0, 299]
+    b = len(lens)
+    hkv = hq // group
+    q = _rand(gen, (b, 1, hq, d), dtype)
+    kc = _rand(gen, (b, t, hkv * d), dtype).view(b, t, hkv, d)
+    vc = _rand(gen, (b, t, hkv * d), dtype).view(b, t, hkv, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = attn_ops.launches["flash_decode"]
+    got = attn_ops.decode_attention(q, kc, vc, length)
+    assert attn_ops.launches["flash_decode"] == before + 1
+    want = attn_ops.ref.decode_attention(
+        q, attn_ops.ref.broadcast_kv(kc, hq), attn_ops.ref.broadcast_kv(vc, hq),
+        length)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", [(16, 16), (64, 64), (32, 100), (64, 128)])
+@pytest.mark.parametrize("s", [64, 200])
+def test_ssd_scan_matches_plain(cuda, s, p, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + p + n)
+    b, h = 2, 3
+    x = _rand(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32)
+                                      - 1.0)
+    a = -torch.exp(torch.rand(h, generator=gen, device=cuda) * 1.5)
+    B = (_rand(gen, (b, s, n), torch.float32) * n ** -0.5).to(dtype)
+    C = (_rand(gen, (b, s, n), torch.float32) * n ** -0.5).to(dtype)
+    skip = torch.linspace(0.5, 1.5, h, device=cuda)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd(x, dt, a, B, C, d_skip=skip)
+    assert ssd_ops.launches == before + 1
+    wy, wst = ssd_ops.ref.ssd_chunked(x, dt, a, B, C, d_skip=skip)
+    tol = SSD_TOL[dtype]
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert tuple(st.shape) == (b, h, p, n)
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
+
+
+def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _rand(gen, (1, 16, 4, 64), torch.float32)
+    k = _rand(gen, (1, 16, 2, 64), torch.float32)
+    before = dict(attn_ops.launches), ssd_ops.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attn_ops.attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="but q is"):
+        attn_ops.attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(ValueError, match="multiple"):
+        attn_ops.attention(q, k[:, :, :1].expand(1, 16, 3, 64).contiguous(),
+                           k[:, :, :1].expand(1, 16, 3, 64).contiguous())
+    with pytest.raises(ValueError, match="head dims up to"):
+        wide = _rand(gen, (1, 16, 2, 160), torch.float32)
+        attn_ops.attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_ops.attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           k)
+    with pytest.raises(ValueError, match="several devices"):
+        attn_ops.attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="int32"):
+        attn_ops.decode_attention(q[:, :1], k, k,
+                                  torch.ones(1, dtype=torch.int64,
+                                             device=cuda))
+    x = _rand(gen, (1, 64, 2, 16), torch.float32)
+    dt = torch.ones((1, 64, 2), device=cuda)
+    a = -torch.ones(2, device=cuda)
+    bc = _rand(gen, (1, 64, 8), torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd(x, dt, a, bc, bc,
+                    initial_state=torch.zeros((1, 2, 16, 8), device=cuda))
+    with pytest.raises(ValueError, match="chunks of 64"):
+        ssd_ops.ssd(x, dt, a, bc, bc, chunk=32)
+    with pytest.raises(TypeError, match="dt must be"):
+        ssd_ops.ssd(x, dt.double(), a, bc, bc)
+    with pytest.raises(ValueError, match="P <= 64"):
+        wide = _rand(gen, (1, 64, 2, 80), torch.float32)
+        ssd_ops.ssd(wide, dt, a, bc, bc)
+    assert (dict(attn_ops.launches), ssd_ops.launches) == before
