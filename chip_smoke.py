@@ -6,7 +6,9 @@
 Phases, each of which raises on failure (the run then exits non-zero):
 
 1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   nvcc per source, in parallel, and print ptxas's registers and spills.
+   nvcc per source, in parallel, and print ptxas's registers and spills
+   and the count of tensor-core (HGMMA) instructions in the flash
+   attention library's SASS (``cuobjdump -sass``; none fails the run).
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
    J=4096 jobs, W=10 ticks per window): the allocation over chained
@@ -16,11 +18,13 @@ Phases, each of which raises on failure (the run then exits non-zero):
    LM kernels, at the tolerances of the reference's kernel tests
    (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
    attention causal at the prefill's shape (B=4, S=2048, 32 heads of 80)
-   in both types, non-causal GQA 8/2 and a ragged S=1000 at D=96; flash
-   decode at the engine's shape with lengths {1, 37, 128, 128}, 8
-   sequences of up to 32768 positions (2.7 GB of KV) and GQA 8/2; the SSD
-   scan at the prefill's shape (80 heads of P=64, N=64) in both types and
-   a ragged S=2000.
+   in both types, non-causal GQA 8/2, a ragged S=1000 at D=96, S of 1,
+   63, 64, 65 and 129, S != T, and head dims 16-128; flash decode at the
+   engine's shape with lengths {1, 37, 128, 128}, 8 sequences of up to
+   32768 positions (2.7 GB of KV; its split grid printed and timed there),
+   GQA 8/2, and lengths 0, 1, L-1, L, L+1 and T around the host plan's
+   split length L; the SSD scan at the prefill's shape (80 heads of P=64,
+   N=64) in both types and a ragged S=2000.
 3. Drive the main paths, each with every launch counter set to 0 just
    before it and read just after.  The fleet: a seeded 256-OST x 4096-job
    fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
@@ -45,9 +49,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    as the library yardstick), the fleet paths in windows per second, the
    prefill in tokens per second on both paths and the engine in
    generated tokens per second.
-5. Trace one fused/pallas run, one mega run and one engine run with
-   ``torch.profiler``: device busy time, idle share and device time by
-   kernel.
+5. Trace one fused/pallas run, one mega run, one bfloat16 prefill step
+   and one engine run with ``torch.profiler``: device busy time, idle
+   share and device time by kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel.  Without a CUDA
@@ -83,6 +87,18 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
+
+
+def _without_params(name: str) -> str:
+    """A demangled function name without its trailing parameter list."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
 
 
 def _smi() -> str:
@@ -408,9 +424,11 @@ def check_main_path(torch, name, res, inputs, cap_w):
         raise AssertionError(f"{name}: served more than a job's volume")
 
 
-def trace(torch, label, run, what=f"{N_WINDOWS} windows"):
+def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
     """One run under ``torch.profiler``: device busy time, idle share and
-    device time by kernel, printed; returns nothing."""
+    device time by kernel (the ``top`` longest, and each kernel whose name
+    holds a string of ``focus``: its launches and device time a launch),
+    printed; returns nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -429,12 +447,19 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows"):
         print(f"trace ({label}): the profiler recorded no device time "
               "(not measured)")
         return
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    longest = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
     print(f"trace ({label}, {what}, {wall * 1e3:.1f} ms wall "
           f"under the profiler): {sum(e.count for e in device)} device "
           f"operations, device busy {busy * 1e3:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}; device time by kernel: "
-          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in longest))
+    for name in focus:
+        hits = [e for e in device if name in e.key]
+        count = sum(e.count for e in hits)
+        total = sum(e.self_device_time_total for e in hits)
+        print(f"trace ({label}): {name}: {count} launches, "
+              f"{total / 1e3:.3f} ms device time, "
+              f"{total / max(count, 1):.2f} us a launch")
 
 # ------------------------------------------------------- the LM serving path
 
@@ -457,27 +482,35 @@ def _randn(torch, gen, shape, dtype):
 
 
 def check_attention_kernel(torch, attn_ops, dev):
-    """B4 against its plain version: causal at the prefill's shape in both
-    types, non-causal GQA 8/2 at D=64, a ragged S=1000 at D=96.  Returns
+    """B4 against its plain version, o and lse: causal at the prefill's
+    shape in both types, non-causal GQA 8/2 at D=64, a ragged S=1000 at
+    D=96; the edges of the 128-row tiles (S = 1, 63, 64, 65, 129), S != T
+    non-causal, and head dims 16-128 under GQA 4, in both types.  Returns
     the prefill-shape bfloat16 inputs (for timing) and the largest error."""
     gen = torch.Generator(device=dev).manual_seed(41)
-    cases = [(PREFILL_B, PREFILL_S, 32, 32, 80, True, dt)
-             for dt in ("float32", "bfloat16")]
-    cases += [(1, 512, 8, 2, 64, False, dt) for dt in ("float32", "bfloat16")]
-    cases += [(2, 1000, 4, 4, 96, True, dt) for dt in ("float32", "bfloat16")]
+    both = ("float32", "bfloat16")
+    cases = [(PREFILL_B, PREFILL_S, PREFILL_S, 32, 32, 80, True, dt)
+             for dt in both]
+    cases += [(1, 512, 512, 8, 2, 64, False, dt) for dt in both]
+    cases += [(2, 1000, 1000, 4, 4, 96, True, dt) for dt in both]
+    cases += [(1, s, s, 4, 4, 64, True, dt) for s in (1, 63, 64, 65, 129)
+              for dt in both]
+    cases += [(2, 100, 300, 8, 2, 80, False, dt) for dt in both]
+    cases += [(2, 200, 200, 8, 2, d, True, dt) for d in (16, 64, 80, 96, 128)
+              for dt in both]
     worst, timed = 0.0, None
-    for b, s, hq, hkv, d, causal, name in cases:
+    for b, s, t, hq, hkv, d, causal, name in cases:
         dt = getattr(torch, name)
         q = _randn(torch, gen, (b, s, hq, d), dt)
-        k = _randn(torch, gen, (b, s, hkv, d), dt)
-        v = _randn(torch, gen, (b, s, hkv, d), dt)
+        k = _randn(torch, gen, (b, t, hkv, d), dt)
+        v = _randn(torch, gen, (b, t, hkv, d), dt)
         o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
         wo, wl = attn_ops.ref.mha_lse(q, attn_ops.ref.broadcast_kv(k, hq),
                                       attn_ops.ref.broadcast_kv(v, hq),
                                       causal=causal)
         e_o = close_err(o, wo, ATTN_TOL[name])
         e_l = close_err(lse, wl, ATTN_TOL[name])
-        print(f"flash_attention kernel vs plain, B={b} S={s} Hq={hq} "
+        print(f"flash_attention kernel vs plain, B={b} S={s} T={t} Hq={hq} "
               f"Hkv={hkv} D={d} causal={causal} {name}: max |err| o {e_o}, "
               f"lse {e_l} (atol = rtol = {ATTN_TOL[name]})")
         worst = max(worst, e_o)
@@ -489,17 +522,23 @@ def check_attention_kernel(torch, attn_ops, dev):
 def check_decode_kernel(torch, attn_ops, dev):
     """B5 against its plain version: the engine's shape (4 slots, T=128,
     32 heads of 80) with lengths {1, 37, 128, 128} in both types, 8
-    sequences of up to 32768 positions in bfloat16 (2.7 GB of KV), and GQA
-    8/2.  The caches are views of fused [B, T, Hkv * D] buffers, as the
-    model hands them.  Returns the engine-shape float32 inputs and the
-    largest error."""
+    sequences of up to 32768 positions in bfloat16 (2.7 GB of KV), GQA
+    8/2, and lengths {0, 1, L-1, L, L+1, T} around the host plan's split
+    length L (GQA 8/2, D=128, both types).  The caches are views of fused
+    [B, T, Hkv * D] buffers, as the model hands them.  Returns the
+    engine-shape float32 inputs, the largest error and the 32768 case's
+    times."""
     gen = torch.Generator(device=dev).manual_seed(43)
+    n_sm = attn_ops._sm_count(dev.index or 0)
+    split, _ = attn_ops.decode_split_plan(4096, 7, 8, 2, n_sm)
+    around = (0, 1, split - 1, split, split + 1, 4096, 3)
     cases = [(128, 32, 32, 80, (1, 37, 128, 128), dt)
              for dt in ("float32", "bfloat16")]
     cases += [(32768, 32, 32, 80, (32768, 30000, 1, 17, 20000, 32767, 5000,
                                    12345), "bfloat16"),
               (1024, 8, 2, 64, (1024, 1, 500, 999), "float32")]
-    worst, timed = 0.0, None
+    cases += [(4096, 8, 2, 128, around, dt) for dt in ("float32", "bfloat16")]
+    worst, timed, long = 0.0, None, None
     for t, hq, hkv, d, lens, name in cases:
         dt = getattr(torch, name)
         b = len(lens)
@@ -512,8 +551,10 @@ def check_decode_kernel(torch, attn_ops, dev):
             q, attn_ops.ref.broadcast_kv(kc, hq),
             attn_ops.ref.broadcast_kv(vc, hq), length)
         err = close_err(got, want, ATTN_TOL[name])
+        split_len, n_split = attn_ops.decode_split_plan(t, b, hq, hkv, n_sm)
         print(f"flash_decode kernel vs plain, B={b} T={t} Hq={hq} Hkv={hkv} "
-              f"D={d} lengths {list(lens)} {name}: max |err| {err} "
+              f"D={d} lengths {list(lens)} {name}, {n_split} split(s) of "
+              f"{split_len} keys: max |err| {err} "
               f"(atol = rtol = {ATTN_TOL[name]})")
         worst = max(worst, err)
         if t == 128 and name == "float32":
@@ -529,11 +570,21 @@ def check_decode_kernel(torch, attn_ops, dev):
                     q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
                     attn_mask=mask), reps=20)
             bnd, by = bound_ms(*decode_work(lens, hq, hkv, d, 2))
-            print(f"flash_decode at B={b} T={t} (bfloat16, lengths above): "
-                  f"{ms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-                  f"bound {bnd:.4f} ms by {by} on {_smi()}")
+            group = hq // hkv
+            grid = (n_split, hkv * -(-group // attn_ops.decode_heads_per_block(
+                group)), b)
+            blocks = grid[0] * grid[1] * grid[2]
+            if blocks <= b * hkv:
+                raise AssertionError(f"flash_decode at T={t}: {blocks} blocks, "
+                                     f"not more than B x Hkv = {b * hkv}")
+            print(f"flash_decode at B={b} T={t}: grid {grid} = {blocks} blocks "
+                  f"(B x Hkv = {b * hkv}); {ms:.4f} ms, "
+                  f"scaled_dot_product_attention {lib:.4f} ms, bound "
+                  f"{bnd:.4f} ms by {by} on {_smi()}")
+            long = {"ms_t32768": ms, "bound_ms_t32768": bnd,
+                    "library_ms_t32768": lib}
         del q, kc, vc, got, want
-    return timed, worst
+    return timed, worst, long
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, dt):
@@ -664,6 +715,11 @@ def lm_main_path(torch, dev, counts, zero_counts):
                 torch.cuda.synchronize()
                 out[f"prefill_tok_s_{label}"] = (
                     reps * PREFILL_B * PREFILL_S / (time.perf_counter() - t0))
+                if kernels:   # phase 5: where a prefill step's time goes
+                    trace(torch, "prefill step, bfloat16, kernel path",
+                          lambda: (step(w, batch), torch.cuda.synchronize()),
+                          what="one step", top=12,
+                          focus=("flash_attention", "ssd_scan"))
         del w
     out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ref32 = logits[("float32", False)]
@@ -771,7 +827,8 @@ def lm_main_path(torch, dev, counts, zero_counts):
           f"logits max |err| {worst} (bound 1e-3 x max(1, max |logit|) a "
           f"step), argmax agreement {np.mean(agree)}")
 
-    trace(torch, "engine", lambda: serve(), what=f"{n_steps} steps")
+    trace(torch, "engine", lambda: serve(), what=f"{n_steps} steps",
+          focus=("flash_decode",))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del params
     return out
@@ -824,21 +881,33 @@ def main() -> int:
     libs = _build.build(names)
     print(f"build: {time.perf_counter() - t0:.1f} s (six kernels, one "
           "nvcc each, in parallel)")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["flash_attention"])],
+                          capture_output=True, text=True, check=True).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line:
+            per_fn[fn] = per_fn.get(fn, 0) + 1
+    n_hgmma = sum(per_fn.values())
+    print(f"flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions in "
+          f"{len(per_fn)} functions; "
+          + ", ".join(f"{k}: {v}" for k, v in per_fn.items() if "Li80E" in k))
+    if n_hgmma == 0:
+        raise AssertionError("the bfloat16 flash_attention library holds no "
+                             "tensor-core (HGMMA) instruction")
+    cufilt = Path(_build._nvcc()).parent / "cu++filt"
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         for line in lines:
-            entry = re.search(r"entry function .*_kernelILi(\d+)E(?:Li(\d+)E)?",
-                              line)
-            typed = re.search(r"entry function .*_kernelI(f|13__nv_bfloat16)"
-                              r"Li(\d+)E", line)
-            if typed:                            # element type, dim bound
-                kind = "float32" if typed.group(1) == "f" else "bfloat16"
-                print(f"  {name}, {kind}, dims up to {typed.group(2)}:")
-            elif entry:                          # the template arguments
-                case = (f", policy case {entry.group(2)}"
-                        if entry.group(2) else "")
-                print(f"  {name}, {entry.group(1)} lanes a thread{case}:")
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:                    # the kernel and its template arguments
+                full = subprocess.run([str(cufilt), entry.group(1)],
+                                      capture_output=True, text=True,
+                                      check=True).stdout.strip()
+                print(f"  {_without_params(full).removeprefix('void ')}:")
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
@@ -847,7 +916,7 @@ def main() -> int:
     al_args, al_err = check_alloc_kernel(torch, alloc_ops, dev)
     mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
-    fd_args, fd_err = check_decode_kernel(torch, attn_ops, dev)
+    fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
 
     # 3. the main paths ---------------------------------------------------
@@ -1071,7 +1140,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/attention/kernel.py:184",
          "launches": lm["engine_launches"]["flash_decode"],
          "max_abs_err": fd_err, "ms": fd_ms, "plain_ms": fd_plain,
-         "bound_ms": fd_b, "bound_by": fd_by, "library_ms": fd_lib},
+         "bound_ms": fd_b, "bound_by": fd_by, "library_ms": fd_lib,
+         **fd_long},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:78",

@@ -6,10 +6,20 @@ plain versions (``ref.py``); anything else raises.
 The kernels take KV with its own head count and map query head h to KV
 head ``h // (Hq // Hkv)``; the plain versions broadcast KV to the query
 heads first, as the reference's model does before its call.
+
+The bfloat16 forward runs on the tensor cores and reads q, k and v by TMA,
+which wants each tensor's base 16-byte aligned and its batch, position and
+head strides multiples of 16 bytes; the float32 forward is the exact SIMT
+kernel.  The decode copies cache rows 16 bytes at a time, so it wants the
+same of k and v (and a row of D elements a multiple of 16 bytes).  The
+wrappers raise ``ValueError`` naming the rule otherwise.  The decode splits
+each sequence's keys over blocks by ``decode_split_plan``, which reads only
+shapes and the SM count.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,13 +51,64 @@ class _DecodeParams(ctypes.Structure):
     """``DecodeParams`` of ``csrc/flash_decode.cu``, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "length",
-                                                 "o")]
+                                                 "o", "part")]
                 + [(n, ctypes.c_longlong) for n in (
                     "q_sb", "q_sh", "k_sb", "k_st", "k_sh", "v_sb", "v_st",
                     "v_sh", "o_sb", "o_sh")]
                 + [(n, ctypes.c_int) for n in (
-                    "B", "T", "Hq", "Hkv", "D", "dtype")]
+                    "B", "T", "Hq", "Hkv", "D", "dtype", "split_len",
+                    "n_split", "heads")]
                 + [("scale", ctypes.c_float)])
+
+
+#: keys a decode split holds at least (4 warps x 8 chunks of 16)
+DECODE_MIN_SPLIT = 512
+#: blocks the decode plan aims for on each SM, so that blocks of short
+#: sequences finishing early leave no SM idle at the tail
+DECODE_BLOCKS_PER_SM = 16
+
+
+def decode_heads_per_block(group: int) -> int:
+    """Query heads one decode block serves, 8 at most: the power of two at
+    or below the GQA group, so a block reads its KV head's rows once for
+    all of them."""
+    return 8 if group >= 8 else 4 if group >= 4 else 2 if group >= 2 else 1
+
+
+def decode_split_plan(t: int, b: int, hq: int, hkv: int, n_sm: int):
+    """(split_len, n_split) for a decode over a cache of capacity ``t``:
+    split i holds keys [i * split_len, min((i + 1) * split_len, t)).  From
+    shapes and the SM count only (never the lengths, which would sync the
+    host each step): enough splits that B x KV-head blocks x splits reach
+    ``DECODE_BLOCKS_PER_SM`` blocks an SM, no split under
+    ``DECODE_MIN_SPLIT`` keys, split_len a multiple of 64.  One split when
+    the cache is short (the engine's T=128): the kernel then writes o
+    itself in one launch."""
+    group = hq // hkv
+    blocks = b * hkv * -(-group // decode_heads_per_block(group))
+    want = -(-DECODE_BLOCKS_PER_SM * n_sm // blocks)
+    n = max(1, min(want, -(-t // DECODE_MIN_SPLIT)))
+    split_len = -(-(-(-t // n)) // 64) * 64
+    return split_len, -(-t // split_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_16b(rule: str, **tensors):
+    """Raise unless each tensor's base is 16-byte aligned and its strides
+    but the last are multiples of 16 bytes."""
+    for name, x in tensors.items():
+        size = x.element_size()
+        bad = [s * size for s in x.stride()[:-1] if (s * size) % 16]
+        if x.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{rule} needs {name}'s base 16-byte aligned and its strides "
+                f"multiples of 16 bytes; got base offset "
+                f"{x.data_ptr() % 16} and strides (bytes) "
+                f"{[s * size for s in x.stride()]}")
 
 
 def _check(q, k, v):
@@ -85,6 +146,8 @@ def attention_lse(q, k, v, *, causal: bool = True):
         return ref.mha_lse(q, ref.broadcast_kv(k, q.shape[2]),
                            ref.broadcast_kv(v, q.shape[2]), causal=causal)
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_16b("the bfloat16 attention kernel's TMA", q=q, k=k, v=v)
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
@@ -123,13 +186,24 @@ def decode_attention(q, k_cache, v_cache, length):
     if length.dtype != torch.int32 or tuple(length.shape) != (b,) \
             or not length.is_contiguous():
         raise ValueError(f"length must be a contiguous int32 [{b}] tensor")
+    if (d * q.element_size()) % 16:
+        raise ValueError(f"the decode kernel's 16-byte copies need a row of "
+                         f"D={d} elements to be a multiple of 16 bytes")
+    _check_16b("the decode kernel's 16-byte copies", k_cache=k_cache,
+               v_cache=v_cache)
     t, hkv = k_cache.shape[1], k_cache.shape[2]
+    split_len, n_split = decode_split_plan(t, b, hq, hkv,
+                                           _sm_count(q.device.index))
     o = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    part = (torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     p = _DecodeParams(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        length.data_ptr(), o.data_ptr(), q.stride(0), q.stride(2),
-        *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0),
-        o.stride(2), b, t, hq, hkv, d, _DTYPES[q.dtype], d ** -0.5)
+        length.data_ptr(), o.data_ptr(),
+        part.data_ptr() if part is not None else None, q.stride(0),
+        q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        o.stride(0), o.stride(2), b, t, hq, hkv, d, _DTYPES[q.dtype],
+        split_len, n_split, decode_heads_per_block(hq // hkv), d ** -0.5)
     _build.launch("flash_decode", [ctypes.POINTER(_DecodeParams),
                                    ctypes.c_void_p], ctypes.byref(p),
                   torch.cuda.current_stream(q.device).cuda_stream)

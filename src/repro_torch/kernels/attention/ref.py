@@ -83,6 +83,41 @@ def decode_attention(q, k_cache, v_cache, length):
     return out.to(q.dtype)
 
 
+def decode_attention_split(q, k_cache, v_cache, length, split_len: int):
+    """``decode_attention`` as ``csrc/flash_decode.cu`` computes it, split
+    over keys (for the tests: the model calls ``decode_attention``).  Split
+    i takes keys [i * split_len, (i + 1) * split_len) below the sequence's
+    key count (all T when length <= 0, every score then -1e30), keeps its
+    own max m, sum l and unnormalised accumulator (p rounded to v's type),
+    and the splits merge in order with weights exp(m_i - max m).  An empty
+    split has m = -1e30 and l = 0: weight 0 beside a live split, nothing to
+    add to an all-masked one.  q [B,1,H,D]; caches [B,T,H,D]."""
+    d = q.shape[-1]
+    t = k_cache.shape[1]
+    keys = torch.where(length <= 0, t, length.clamp(max=t))
+    in_range = torch.arange(t, device=q.device)[None, :] < keys[:, None]
+    logits = torch.einsum("bhd,bthd->bht", q[:, 0].float(),
+                          k_cache.float()) * (d ** -0.5)
+    logits = logits.masked_fill((length <= 0)[:, None, None], NEG_INF)
+    parts = []
+    for s0 in range(0, t, split_len):
+        ok = in_range[:, None, s0:s0 + split_len]
+        lg = logits[..., s0:s0 + split_len]
+        m = torch.where(ok, lg, NEG_INF).amax(dim=-1)
+        e = torch.where(ok, torch.exp(lg - m[..., None]), 0.0)
+        acc = torch.einsum("bht,bthd->bhd", e.to(v_cache.dtype).float(),
+                           v_cache[:, s0:s0 + split_len].float())
+        parts.append((m, e.sum(dim=-1), acc))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m_all)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l_i, acc_i in parts:
+        f = torch.exp(m - m_all)
+        l = l + l_i * f
+        acc = acc + acc_i * f[..., None]
+    return (acc / torch.clamp_min(l, 1e-30)[..., None])[:, None].to(q.dtype)
+
+
 def broadcast_kv(k, n_q: int):
     """[B,T,Hkv,D] -> [B,T,Hq,D] by group broadcast (a view when the group
     is 1, a copy otherwise)."""

@@ -3,7 +3,9 @@ the reference package: the plain ``mha``/``decode_attention`` against
 ``repro.kernels.attention.ref`` and against the Pallas kernels run in
 interpret mode (``flash_attention``/``flash_decode``, as
 ``tests/test_kernel_attention.py`` runs them), and the wrappers' CPU route
-(un-broadcast KV) against the plain versions.
+(un-broadcast KV) against the plain versions.  The decode kernel's host
+split plan and its split-and-merge arithmetic (``ref.decode_attention_split``)
+are held against the whole-sequence decode and the reference too.
 
 Inputs are float32 arrays from a seeded numpy generator, rounded to
 bfloat16 by each framework alike for the bfloat16 cases.  Tolerances are
@@ -147,3 +149,58 @@ def test_decode_reads_the_fused_cache_by_stride():
                                 ref.broadcast_kv(kc, 4),
                                 ref.broadcast_kv(vc, 4), length)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t,b,hq,hkv,n_sm", [
+    (128, 4, 32, 32, 132),      # the engine: one split
+    (32768, 8, 32, 32, 132),    # the long cache
+    (4096, 7, 8, 2, 132),
+    (1000, 1, 8, 1, 132),       # T not a multiple of 64
+    (513, 2, 4, 4, 8),
+    (1, 1, 1, 1, 132),
+])
+def test_decode_split_plan_covers_every_key_once(t, b, hq, hkv, n_sm):
+    """Split i holds keys [i * L, min((i + 1) * L, T)): every key below T
+    lands in exactly one split, none is empty, and the plan is plain
+    integers from shapes alone (the kernel never reads the lengths on the
+    host)."""
+    split_len, n_split = ops.decode_split_plan(t, b, hq, hkv, n_sm)
+    assert type(split_len) is int and type(n_split) is int
+    assert split_len % 64 == 0 and n_split >= 1
+    covered = np.zeros(t, np.int64)
+    for i in range(n_split):
+        lo, hi = i * split_len, min((i + 1) * split_len, t)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if t <= ops.DECODE_MIN_SPLIT:
+        assert n_split == 1            # short caches: one launch, no scratch
+    assert ops.decode_split_plan(t, b, hq, hkv, n_sm) == (split_len, n_split)
+
+
+@pytest.mark.parametrize("split_len", [1, 7, 16, 33, 64, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_split_decode_matches_reference(split_len, dtype):
+    """The kernel's split-and-merge, in plain PyTorch, equals the
+    whole-sequence decode and the reference's: lengths 0 (mean of V over
+    all T keys), 1, past T, and splits wholly past a length (empty)."""
+    t, hq, hkv, d = 96, 4, 2, 16
+    lens = (0, 1, 33, 96, 200)
+    b = len(lens)
+    q, k, v = _arrays(split_len + 7, (b, 1, hq, d), (b, t, hkv, d),
+                      (b, t, hkv, d))
+    length = np.asarray(lens, np.int32)
+    kb, vb = _bcast_np(k, hq), _bcast_np(v, hq)
+    got = ref.decode_attention_split(_t(q, dtype), _t(kb, dtype),
+                                     _t(vb, dtype), torch.from_numpy(length),
+                                     split_len)
+    assert got.dtype == _T[dtype] and bool(torch.isfinite(got).all())
+    whole = ref.decode_attention(_t(q, dtype), _t(kb, dtype), _t(vb, dtype),
+                                 torch.from_numpy(length))
+    _close(got.float(), whole.float(), dtype)
+    want = _jdecode(_j(q, dtype), _j(kb, dtype), _j(vb, dtype),
+                    jnp.asarray(length))
+    _close(got.float(), want, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(got[0, 0].numpy(), vb[0].mean(axis=0),
+                                   atol=2e-5)

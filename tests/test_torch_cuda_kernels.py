@@ -3,8 +3,11 @@ at widths that take every lanes-per-thread variant the kernels compile
 (J = 1 to the 8192 maximum) -- the window megakernel for every policy case
 and for coded dispatch -- plus the wrappers' input checks and the kernel
 paths of ``simulate_fleet``; and the LM kernels (flash attention, flash
-decode, the SSD scan) over head dims 64-128, GQA groups 1 and 4, ragged
-lengths and both element types, with their wrappers' input checks.
+decode, the SSD scan) over head dims 16-128, GQA groups 1 and 4, ragged
+lengths, S at the tile edges and S != T, decode lengths around the host
+plan's split length, and both element types, with their wrappers' input
+checks (the bfloat16 attention's TMA and the decode's 16-byte copies
+want 16-byte aligned bases and strides).
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -258,7 +261,7 @@ def _rand(gen, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4])
-@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128])
 def test_flash_attention_matches_plain(cuda, d, group, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d + group)
     b, s, hq = 2, 200, 8                      # S ragged against 64-row tiles
@@ -275,6 +278,95 @@ def test_flash_attention_matches_plain(cuda, d, group, causal, dtype):
     assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, wl, atol=tol, rtol=tol)
+
+
+def _attention_case(cuda, b, s, t, hq, hkv, d, causal, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = _rand(gen, (b, s, hq, d), dtype)
+    k = _rand(gen, (b, t, hkv, d), dtype)
+    v = _rand(gen, (b, t, hkv, d), dtype)
+    o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+    wo, wl = attn_ops.ref.mha_lse(q, attn_ops.ref.broadcast_kv(k, hq),
+                                  attn_ops.ref.broadcast_kv(v, hq),
+                                  causal=causal)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wl, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 1000])
+def test_flash_attention_tile_edges(cuda, s, group, dtype):
+    """Causal S around the 64- and 128-row tiles (rows and keys past S
+    arrive as zeros and are masked)."""
+    _attention_case(cuda, 2, s, s, 8, 8 // group, 80, True, dtype, s + group)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t", [(1, 300), (100, 300), (300, 100), (129, 1)])
+def test_flash_attention_s_ne_t(cuda, s, t, dtype):
+    _attention_case(cuda, 2, s, t, 8, 2, 64, False, dtype, s * t)
+
+
+def test_flash_attention_bf16_rejects_what_tma_cannot_read(cuda):
+    """The bfloat16 kernel reads by TMA: a view whose head stride is not a
+    multiple of 16 bytes raises; the float32 kernel takes the same view."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    wide = _rand(gen, (1, 64, 4, 66), torch.float32)   # heads 66 apart
+    q = wide.to(torch.bfloat16)[..., :64]               # 132-byte head stride
+    before = attn_ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        attn_ops.attention(q, q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        odd = _rand(gen, (64 * 4 * 64 + 1,), torch.bfloat16)[1:]
+        attn_ops.attention(odd.view(1, 64, 4, 64), q.contiguous(),
+                           q.contiguous())
+    assert attn_ops.launches["flash_attention"] == before
+    qf = wide[..., :64]                                 # 264-byte head stride
+    o = attn_ops.attention(qf, qf, qf)
+    assert attn_ops.launches["flash_attention"] == before + 1
+    want = attn_ops.ref.mha(qf, qf, qf)
+    torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (8, 8)])
+def test_flash_decode_split_edges(cuda, hq, hkv, dtype):
+    """Lengths around the host plan's split length L (0, 1, L-1, L, L+1,
+    T) and one long cache beside very short ones: empty splits and ragged
+    splits merge as the whole-sequence softmax."""
+    t, d = 4096, 128
+    b = 8
+    split, n_split = attn_ops.decode_split_plan(
+        t, b, hq, hkv, attn_ops._sm_count(cuda.index or 0))
+    assert n_split > 1
+    lens = [0, 1, split - 1, split, split + 1, t, 2, t - 1]
+    gen = torch.Generator(device=cuda).manual_seed(hq * hkv)
+    q = _rand(gen, (b, 1, hq, d), dtype)
+    kc = _rand(gen, (b, t, hkv * d), dtype).view(b, t, hkv, d)
+    vc = _rand(gen, (b, t, hkv * d), dtype).view(b, t, hkv, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = attn_ops.decode_attention(q, kc, vc, length)
+    want = attn_ops.ref.decode_attention(
+        q, attn_ops.ref.broadcast_kv(kc, hq), attn_ops.ref.broadcast_kv(vc, hq),
+        length)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_decode_rejects_what_16_byte_copies_cannot_read(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _rand(gen, (2, 1, 4, 64), torch.bfloat16)
+    wide = _rand(gen, (2, 32, 4, 68), torch.bfloat16)
+    length = torch.full((2,), 32, dtype=torch.int32, device=cuda)
+    before = attn_ops.launches["flash_decode"]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        attn_ops.decode_attention(q, wide[..., :64], wide[..., :64], length)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        short = _rand(gen, (2, 32, 4, 4), torch.bfloat16)
+        attn_ops.decode_attention(q[..., :4], short, short, length)
+    assert attn_ops.launches["flash_decode"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
