@@ -6,15 +6,20 @@
 Phases, each of which raises on failure (the run then exits non-zero):
 
 1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   nvcc per source, in parallel, and print ptxas's registers and spills
-   and the count of tensor-core (HGMMA) instructions in the flash
-   attention library's SASS (``cuobjdump -sass``; none fails the run).
+   nvcc per source, in parallel, and print ptxas's registers, spills and
+   shared memory and the count of tensor-core (HGMMA) instructions in the
+   SASS of the flash attention and SSD libraries (``cuobjdump -sass``;
+   none in either fails the run).
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
    J=4096 jobs, W=10 ticks per window): the allocation over chained
    rounds, so its remainder carry is read and checked too; the window
    megakernel for each built-in policy and for coded dispatch, over three
-   chained rounds from an evolved state and one round with a fault row.
+   chained rounds from an evolved state and one round with a fault row;
+   both on rows built to stress the allocation's radix select and excess
+   descent (exact ties, -0.0 beside +0.0, no active job, a zero budget
+   over carried remainders, k = count - 1) at J of 1, 4095, 4096 and
+   8192, the integer allocation held with ``torch.equal``.
    LM kernels, at the tolerances of the reference's kernel tests
    (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
    attention causal at the prefill's shape (B=4, S=2048, 32 heads of 80)
@@ -24,7 +29,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
    32768 positions (2.7 GB of KV; its split grid printed and timed there),
    GQA 8/2, and lengths 0, 1, L-1, L, L+1 and T around the host plan's
    split length L; the SSD scan at the prefill's shape (80 heads of P=64,
-   N=64) in both types and a ragged S=2000.
+   N=64) in both types, a ragged S=2000, S of 1, 63, 64, 65 and 129,
+   N=128, P=32, 5 heads and a batch of 1.
 3. Drive the main paths, each with every launch counter set to 0 just
    before it and read just after.  The fleet: a seeded 256-OST x 4096-job
    fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
@@ -324,6 +330,100 @@ def check_mega_kernel(torch, mega_ops, dev, rounds=3):
     return timed, worst
 
 
+def alloc_stress_case(j, seed):
+    """Six [6, J] rows built for the allocation's searches: (0) every
+    remainder key tied, (1) remainders of -0.0 beside +0.0, (2) no active
+    job (every key -inf, budget 0), (3) zero capacity over carried
+    remainders of 3.5 (a multi-round excess), (4) J - 1 tokens over J
+    equal shares (k = count - 1 among ties), (5) a random row."""
+    rng = np.random.default_rng(seed)
+    o = 6
+    demand = rng.integers(1, 3000, (o, j)).astype(np.float32)
+    nodes = np.full((o, j), 8.0, np.float32)
+    record = np.zeros((o, j), np.float32)
+    remainder = np.full((o, j), 0.25, np.float32)
+    prev = np.full((o, j), 100.0, np.float32)
+    cap = np.array([1000.0, 1000.0, 1000.0, 0.0, j - 1.0, 50000.0],
+                   np.float32)
+    remainder[1, ::2] = -0.0
+    remainder[1, 1::2] = 0.0
+    demand[2] = 0.0
+    remainder[3] = 3.5
+    remainder[4] = 0.0
+    demand[5, rng.random(j) < 0.3] = 0.0
+    nodes[5] = rng.integers(1, 128, j)
+    record[5] = rng.integers(-200, 200, j)
+    remainder[5] = rng.random(j) - 0.5
+    prev[5] = rng.integers(0, 500, j)
+    return demand, nodes, record, remainder, prev, cap
+
+
+def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
+    """B2 and B3 (adaptbf) against their plain versions on the stress rows
+    at J of 1, 4095, 4096 and 8192: the integer allocation equal
+    (``torch.equal``), record and remainder and every other megakernel
+    leaf within atol 1e-3.  The megakernel's row 2 gets no traffic, so it
+    observes no demand.  Returns the largest error."""
+    from repro_torch.core.policies import PolicyContext, get_policy
+    from repro_torch.core.state import AllocatorState
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=dev)
+
+    worst = 0.0
+    for j in (1, 4095, 4096, 8192):
+        host = alloc_stress_case(j, seed=j)
+        args = [t(x) for x in host]
+        got = alloc_ops.fleet_alloc(*args)
+        want = alloc_ops.fleet_alloc_ref(*args)[:3]
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"adaptbf_alloc stress rows J={j}: "
+                                 "allocations differ")
+        errs = [float((g.double() - w.double()).abs().max())
+                for g, w in zip(got[1:], want[1:])]
+        if max(errs) > 1e-3:
+            raise AssertionError(f"adaptbf_alloc stress rows J={j}: record/"
+                                 f"remainder off by {errs}")
+        demand, nodes, record, remainder, prev, cap = alloc_stress_case(
+            j, seed=j + 1)
+        rng = np.random.default_rng(j)
+        queue = rng.random((6, j)) * 12
+        rates = rng.integers(0, 4, (W, 6, j)).astype(np.float32)
+        queue[2] = 0.0
+        rates[:, 2] = 0.0
+        cap_tick = t(cap / W)
+        alloc = t(rng.integers(0, 20, (6, j)))
+        zeros = torch.zeros((6, j), device=dev)
+        margs = (get_policy("adaptbf"),
+                 PolicyContext(nodes=t(nodes), cap_w=cap_tick * W), cap_tick,
+                 t(rng.choice([16.0, 64.0], (6, j))), t(queue),
+                 t(np.full((6, j), np.inf)), alloc, (zeros, zeros, alloc),
+                 AllocatorState(t(record), t(remainder), t(prev)), t(rates))
+        mgot = mega_ops.mega_window_round(*margs)
+        mwant = mega_ops.ref.mega_round_ref(*margs)
+        if not torch.equal(mgot[8], mwant[8]):
+            raise AssertionError(f"window_mega stress rows J={j}: "
+                                 "allocations differ")
+        flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+        for g, w in zip(flat(mgot), flat(mwant), strict=True):
+            if not torch.equal(g.isfinite(), w.isfinite()):
+                raise AssertionError(f"window_mega stress rows J={j}: "
+                                     "finite masks differ")
+            fin = w.isfinite()
+            e = float((g[fin].double() - w[fin].double()).abs().max()) \
+                if bool(fin.any()) else 0.0
+            if e > 1e-3:
+                raise AssertionError(f"window_mega stress rows J={j}: off "
+                                     f"by {e} > 1e-3")
+            errs.append(e)
+        worst = max(worst, *errs)
+        print(f"adaptbf_alloc and window_mega (adaptbf) vs plain on the "
+              f"search stress rows at J={j}: allocations equal, max |err| "
+              f"{max(errs)} (atol 1e-3)")
+    return worst
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -599,14 +699,19 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dt):
 
 
 def check_ssd_kernel(torch, ssd_ops, dev):
-    """B6 against its plain version: the prefill's shape (B=4, S=2048,
-    80 heads of P=64, N=64, chunks of 64) in both types, y and final state,
-    and a ragged S=2000.  Returns the prefill-shape bfloat16 inputs and the
-    largest error."""
+    """B6 against its plain version, y and final state, in both types: the
+    prefill's shape (B=4, S=2048, 80 heads of P=64, N=64, chunks of 64), a
+    ragged S=2000, S of 1, 63, 64, 65 and 129 over 5 heads (no full group
+    of consumers), N=128 and P=32 at a batch of 1.  Returns the
+    prefill-shape bfloat16 inputs and the largest error."""
     gen = torch.Generator(device=dev).manual_seed(47)
-    cases = [(PREFILL_B, PREFILL_S, 80, 64, 64, dt)
-             for dt in ("float32", "bfloat16")]
-    cases += [(2, 2000, 80, 64, 64, dt) for dt in ("float32", "bfloat16")]
+    both = ("float32", "bfloat16")
+    cases = [(PREFILL_B, PREFILL_S, 80, 64, 64, dt) for dt in both]
+    cases += [(2, 2000, 80, 64, 64, dt) for dt in both]
+    cases += [(2, s, 5, 64, 64, dt) for s in (1, 63, 64, 65, 129)
+              for dt in both]
+    cases += [(1, 1000, 8, 64, 128, dt) for dt in both]
+    cases += [(1, 1000, 8, 32, 64, dt) for dt in both]
     worst, timed = 0.0, None
     for b, s, h, p, n, name in cases:
         args = ssd_inputs(torch, gen, b, s, h, p, n, getattr(torch, name))
@@ -882,21 +987,26 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (six kernels, one "
           "nvcc each, in parallel)")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["flash_attention"])],
-                          capture_output=True, text=True, check=True).stdout
-    per_fn, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif "HGMMA" in line:
-            per_fn[fn] = per_fn.get(fn, 0) + 1
-    n_hgmma = sum(per_fn.values())
-    print(f"flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions in "
-          f"{len(per_fn)} functions; "
-          + ", ".join(f"{k}: {v}" for k, v in per_fn.items() if "Li80E" in k))
-    if n_hgmma == 0:
-        raise AssertionError("the bfloat16 flash_attention library holds no "
-                             "tensor-core (HGMMA) instruction")
+    for lib, label, mark in (("flash_attention", "bfloat16", "Li80E"),
+                             ("ssd_scan", "bfloat16", "ssd_scan_tc")):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif "HGMMA" in line:
+                per_fn[fn] = per_fn.get(fn, 0) + 1
+        n_hgmma = sum(per_fn.values())
+        print(f"{lib} SASS: {n_hgmma} HGMMA (wgmma) instructions in "
+              f"{len(per_fn)} functions; "
+              + ", ".join(f"{k}: {v}" for k, v in per_fn.items() if mark in k))
+        if n_hgmma == 0:
+            raise AssertionError(f"the {label} {lib} library holds no "
+                                 "tensor-core (HGMMA) instruction")
+    print("ssd_scan_tc dynamic shared memory (bytes): N <= 64: "
+          f"{ssd_ops.tc_smem_bytes(64)}, N <= 128: {ssd_ops.tc_smem_bytes(128)}")
     cufilt = Path(_build._nvcc()).parent / "cu++filt"
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -915,6 +1025,8 @@ def main() -> int:
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
     al_args, al_err = check_alloc_kernel(torch, alloc_ops, dev)
     mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
+    stress_err = check_alloc_stress(torch, alloc_ops, mega_ops, dev)
+    al_err, mega_err = max(al_err, stress_err), max(mega_err, stress_err)
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
     fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)

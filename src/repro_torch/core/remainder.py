@@ -7,9 +7,10 @@ largest-remainder-first (+1 on leftover, -1 on excess).
 
 Every step is integer or exact-integer float arithmetic, so the result is
 bitwise the reference's on any device and in any reduction order
-(``tests/test_torch_remainder.py``).  ``kernels/csrc/adaptbf_alloc.cu`` runs
-the same rounds with the reference's sort-free probe search for the top-k
-membership.
+(``tests/test_torch_remainder.py``).  The CUDA allocation round
+(``kernels/csrc/alloc_round.cuh``) runs the same rounds with a radix select
+for the top-k membership and a 32-candidate excess descent, modelled in
+``kernels/adaptbf_alloc/ref.py``.
 
 Jobs live on the LAST axis; ``budget`` and ``k`` broadcast against
 ``[..., 1]`` (a scalar in the 1-D case).
@@ -39,9 +40,10 @@ def topk_mask(key: torch.Tensor, k) -> torch.Tensor:
 
     The reference finds the same membership without sorting (a 32-probe
     binary search on the float32 bit pattern plus a log2(J)-probe index
-    tie-break); the CUDA allocation kernel runs that probe search, and this
-    sort is its independent plain version.  Both are bitwise the
-    reference's (``tests/test_torch_remainder.py``).
+    tie-break); the CUDA allocation kernel finds it by a radix select over
+    the same bit map, and this sort is their independent plain version.
+    All are bitwise the reference's (``tests/test_torch_remainder.py``,
+    ``tests/test_torch_alloc_search.py``).
 
     Args:
       key: [..., J] float32; exclude entries by setting them to -inf.

@@ -87,12 +87,14 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     return out
 
 
-def load(name: str, argtypes) -> Callable[..., int]:
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built first if
-    needed, bound to ``argtypes`` once and cached."""
+def load(name: str, argtypes, lib: str = None) -> Callable[..., int]:
+    """The C entry point ``name`` of ``csrc/<lib>.cu`` (``lib`` defaults to
+    ``name``), built first if needed, bound to ``argtypes`` once and
+    cached."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = getattr(ctypes.CDLL(str(build([name])[name])), name)
+        lib = lib or name
+        fn = getattr(ctypes.CDLL(str(build([lib])[lib])), name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _ENTRIES[name] = fn
     return fn

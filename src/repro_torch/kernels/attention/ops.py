@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ref
-from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.dispatch import check_16b, route
 
 #: kernel launches made by ``attention``/``attention_lse`` (flash_attention)
 #: and by ``decode_attention`` (flash_decode), never by the plain versions
@@ -97,20 +97,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_16b(rule: str, **tensors):
-    """Raise unless each tensor's base is 16-byte aligned and its strides
-    but the last are multiples of 16 bytes."""
-    for name, x in tensors.items():
-        size = x.element_size()
-        bad = [s * size for s in x.stride()[:-1] if (s * size) % 16]
-        if x.data_ptr() % 16 or bad:
-            raise ValueError(
-                f"{rule} needs {name}'s base 16-byte aligned and its strides "
-                f"multiples of 16 bytes; got base offset "
-                f"{x.data_ptr() % 16} and strides (bytes) "
-                f"{[s * size for s in x.stride()]}")
-
-
 def _check(q, k, v):
     """Raise unless q [B,*,Hq,D] and k/v [B,T,Hkv,D] are what the kernels
     take: one float32 or bfloat16 type, Hq a multiple of Hkv, D <= 128,
@@ -147,7 +133,7 @@ def attention_lse(q, k, v, *, causal: bool = True):
                            ref.broadcast_kv(v, q.shape[2]), causal=causal)
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
-        _check_16b("the bfloat16 attention kernel's TMA", q=q, k=k, v=v)
+        check_16b("the bfloat16 attention kernel's TMA", q=q, k=k, v=v)
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
@@ -189,7 +175,7 @@ def decode_attention(q, k_cache, v_cache, length):
     if (d * q.element_size()) % 16:
         raise ValueError(f"the decode kernel's 16-byte copies need a row of "
                          f"D={d} elements to be a multiple of 16 bytes")
-    _check_16b("the decode kernel's 16-byte copies", k_cache=k_cache,
+    check_16b("the decode kernel's 16-byte copies", k_cache=k_cache,
                v_cache=v_cache)
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     split_len, n_split = decode_split_plan(t, b, hq, hkv,

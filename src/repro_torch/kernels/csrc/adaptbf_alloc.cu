@@ -8,21 +8,22 @@
 //
 // What bounds it on the H100: neither bytes (five [O, J] inputs and three
 // outputs, 34 MB at O=256, J=4096: 10 us at 3.35 TB/s) nor arithmetic, but
-// the latency of its chain of row reductions.  Each of the three
-// largest-remainder distributions takes about 75 dependent row-wide
-// counts or sums: a 25-bit descent for the excess rounds, 32 threshold
-// probes on the float bit pattern and log2(J) index tie-break probes.
-// Every one is a barrier-separated block reduction.
+// the latency of its chain of row reductions, each a barrier.  The
+// reference's probe searches take ~75 of them a largest-remainder
+// distribution (~230 a round); alloc_round.cuh's radix select, 32-candidate
+// excess descent and paired row sums take ~25 a round.
 //
 // Design: one thread block per OST row, the whole round in one launch, so
 // no intermediate leaves registers.  The round itself is alloc_round.cuh's
 // adaptbf_round, shared with the window megakernel (window_mega.cu).
 // Thread t owns lanes t + i * THREADS; lanes past J are absent from every
 // sum and count (J is not padded: padded lanes would enter the top-k
-// counts).  A reduction is a warp butterfly and
-// one shared slot per warp (common.cuh), and every thread receives the same
-// total, so each probe's branch is uniform across the block.  Making the
-// chain shorter (fewer probes, several rows per block) is later work.
+// counts).  A reduction is a warp butterfly and one shared slot per warp
+// behind one barrier (common.cuh), and every thread receives the same
+// total, so each search's branches are uniform across the block.  At 128
+// registers a thread one block fits an SM, so 256 rows run as two rounds
+// of blocks; capping registers at 64 for two blocks an SM spilled and was
+// slower here (PERF.md), unlike in the megakernel.
 //
 // Numerics: see alloc_round.cuh.  The integer path is bitwise with the
 // reference; float row sums accumulate in double and round once, as the
@@ -48,6 +49,8 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      float* __restrict__ remainder_out,
                      int n_jobs, float u_max) {
   __shared__ Scratch s;
+  Red r{&s, 0};
+  search_init(s);
   const size_t row = static_cast<size_t>(blockIdx.x) * n_jobs;
 
   float demand[LPT];
@@ -59,7 +62,7 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
   float alloc[LPT], record[LPT], rem[LPT];
   adaptbf_round<LPT>(demand, nodes_g + row, record_g + row, remainder_g + row,
                      prev_g + row, cap_g[blockIdx.x], u_max,
-                     /*integer_tokens=*/true, alloc, record, rem, n_jobs, s);
+                     /*integer_tokens=*/true, alloc, record, rem, n_jobs, r);
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {

@@ -3,10 +3,16 @@
 //
 // Every kernel runs one thread block per OST row.  Thread t owns the lanes
 // j = t + i * THREADS (i < LPT) of the row in registers; lanes at or past J
-// are absent from every sum and count.  A row reduction is a warp butterfly
-// plus one shared-memory slot per warp, and every thread comes out with the
-// same total (the same order in every warp), so block-uniform branches on it
-// stay uniform.
+// are absent from every sum and count.  What bounds these kernels on the
+// H100 beside their bytes is the chain of dependent row reductions, so a
+// reduction costs one barrier: a warp butterfly, one shared slot per warp,
+// __syncthreads, and a second butterfly over the slots, in which every
+// thread comes out with the same total (the same order in every warp), so
+// block-uniform branches on it stay uniform.  Reductions alternate between
+// two slot sets: reduction n writes set n & 1, and the set it overwrites
+// was last read in reduction n - 2, which every thread finished before it
+// reached reduction n - 1's barrier.  Independent sums of one step ride in
+// one reduction (block_sum2, block_sum_count).
 //
 // Float row sums accumulate in double and round once to float, as the plain
 // PyTorch versions do (kernels/numerics.py::row_sum).  The kernel reduces in
@@ -26,8 +32,21 @@ constexpr int MAX_LPT = 16;         // lanes per thread: J <= 8192
 constexpr int MAX_J = THREADS * MAX_LPT;
 
 struct Scratch {
-  double f[WARPS];
-  int i[WARPS];
+  double f[2][WARPS][2];        // [slot set][warp][sum]
+  int i[2][WARPS];              // [slot set][warp]
+  // the allocation round's searches (alloc_round.cuh)
+  int hist[2][4][256];          // radix digit counts: two sets of a table a pass
+  int tie[MAX_LPT][WARPS];      // tied lanes a warp, per lane slot
+  unsigned long long cand[2][WARPS][32];  // excess-descent candidate sums
+};
+
+// A block's reductions: its shared scratch and how many reductions and
+// top-k searches it has run (the same counts in every thread, since every
+// one is reached by the whole block).
+struct Red {
+  Scratch* s;
+  int n;
+  int searches;
 };
 
 __device__ __forceinline__ double warp_sum(double x) {
@@ -36,27 +55,54 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-// Row-wide sum of per-thread double partials, rounded once to float.  The
-// leading barrier keeps this call's writes from overtaking the previous
-// call's reads of the same slots.
-__device__ __forceinline__ float block_sum(double x, Scratch& s) {
-  x = warp_sum(x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) s.f[warp] = x;
-  __syncthreads();
-  return __double2float_rn(warp_sum(lane < WARPS ? s.f[lane] : 0.0));
+__device__ __forceinline__ int warp_count(int x) {
+  return static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(x)));
 }
 
-// Row-wide int32 count of a per-thread partial count.
-__device__ __forceinline__ int block_count(int x, Scratch& s) {
-  x = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(x)));
+// NF double sums (NF <= 2) and NI int counts (NI <= 1) over the row, in
+// place, behind one barrier.
+template <int NF, int NI>
+__device__ __forceinline__ void block_reduce(double (&f)[2], int& c, Red& r) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int set = r.n++ & 1;
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
+  if (NI) c = warp_count(c);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) r.s->f[set][warp][k] = f[k];
+    if (NI) r.s->i[set][warp] = c;
+  }
   __syncthreads();
-  if (lane == 0) s.i[warp] = x;
-  __syncthreads();
-  const int v = lane < WARPS ? s.i[lane] : 0;
-  return static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(v)));
+#pragma unroll
+  for (int k = 0; k < NF; ++k)
+    f[k] = warp_sum(lane < WARPS ? r.s->f[set][lane][k] : 0.0);
+  if (NI) c = warp_count(lane < WARPS ? r.s->i[set][lane] : 0);
+}
+
+// Row-wide sum of per-thread double partials, rounded once to float.
+__device__ __forceinline__ float block_sum(double x, Red& r) {
+  double f[2] = {x, 0.0};
+  int c = 0;
+  block_reduce<1, 0>(f, c, r);
+  return __double2float_rn(f[0]);
+}
+
+// Two independent row sums in one reduction.
+__device__ __forceinline__ float2 block_sum2(double x, double y, Red& r) {
+  double f[2] = {x, y};
+  int c = 0;
+  block_reduce<2, 0>(f, c, r);
+  return make_float2(__double2float_rn(f[0]), __double2float_rn(f[1]));
+}
+
+// A row sum and a row-wide int32 count in one reduction.
+__device__ __forceinline__ void block_sum_count(double x, int c, Red& r,
+                                                float& sum, int& count) {
+  double f[2] = {x, 0.0};
+  block_reduce<1, 1>(f, c, r);
+  sum = __double2float_rn(f[0]);
+  count = c;
 }
 
 }  // namespace repro

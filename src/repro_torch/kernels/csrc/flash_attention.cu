@@ -44,8 +44,6 @@
 // Numerics follow the reference in both: the mask value is -1e30f (not
 // -inf), p is rounded to v's type before P V, l is clamped at 1e-30f and
 // lse = m + log(l).
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-
 #include "hopper.cuh"
 #include "lm.cuh"
 
@@ -399,65 +397,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so that the library
-// needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map {D, H, S, B} over a [B, S, H, D] bf16 tensor with element
-// strides (sb, ss, sh), boxes of `slab` columns (64 with the 128-byte
-// swizzle, 16 with the 32-byte one) x `rows` positions of one head.
-static bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                       int D, long long sb, long long ss, long long sh,
-                       int rows, int slab) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(slab), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                slab == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Streaming multiprocessors of the current device: one persistent block
-// each.
-static int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
 template <int DM>
 cudaError_t launch_tc(const FlashParams& p, cudaStream_t s) {
+  using sm90::sm_count;
+  using sm90::tensor_map;
   CUtensorMap tq, tk, tv;
   constexpr int bk = tc_bk<DM>();
   constexpr int slab = tc_slab<DM>();

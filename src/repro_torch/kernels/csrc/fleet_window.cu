@@ -10,7 +10,9 @@
 // about (W + 7) * O * J * 4 bytes (71 MB at W=10, O=256, J=4096; 21 us at
 // 3.35 TB/s).  The arithmetic is a few dozen flops per lane per tick.
 // Under the byte bound sits a latency chain: each tick needs three row
-// sums (sum want1, sum s1, sum want2) before the next phase can start.
+// sums before the next can start; want1 and want2 share one reduction, s1
+// takes a second, each behind one barrier (common.cuh), and the next
+// tick's rate row is loaded while they run (serve.cuh).
 //
 // Design: one thread block per OST row (rows never mix; that is the paper's
 // decentralization).  The per-lane state (queue, vol_left, budget, backlog
@@ -42,6 +44,7 @@ fleet_window_kernel(const float* __restrict__ queue_in,
                     float* __restrict__ served_out,
                     int n_ost, int n_jobs, int n_ticks) {
   __shared__ Scratch scratch;
+  Red red{&scratch, 0};
   const int o = blockIdx.x;
   const size_t row = static_cast<size_t>(o) * n_jobs;
   const float cap = cap_tick[o];
@@ -60,7 +63,7 @@ fleet_window_kernel(const float* __restrict__ queue_in,
 
   serve_window<LPT>(q, v, b, bl, acc, rates + row,
                     static_cast<size_t>(n_ost) * n_jobs, n_ticks, cap, n_jobs,
-                    scratch);
+                    red);
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernel
-// (flash_attention.cu): mbarriers, TMA tile loads, register reallocation
-// between warpgroups, and warpgroup matrix multiplies (wgmma) with their
-// shared-memory matrix descriptors.  Each wraps one PTX instruction.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA tile loads and the
+// host-side tensor maps they read, register reallocation between
+// warpgroups, named barriers, ldmatrix, and warpgroup matrix multiplies
+// (wgmma) with their shared-memory matrix descriptors.  Each device helper
+// wraps one PTX instruction.
 //
 // Shared-memory tiles are "slabs" of bf16 columns: 64 a slab (rows of 128
 // bytes, the 128-byte swizzle) or 16 (rows of 32 bytes, the 32-byte
@@ -13,6 +15,7 @@
 // P V are the slabs of V side by side.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +82,69 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------- barriers
+
+// Make this thread's ordinary writes to shared memory visible to the async
+// proxy (wgmma operands, TMA) before a barrier hands them over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) among `count` threads, whole
+// warps.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------- ldmatrix
+
+// Four 8 x 8 b16 matrices from shared memory into the A fragment of a
+// 16 x 16 tile: lane l gives the address of row l % 8 of matrix l / 8 (16
+// bytes), and receives row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1, of
+// each matrix -- or with .trans those of the transposed matrix (stored rows
+// 2 (l % 4) and 2 (l % 4) + 1 of column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// One box of a 4-d tensor map from shared memory at `src` into global
+// memory (a bulk group of this thread); elements outside the tensor's
+// extent are not written.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (read) or are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- registers
@@ -422,6 +488,65 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, found through the runtime so that the library
+// needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d map {D, H, S, B} over a [B, S, H, D] bf16 tensor with element
+// strides (sb, ss, sh), boxes of `slab` columns (64 with the 128-byte
+// swizzle, 16 with the 32-byte one) x `rows` positions of one head.
+static bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                       int D, long long sb, long long ss, long long sh,
+                       int rows, int slab) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(slab), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                slab == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Streaming multiprocessors of the current device: one persistent block
+// each.
+static int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
 }
 
 }  // namespace sm90

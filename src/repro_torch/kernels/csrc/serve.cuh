@@ -7,7 +7,7 @@
 //   phase 1 = ruled (finite-budget) jobs take min(queue, budget), scaled to
 //             the tick's capacity when their wants exceed it;
 //   phase 2 = unruled jobs share the capacity phase 1 left idle.
-// Each tick needs three row sums (want1, s1, want2) in sequence.
+// Each tick needs three row sums: want1 and want2 in one reduction, then s1.
 //
 // Numerics: built with --fmad=false and without fast math, so every
 // expression rounds as the plain version's does; inf behaves as in IEEE
@@ -33,12 +33,27 @@ __device__ __forceinline__ void serve_window(float (&q)[LPT], float (&v)[LPT],
                                              const float* __restrict__ rates,
                                              size_t tick_stride, int n_ticks,
                                              float cap, int n_jobs,
-                                             Scratch& scratch) {
+                                             Red& red) {
+  // each tick's rate row is loaded one tick ahead, so its latency hides
+  // behind the tick before (a barrier keeps loads from moving across it)
+  float rate_next[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int j = threadIdx.x + i * THREADS;
+    rate_next[i] = n_ticks > 0 && j < n_jobs ? rates[j] : 0.0f;
+  }
 #pragma unroll 1
   for (int t = 0; t < n_ticks; ++t) {
-    const float* rate_t = rates + static_cast<size_t>(t) * tick_stride;
+    float rate_t[LPT];
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const int j = threadIdx.x + i * THREADS;
+      rate_t[i] = rate_next[i];
+      if (t + 1 < n_ticks && j < n_jobs)
+        rate_next[i] = rates[static_cast<size_t>(t + 1) * tick_stride + j];
+    }
     float w1[LPT];
-    double part = 0.0;
+    double part = 0.0, part2 = 0.0;
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {
       const int j = threadIdx.x + i * THREADS;
@@ -46,17 +61,18 @@ __device__ __forceinline__ void serve_window(float (&q)[LPT], float (&v)[LPT],
       if (j < n_jobs) {
         // client issuance bounded by volume and backlog headroom
         const float headroom = fmaxf(bl[i] - q[i], 0.0f);
-        const float issued = fminf(fminf(rate_t[j], v[i]), headroom);
+        const float issued = fminf(fminf(rate_t[i], v[i]), headroom);
         q[i] = q[i] + issued;
         v[i] = v[i] - issued;
         q[i] = fmaxf(q[i], 0.0f);
         // phase 1: token-gated service for ruled (finite-budget) jobs
         w1[i] = isfinite(b[i]) ? fminf(q[i], fmaxf(b[i], 0.0f)) : 0.0f;
         part += w1[i];
+        if (!isfinite(b[i])) part2 += q[i];   // phase 2's wants
       }
     }
-    const float scale1 =
-        fminf(1.0f, cap / fmaxf(block_sum(part, scratch), SERVE_EPS));
+    const float2 wants = block_sum2(part, part2, red);
+    const float scale1 = fminf(1.0f, cap / fmaxf(wants.x, SERVE_EPS));
 
     float s1[LPT];
     part = 0.0;
@@ -66,16 +82,8 @@ __device__ __forceinline__ void serve_window(float (&q)[LPT], float (&v)[LPT],
       part += s1[i];
     }
     // phase 2: the fallback queue served from idle capacity only
-    const float spare = fmaxf(cap - block_sum(part, scratch), 0.0f);
-
-    part = 0.0;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int j = threadIdx.x + i * THREADS;
-      if (j < n_jobs && !isfinite(b[i])) part += q[i];
-    }
-    const float scale2 =
-        fminf(1.0f, spare / fmaxf(block_sum(part, scratch), SERVE_EPS));
+    const float spare = fmaxf(cap - block_sum(part, red), 0.0f);
+    const float scale2 = fminf(1.0f, spare / fmaxf(wants.y, SERVE_EPS));
 
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {

@@ -13,8 +13,8 @@
 // and writes seven (queue, volume, served, demand, next allocation, record,
 // remainder): (W + 15) * O * J * 4 bytes, 105 MB at W=10, O=256, J=4096,
 // 31 us at 3.35 TB/s.  Under the byte bound sit the two latency chains of
-// the kernels it fuses: three row sums per tick, and about 230 dependent
-// row reductions in the allocation round.
+// the kernels it fuses: two reductions a tick, and ~25 in the allocation
+// round (alloc_round.cuh), each a barrier.
 //
 // Design: one thread block per OST row, as in fleet_window.cu and
 // adaptbf_alloc.cu, whose device code it shares (serve.cuh, alloc_round.cuh).
@@ -26,11 +26,12 @@
 // case has its own register allocation and no branch on it runs in the
 // kernel; a coded policy launches the case of its selected member.  The
 // standing allocation is not updated in place: every output is a fresh
-// buffer (the caller still reads the allocation after the round).  The
-// cost of fusing: the serve ticks run at the step's register budget (128
-// a thread under adaptbf, one 512-thread block an SM), where the separate
-// window kernel fits two blocks an SM, so on the H100 this round is slower
-// than fleet_window + adaptbf_alloc (PERF.md).
+// buffer (the caller still reads the allocation after the round).
+// Residency: the blocks are held to 64 registers a thread, two 512-thread
+// blocks an SM, so all 256 rows of the main path run in one wave (264
+// slots) rather than two; the allocation round then spills a few hundred
+// bytes a thread to L1, which costs less than the second wave (ptxas and
+// the measured times: PERF.md).
 //
 // Numerics: as serve.cuh and alloc_round.cuh.  The policy constants (AIMD's
 // ai_frac, md, sat, floor) come from the Python class as float arguments;
@@ -108,7 +109,7 @@ __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 template <int LPT>
 __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
                                            float (&nd)[LPT], int n_jobs,
-                                           Scratch& s) {
+                                           Red& s) {
   double part = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
@@ -120,9 +121,11 @@ __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
 }
 
 template <int LPT, int POLICY>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 window_mega_kernel(const MegaParams p) {
-  __shared__ Scratch s;
+  __shared__ Scratch scratch;
+  Red s{&scratch, 0};
+  if constexpr (POLICY == POLICY_ADAPTBF) search_init(scratch);
   const int o = blockIdx.x;
   const int n_jobs = p.n_jobs;
   const size_t row = static_cast<size_t>(o) * n_jobs;

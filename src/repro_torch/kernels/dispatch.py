@@ -56,3 +56,18 @@ def check_f32(name: str, tensor: torch.Tensor, shape) -> None:
                          f"got {tuple(tensor.shape)}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_16b(rule: str, **tensors) -> None:
+    """Raise unless each tensor's base is 16-byte aligned and its strides
+    but the last are multiples of 16 bytes (what TMA and 16-byte copies
+    read)."""
+    for name, x in tensors.items():
+        size = x.element_size()
+        bad = [s * size for s in x.stride()[:-1] if (s * size) % 16]
+        if x.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{rule} needs {name}'s base 16-byte aligned and its strides "
+                f"multiples of 16 bytes; got base offset "
+                f"{x.data_ptr() % 16} and strides (bytes) "
+                f"{[s * size for s in x.stride()]}")

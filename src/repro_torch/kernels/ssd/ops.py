@@ -1,7 +1,12 @@
 """Dispatching wrappers for the Mamba-2 SSD: CUDA tensors launch the chunked
 scan kernel (``kernels/csrc/ssd_scan.cu``), CPU tensors take the plain
 version (``ref.py``), anything else raises.  The one-token update is plain
-PyTorch on every device, as in the reference."""
+PyTorch on every device, as in the reference.
+
+The bfloat16 scan runs on the tensor cores and moves x, B, C and y by TMA,
+which wants each base 16-byte aligned and each stride but the last a
+multiple of 16 bytes (so P a multiple of 8); the float32 scan is the exact
+SIMT kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.dispatch import check_16b, route
 from repro_torch.kernels.ssd import ref
 
 #: kernel launches made by ``ssd`` (never by the plain version)
@@ -55,6 +60,11 @@ def _check(x, dt, a, B, C):
     if p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(f"the SSD kernel takes P <= {MAX_HEAD_DIM} and "
                          f"N <= {MAX_STATE}, got P={p}, N={n}")
+    if x.dtype == torch.bfloat16:
+        check_16b("the bfloat16 SSD kernel's TMA", x=x, B=B, C=C)
+        if p % 8:   # y [B,S,H,P] leaves by TMA too: a 16-byte head stride
+            raise ValueError(f"the bfloat16 SSD kernel's TMA needs P to be "
+                             f"a multiple of 8 (16 bytes), got P={p}")
 
 
 def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
@@ -91,6 +101,12 @@ def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
                   torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     return y, state.transpose(2, 3)
+
+
+def tc_smem_bytes(n: int) -> int:
+    """Dynamic shared memory a block of the bfloat16 kernel takes at state
+    dim ``n`` (built on first use, like the launch)."""
+    return _build.load("ssd_scan_tc_smem", [ctypes.c_int], lib="ssd_scan")(n)
 
 
 def ssd_update(state, x_t, dt_t, a, B_t, C_t, d_skip=None):

@@ -11,7 +11,8 @@ short loop.  Single B/C group (n_groups=1).
   B, C: [B, S, N]    (N = state dim)
 
 ``ssd_chunked`` is the prefill path; ``ssd_update`` is the O(1) one-token
-decode path (plain on every device, as in the reference).
+decode path (plain on every device, as in the reference).  ``ssd_scan_model``
+is a test-only model of the CUDA kernel's own order of rounding and summing.
 """
 from __future__ import annotations
 
@@ -90,6 +91,53 @@ def ssd_chunked(
         y = y + d_skip[None, None, None, :, None].to(dtype) * xc
     y = y.reshape(b, s, h, p)[:, :orig_s]
     return y.to(x.dtype), h_prev
+
+
+def ssd_scan_model(x, dt, a, B, C, d_skip=None, chunk: int = 64):
+    """Test-only plain model of ``csrc/ssd_scan.cu`` (the bfloat16
+    tensor-core kernel; in float32 the same sums): per chunk, x dt, w, C
+    exp(cum), B exp(cum_Q - cum) and h rounded to x's type where the
+    reference casts; the two y products summed in ONE float32 sum over
+    their K = Q + N terms (the kernel's shared accumulator, where the
+    reference adds two float32 sums); h carried in float32 and scaled by
+    exp(cum_Q) before its product is added.  Returns (y [B,S,H,P] in x's
+    type, final state [B,H,P,N] float32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dtype = x.dtype
+    pad = (-s) % chunk
+    if pad:
+        x, dt, B, C = (_pad_seq(t, pad) for t in (x, dt, B, C))
+    nc = (s + pad) // chunk
+    f32 = torch.float32
+
+    def rnd(t):
+        return t.to(dtype).to(f32)
+
+    xc = x.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4).to(f32)
+    dtc = dt.reshape(b, nc, chunk, h).permute(0, 3, 1, 2).to(f32)
+    Bc = B.reshape(b, 1, nc, chunk, n).to(f32)
+    Cc = C.reshape(b, 1, nc, chunk, n).to(f32)
+    skip = (torch.zeros(h) if d_skip is None else d_skip).to(f32)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    hs = torch.zeros((b, h, n, p), dtype=f32)
+    ys = []
+    for c in range(nc):
+        dtk = dtc[:, :, c]                                     # [b,h,q]
+        cum = torch.cumsum(dtk * a.to(f32)[None, :, None], -1)
+        seg = cum[..., -1:]
+        xw = rnd(xc[:, :, c] * rnd(dtk)[..., None])            # [b,h,q,p]
+        scores = Cc[:, :, c] @ Bc[:, :, c].transpose(-1, -2)   # [b,h,q,q]
+        decay = torch.exp(torch.clamp_max(cum[..., :, None] - cum[..., None, :],
+                                          0.0))
+        w = rnd(torch.where(tri, scores * decay, torch.zeros(())))
+        c_in = rnd(Cc[:, :, c] * rnd(torch.exp(cum))[..., None])
+        y = torch.cat([w, c_in], -1) @ torch.cat([xw, rnd(hs)], -2)
+        b_w = rnd(Bc[:, :, c] * rnd(torch.exp(seg - cum))[..., None])
+        hs = hs * torch.exp(seg)[..., None] + b_w.transpose(-1, -2) @ xw
+        ys.append(y + xc[:, :, c] * skip[None, :, None, None])
+    y = torch.stack(ys, 2).permute(0, 2, 3, 1, 4).reshape(b, nc * chunk, h, p)
+    return y[:, :s].to(dtype), hs.transpose(-1, -2)
 
 
 def ssd_update(

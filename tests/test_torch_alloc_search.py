@@ -1,0 +1,159 @@
+"""The plain models of the allocation kernel's searches
+(``repro_torch.kernels.adaptbf_alloc.ref``: the radix ``topk_mask_radix``,
+the 32-candidate ``excess_rounds`` and ``integerize_model`` built on them,
+written digit by digit as ``csrc/alloc_round.cuh`` runs them) held bitwise
+against the port's ``core/remainder.py`` (sort-based top-k, 25-step bit
+descent) and the reference's ``repro.core.remainder`` (probe searches), on
+seeded numpy rows: many exact ties, -0.0 beside +0.0, -inf keys, all keys
+-inf, a zero budget, and k at 0, 1 and around the count of finite keys.
+
+The reference runs on rows padded to J = 8192 with excluded lanes (-inf
+keys, unmasked jobs) after the real ones, which rank after every real lane
+and take no tokens, so eager JAX compiles each primitive once."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_topk_select import random_case
+
+from repro.core import remainder as jref
+from repro_torch.core import remainder as tref
+from repro_torch.kernels.adaptbf_alloc import ref as model
+
+torch.set_num_threads(1)
+
+PAD = 8192
+WIDTHS = [1, 7, 4095, 4096, 8192]
+
+
+def _pad(x, value):
+    out = np.full(x.shape[:-1] + (PAD,), value, x.dtype)
+    out[..., :x.shape[-1]] = x
+    return out
+
+
+def _keys(rng, rows, j):
+    """Rows of keys: eighths (many exact ties) with -inf and -0.0 lanes,
+    fractional remainders with duplicated values, and a row all -inf."""
+    key = (rng.integers(-8, 9, (rows, j)) / 8.0).astype(np.float32)
+    key[rng.random((rows, j)) < 0.3] = -np.inf
+    key[rng.random((rows, j)) < 0.2] = -0.0
+    key[1] = rng.random(j).astype(np.float32)
+    key[1, ::3] = key[1, 0]
+    key[2] = -np.inf
+    return key
+
+
+def _counts(key):
+    return np.isfinite(key).sum(axis=1)
+
+
+@pytest.mark.parametrize("j", WIDTHS)
+def test_radix_topk_model_bitwise(j):
+    """k in {0, 1, count - 1, count, count + 1, j} for every row."""
+    rng = np.random.default_rng(j + 11)
+    key = _keys(rng, 4, j)
+    padded = jnp.asarray(_pad(key, -np.inf))
+    count = _counts(key)
+    for ks in (np.zeros(4), np.ones(4), count - 1, count, count + 1,
+               np.full(4, j)):
+        k = ks.astype(np.int32)
+        got = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(k))
+        port = tref.topk_mask(torch.from_numpy(key), torch.from_numpy(k)[:, None])
+        want = np.asarray(jref.topk_mask(padded, jnp.asarray(k)[:, None]))[:, :j]
+        np.testing.assert_array_equal(got.numpy(), port.numpy(),
+                                      err_msg=f"j={j} k={k}")
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"j={j} k={k}")
+
+
+def test_radix_topk_model_ties_at_every_digit():
+    """Keys that share their top one, two and three bytes, so the search
+    runs all four passes and breaks index ties among exact duplicates."""
+    base = np.float32(0.7).view(np.int32)
+    offs = np.array([0, 1, 1, 1, 256, 256, 65536, 65536, 2, 0, 0, 3],
+                    np.int32)
+    key = np.tile((base + offs).view(np.float32), (3, 50))
+    key[1, ::7] = -0.0
+    key[1, 3::7] = 0.0
+    for k in (1, 2, 3, 4, 5, 50, 51, 299, 300, 599, 600):
+        kk = np.array([k, k, k], np.int32)
+        got = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(kk))
+        want = np.asarray(jref.topk_mask(jnp.asarray(_pad(key, -np.inf)),
+                                         jnp.asarray(kk)[:, None]))[:, :600]
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
+
+
+def _bit_descent(floored, d_dn):
+    """The reference's 25-step descent on exact sums: (p, g(p))."""
+    f = floored.astype(np.int64)
+    p = np.zeros(len(f), np.int64)
+    for bit in range(24, -1, -1):
+        cand = p | (1 << bit)
+        g = np.minimum(f, cand[:, None]).sum(1).astype(np.float32)
+        p = np.where(g <= d_dn, cand, p)
+    return p, np.minimum(f, p[:, None]).sum(1).astype(np.float32)
+
+
+@pytest.mark.parametrize("j", WIDTHS)
+def test_excess_model_matches_bit_descent(j):
+    """Excess from a token to every token held, over floors up to 5000."""
+    rng = np.random.default_rng(j)
+    floored = np.floor(rng.random((6, j)) * rng.choice([2.0, 40.0, 5000.0],
+                                                         (6, 1)))
+    floored[rng.random((6, j)) < 0.3] = 0.0
+    total = floored.sum(1)
+    d_dn = np.array([0.0, 1.0, total[2] // 3, total[3] - 1, total[4],
+                     total[5] + 10], np.float32)
+    p, g_p = model.excess_rounds(torch.from_numpy(floored.astype(np.float32)),
+                                 torch.from_numpy(d_dn))
+    want_p, want_g = _bit_descent(floored, d_dn)
+    np.testing.assert_array_equal(p.numpy(), want_p)
+    np.testing.assert_array_equal(g_p.numpy(), want_g)
+
+
+def _integerize_all(raw, rem, budget, mask):
+    """The model, the port and the reference on [R, J] rows: bitwise."""
+    j = raw.shape[-1]
+    got = model.integerize_model(torch.from_numpy(raw), torch.from_numpy(rem),
+                                 torch.from_numpy(budget),
+                                 torch.from_numpy(mask))
+    port = tref.integerize(torch.from_numpy(raw), torch.from_numpy(rem),
+                           torch.from_numpy(budget)[:, None],
+                           torch.from_numpy(mask))
+    want = jref.integerize(jnp.asarray(_pad(raw, 0.0)),
+                           jnp.asarray(_pad(rem, 0.0)),
+                           jnp.asarray(budget)[:, None],
+                           jnp.asarray(_pad(mask, False)))
+    for g, p, w, name in zip(got, port, want, ("alloc", "remainder")):
+        np.testing.assert_array_equal(g.numpy(), p.numpy(), err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:, :j],
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("j", WIDTHS)
+def test_integerize_model_bitwise(j):
+    """In-contract rows and rows whose budget is off by up to 50 tokens
+    (leftover and excess), with negative carried remainders."""
+    rng = np.random.default_rng(j * 5 + 3)
+    cases = [random_case(rng, j, in_contract) for in_contract in
+             (True, True, False, False, False)]
+    raw, rem, budget, mask = (np.stack([c[i] for c in cases])
+                              for i in range(4))
+    _integerize_all(raw, rem, budget.astype(np.float32), mask)
+
+
+def test_integerize_model_on_stress_rows():
+    """Exact remainder ties everywhere, a zero budget, an empty mask, a
+    multi-round leftover and a multi-round excess, at J = 4096."""
+    rng = np.random.default_rng(7)
+    rows, j = 6, 4096
+    mask = rng.random((rows, j)) < 0.8
+    mask[4] = False                                           # nothing masked
+    raw = np.where(mask, 2.5, 0.0).astype(np.float32)        # all tied
+    rem = np.zeros((rows, j), np.float32)
+    rem[1] = -0.75                                           # negative carry
+    floored = np.floor(raw + rem).clip(0).sum(axis=1)
+    budget = np.array([floored[0] + 7, floored[1] + 3 * mask[1].sum() + 5,
+                       floored[2] - 9, floored[3] - 1.5 * mask[3].sum(),
+                       0.0, 0.0], np.float32)
+    _integerize_all(raw, rem, budget, mask)

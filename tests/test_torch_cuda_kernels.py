@@ -2,12 +2,14 @@
 at widths that take every lanes-per-thread variant the kernels compile
 (J = 1 to the 8192 maximum) -- the window megakernel for every policy case
 and for coded dispatch -- plus the wrappers' input checks and the kernel
-paths of ``simulate_fleet``; and the LM kernels (flash attention, flash
-decode, the SSD scan) over head dims 16-128, GQA groups 1 and 4, ragged
-lengths, S at the tile edges and S != T, decode lengths around the host
-plan's split length, and both element types, with their wrappers' input
-checks (the bfloat16 attention's TMA and the decode's 16-byte copies
-want 16-byte aligned bases and strides).
+paths of ``simulate_fleet``, and the allocation round and the
+megakernel on rows built to stress the radix select and the excess
+descent; and the LM kernels (flash attention, flash decode, the SSD scan)
+over head dims 16-128, GQA groups 1 and 4, ragged lengths, S at the tile
+and chunk edges and S != T, decode lengths around the host plan's split
+length, SSD state dims 16-128, and both element types, with their
+wrappers' input checks (the bfloat16 attention's and SSD scan's TMA and
+the decode's 16-byte copies want 16-byte aligned bases and strides).
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -99,6 +101,81 @@ def test_alloc_kernel_matches_plain(cuda, j):
     total = got[0].double().sum(-1)
     want_total = torch.where((args[0] > 0).any(-1), args[5].double(), 0.0)
     torch.testing.assert_close(total, want_total, rtol=0, atol=1e-2)
+
+
+def _alloc_stress(j, seed):
+    """Six rows built for the allocation's searches: (0) every remainder
+    key tied, (1) remainders of -0.0 beside +0.0, (2) no active job (every
+    key -inf, budget 0), (3) zero capacity over carried remainders of 3.5
+    (a multi-round excess), (4) J - 1 tokens over J equal shares (k =
+    count - 1 among ties), (5) a random row."""
+    rng = np.random.default_rng(seed)
+    o = 6
+    demand = rng.integers(1, 3000, (o, j)).astype(np.float32)
+    nodes = np.full((o, j), 8.0, np.float32)
+    record = np.zeros((o, j), np.float32)
+    remainder = np.full((o, j), 0.25, np.float32)
+    prev = np.full((o, j), 100.0, np.float32)
+    cap = np.array([1000.0, 1000.0, 1000.0, 0.0, j - 1.0, 50000.0],
+                   np.float32)
+    remainder[1, ::2] = -0.0
+    remainder[1, 1::2] = 0.0
+    demand[2] = 0.0
+    remainder[3] = 3.5
+    remainder[4] = 0.0
+    demand[5, rng.random(j) < 0.3] = 0.0
+    nodes[5] = rng.integers(1, 128, j)
+    record[5] = rng.integers(-200, 200, j)
+    remainder[5] = rng.random(j) - 0.5
+    prev[5] = rng.integers(0, 500, j)
+    return demand, nodes, record, remainder, prev, cap
+
+
+@pytest.mark.parametrize("j", [1, 4095, 4096, MAX_JOBS])
+def test_alloc_kernel_on_search_stress_rows(cuda, j):
+    """Allocations integer-equal to the plain round, record and remainder
+    within 1e-3, on rows that drive the radix select through ties, -inf
+    rows, zero budgets and multi-round excess."""
+    args = [torch.as_tensor(x, device=cuda) for x in _alloc_stress(j, j)]
+    got = alloc_ops.fleet_alloc(*args)
+    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("record", "remainder"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("j", [1, 4095, 4096, MAX_JOBS])
+def test_mega_kernel_on_search_stress_rows(cuda, j):
+    """The window megakernel's adaptbf case on the same rows (row 2 gets
+    no traffic, so it observes no demand), against its plain round."""
+    demand, nodes, record, remainder, prev, cap = _alloc_stress(j, j + 1)
+    rng = np.random.default_rng(j)
+    o, w = 6, 10
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+
+    cap_tick = t(cap / w)
+    ctx = PolicyContext(nodes=t(nodes), cap_w=cap_tick * w)
+    queue = rng.random((o, j)) * 12
+    rates = rng.integers(0, 4, (w, o, j)).astype(np.float32)
+    queue[2] = 0.0
+    rates[:, 2] = 0.0
+    alloc = t(rng.integers(0, 20, (o, j)))
+    zeros = torch.zeros((o, j), device=cuda)
+    args = [get_policy("adaptbf"), ctx, cap_tick,
+            t(rng.choice([16.0, 64.0], (o, j))), t(queue),
+            t(np.full((o, j), np.inf)), alloc, (zeros, zeros, alloc),
+            AllocatorState(t(record), t(remainder), t(prev)), t(rates)]
+    got = mega_ops.mega_window_round(*args)
+    want = mega_ops.ref.mega_round_ref(*args)
+    assert torch.equal(got[8], want[8])
+    for i, (g, w_) in enumerate(zip(_mega_leaves(got), _mega_leaves(want),
+                                    strict=True)):
+        assert torch.equal(g.isfinite(), w_.isfinite()), i
+        fin = w_.isfinite()
+        torch.testing.assert_close(g[fin], w_[fin], rtol=0, atol=1e-3,
+                                   msg=f"leaf {i}")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -393,7 +470,7 @@ def test_flash_decode_matches_plain(cuda, d, group, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,n", [(16, 16), (64, 64), (32, 100), (64, 128)])
+@pytest.mark.parametrize("p,n", [(16, 16), (64, 64), (32, 96), (64, 128)])
 @pytest.mark.parametrize("s", [64, 200])
 def test_ssd_scan_matches_plain(cuda, s, p, n, dtype):
     gen = torch.Generator(device=cuda).manual_seed(s + p + n)
@@ -414,6 +491,61 @@ def test_ssd_scan_matches_plain(cuda, s, p, n, dtype):
     assert tuple(st.shape) == (b, h, p, n)
     torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
+
+
+def _ssd_case(cuda, b, s, h, p, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = _rand(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32)
+                                      - 1.0)
+    a = -torch.exp(torch.rand(h, generator=gen, device=cuda) * 1.5)
+    B = (_rand(gen, (b, s, n), torch.float32) * n ** -0.5).to(dtype)
+    C = (_rand(gen, (b, s, n), torch.float32) * n ** -0.5).to(dtype)
+    skip = torch.linspace(0.5, 1.5, h, device=cuda)
+    return x, dt, a, B, C, skip
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 1, 5, 64, 64), (2, 63, 5, 64, 64), (2, 64, 5, 64, 64),
+    (2, 65, 5, 64, 64), (2, 129, 5, 64, 64), (2, 2000, 3, 64, 64),
+    (1, 300, 4, 64, 128), (1, 300, 4, 32, 64), (1, 300, 4, 64, 16)])
+def test_ssd_scan_edges(cuda, b, s, h, p, n, dtype):
+    """S at the chunk edges and ragged, N of 16 and 128, P=32, a head
+    count (5) that fills no consumer group, a batch of 1."""
+    x, dt, a, B, C, skip = _ssd_case(cuda, b, s, h, p, n, dtype, s + n + p)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd(x, dt, a, B, C, d_skip=skip)
+    assert ssd_ops.launches == before + 1
+    wy, wst = ssd_ops.ref.ssd_chunked(x, dt, a, B, C, d_skip=skip)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_bf16_rejects_what_tma_cannot_read(cuda):
+    """The bfloat16 scan moves x, B, C and y by TMA: a B or C row of 100
+    elements (200-byte stride), an x base off 16 bytes and P=4 (an 8-byte
+    head stride of y) raise; the float32 scan takes the same shapes."""
+    x, dt, a, B, C, skip = _ssd_case(cuda, 1, 128, 2, 64, 100,
+                                     torch.bfloat16, 3)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_ops.ssd(x, dt, a, B, C, d_skip=skip)
+    bc = B[..., :64].contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        ssd_ops.ssd(flat[1:].view(x.shape), dt, a, bc, bc, d_skip=skip)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd_ops.ssd(x[..., :8].contiguous().view(1, 128, 2, 8)[..., :4],
+                    dt, a, bc, bc, d_skip=skip)
+    assert ssd_ops.launches == before
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t
+           for t in (x, dt, a, B, C)]
+    y, _ = ssd_ops.ssd(*f32, d_skip=skip)
+    assert ssd_ops.launches == before + 1
+    wy, _ = ssd_ops.ref.ssd_chunked(*f32, d_skip=skip)
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
 
 
 def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):

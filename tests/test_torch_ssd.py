@@ -89,6 +89,35 @@ def test_plain_ssd_matches_reference_and_its_kernel(b, s, h, p, n, chunk,
     _close(st, kst, dtype)
 
 
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 256, 4, 64, 64),    # zamba2 head dims and state
+    (1, 130, 3, 32, 128),   # ragged S, mamba2-1.3b state
+    (1, 1, 5, 16, 16),      # one position
+    (2, 65, 2, 64, 64),     # one position into the second chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_model_matches_plain_and_reference(b, s, h, p, n, dtype):
+    """``ref.ssd_scan_model`` (the CUDA kernel's order: both y products in
+    one float32 sum, h carried in float32) against the plain version, the
+    reference's ``ssd_chunked`` and its Pallas kernel in interpret mode,
+    at the reference's kernel tolerances."""
+    args = _inputs(b, s, h, p, n, seed=b * s + n)
+    tx, tdt, ta, tB, tC, tskip = _port(args, dtype)
+    y, st = ref.ssd_scan_model(tx, tdt, ta, tB, tC, d_skip=tskip)
+    assert y.dtype == _T[dtype] and st.dtype == torch.float32
+    assert tuple(st.shape) == (b, h, p, n)
+    py, pst = ref.ssd_chunked(tx, tdt, ta, tB, tC, d_skip=tskip)
+    _close(y, py.float(), dtype)
+    _close(st, pst.float(), dtype)
+    jx, jdt, ja, jB, jC, jskip = _ref(args, dtype)
+    wy, wst = jref.ssd_chunked(jx, jdt, ja, jB, jC, d_skip=jskip, chunk=64)
+    _close(y, wy, dtype)
+    _close(st, wst, dtype)
+    ky, kst = _jit_pallas(64)(jx, jdt, ja, jB, jC, d_skip=jskip)
+    _close(y, ky, dtype)
+    _close(st, kst, dtype)
+
+
 def test_plain_ssd_takes_an_initial_state_on_the_cpu():
     args = _inputs(1, 64, 2, 16, 8, seed=3)
     h0 = np.random.default_rng(4).standard_normal((1, 2, 16, 8)).astype(
