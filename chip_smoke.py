@@ -9,7 +9,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    nvcc per source, in parallel, and print ptxas's registers, spills and
    shared memory and the count of tensor-core (HGMMA) instructions in the
    SASS of the flash attention and SSD libraries (``cuobjdump -sass``;
-   none in either fails the run).
+   none in either fails the run); for the three fleet kernels at J=4096,
+   a summary of registers, spills, static and dynamic shared memory and
+   resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
    J=4096 jobs, W=10 ticks per window): the allocation over chained
@@ -18,8 +20,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
    chained rounds from an evolved state and one round with a fault row;
    both on rows built to stress the allocation's radix select and excess
    descent (exact ties, -0.0 beside +0.0, no active job, a zero budget
-   over carried remainders, k = count - 1) at J of 1, 4095, 4096 and
-   8192, the integer allocation held with ``torch.equal``.
+   over carried remainders, k = count - 1) at J of 1, 4093, 4095, 4096
+   and 8192, the integer allocation held with ``torch.equal``; the window
+   service and the allocation also at O of 1, 133 and 265 (one past a
+   full wave at one and at two blocks an SM) and J=4093 (rate rows off a
+   16-byte boundary), the window service at J of 1, 3 and 8192 and W of
+   0 and 1, with budgets of +inf and 0 and backlog caps below the queue.
    LM kernels, at the tolerances of the reference's kernel tests
    (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
    attention causal at the prefill's shape (B=4, S=2048, 32 heads of 80)
@@ -30,7 +36,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    GQA 8/2, and lengths 0, 1, L-1, L, L+1 and T around the host plan's
    split length L; the SSD scan at the prefill's shape (80 heads of P=64,
    N=64) in both types, a ragged S=2000, S of 1, 63, 64, 65 and 129,
-   N=128, P=32, 5 heads and a batch of 1.
+   N=128, P=32, 5 heads and a batch of 1; and warm-started from a seeded
+   ``initial_state`` at the prefill's shape and at S of 1 and 65, in both
+   types (its launch counter must move).
 3. Drive the main paths, each with every launch counter set to 0 just
    before it and read just after.  The fleet: a seeded 256-OST x 4096-job
    fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
@@ -57,7 +65,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    generated tokens per second.
 5. Trace one fused/pallas run, one mega run, one bfloat16 prefill step
    and one engine run with ``torch.profiler``: device busy time, idle
-   share and device time by kernel.
+   share and device time by kernel (the fused/pallas run's beside the
+   one from before the allocation kernel ran two blocks an SM,
+   ``ONE_BLOCK_FUSED_TRACE``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel.  Without a CUDA
@@ -88,6 +98,10 @@ PREFILL_B, PREFILL_S = 4, 2048    # the prefill step's batch
 SERVE = dict(requests=8, prompt=4, max_new=16, slots=4, max_len=128)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the fused/pallas run under the profiler when the allocation kernel ran
+# one block an SM (device busy ms, idle share; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md)
+ONE_BLOCK_FUSED_TRACE = (8.23, 0.655)
 
 
 def _fail(msg: str) -> int:
@@ -105,6 +119,33 @@ def _without_params(name: str) -> str:
         if depth == 0:
             return name[:i]
     return name
+
+
+def ptxas_of(log: Path, marker: str):
+    """(registers, spill store bytes, spill load bytes, static shared
+    bytes) of the first kernel whose mangled name holds ``marker`` in an
+    nvcc ``-Xptxas -v`` log."""
+    lines = log.read_text().splitlines()
+    for k, line in enumerate(lines):
+        entry = re.search(r"entry function '(\w+)'", line)
+        if not entry or marker not in entry.group(1):
+            continue
+        regs = stores = loads = smem = 0
+        for info in lines[k + 1:k + 6]:
+            if "entry function" in info:
+                break
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          info)
+            if m:
+                stores, loads = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", info)
+            if m:
+                regs = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", info)
+            if m:
+                smem = int(m.group(1))
+        return regs, stores, loads, smem
+    raise AssertionError(f"no kernel {marker} in {log}")
 
 
 def _smi() -> str:
@@ -360,7 +401,7 @@ def alloc_stress_case(j, seed):
 
 def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
     """B2 and B3 (adaptbf) against their plain versions on the stress rows
-    at J of 1, 4095, 4096 and 8192: the integer allocation equal
+    at J of 1, 4093, 4095, 4096 and 8192: the integer allocation equal
     (``torch.equal``), record and remainder and every other megakernel
     leaf within atol 1e-3.  The megakernel's row 2 gets no traffic, so it
     observes no demand.  Returns the largest error."""
@@ -372,7 +413,7 @@ def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
                                device=dev)
 
     worst = 0.0
-    for j in (1, 4095, 4096, 8192):
+    for j in (1, 4093, 4095, 4096, 8192):
         host = alloc_stress_case(j, seed=j)
         args = [t(x) for x in host]
         got = alloc_ops.fleet_alloc(*args)
@@ -445,6 +486,75 @@ def check_window_kernel(torch, fw_ops, dev):
     print(f"fleet_window kernel vs plain at O={O} J={J} W={W}: "
           f"max |err| {err} (atol 1e-4)")
     return args, err
+
+
+def check_window_edges(torch, fw_ops, dev):
+    """B1 against its plain version at the edges of its design: O of 1,
+    133 and 265 (one past a full wave at one and at two blocks an SM), J
+    of 1, 3, 4093 (not a multiple of 4: rows off a 16-byte boundary) and
+    8192, W of 0 and 1, and capacities large enough
+    that phase 1 fits them (its scale exactly 1); each
+    with budgets of +inf (half the lanes) and 0 (every 7th) and backlog
+    caps below the queue (every 5th).  atol 1e-4, equal finite masks.
+    Returns the largest error."""
+    cases = [(1, J, W, 1), (133, J, W, 1), (265, J, W, 1), (O, 1, W, 1),
+             (O, 3, W, 1), (O, 4093, W, 1), (O, 8192, W, 1), (O, J, 0, 1),
+             (O, J, 1, 1), (O, J, W, 10000)]
+    worst = 0.0
+    for o, j, w, cap_scale in cases:
+        queue, vol, budget, rates, backlog, cap = window_case(
+            o, j, w, seed=o + j + w)
+        budget[:, ::7] = 0.0
+        backlog[:, ::5] = queue[:, ::5] * 0.5
+        cap = cap * cap_scale
+        args = [torch.as_tensor(x, device=dev)
+                for x in (queue, vol, budget, rates, backlog, cap)]
+        got = fw_ops.fleet_window_serve(*args)
+        want = fw_ops.fleet_window_ref(*args)
+        err = 0.0
+        for name, g, w_ in zip(("queue", "vol_left", "served"), got, want):
+            if not torch.equal(g.isfinite(), w_.isfinite()):
+                raise AssertionError(f"fleet_window O={o} J={j} W={w}: "
+                                     f"{name} finite masks differ")
+            fin = w_.isfinite()
+            e = float((g[fin].double() - w_[fin].double()).abs().max()) \
+                if bool(fin.any()) else 0.0
+            if e > 1e-4:
+                raise AssertionError(f"fleet_window O={o} J={j} W={w}: "
+                                     f"{name} off by {e} > 1e-4")
+            err = max(err, e)
+        worst = max(worst, err)
+        print(f"fleet_window kernel vs plain at O={o} J={j} W={w}, capacity "
+              f"x{cap_scale} (+inf and 0 budgets, caps below the queue): max "
+              f"|err| {err} (atol 1e-4)")
+    return worst
+
+
+def check_alloc_edges(torch, alloc_ops, dev):
+    """B2 against its plain version at O of 1, 133 and 265 and J of 4093
+    and 4096 (one round from ``alloc_case`` with fractional remainders):
+    allocations equal (``torch.equal``), record and remainder within
+    atol 1e-3.  Returns the largest error."""
+    worst = 0.0
+    for o, j in ((1, J), (133, J), (265, J), (1, 4093), (265, 4093)):
+        host = list(alloc_case(o, j, seed=o * j))
+        host[3] = (np.random.default_rng(o).random((o, j)) - 0.5).astype(
+            np.float32)
+        args = [torch.as_tensor(x, device=dev) for x in host]
+        got = alloc_ops.fleet_alloc(*args)
+        want = alloc_ops.fleet_alloc_ref(*args)[:3]
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"adaptbf_alloc O={o} J={j}: allocations "
+                                 "differ")
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got[1:], want[1:]))
+        if err > 1e-3:
+            raise AssertionError(f"adaptbf_alloc O={o} J={j}: record/"
+                                 f"remainder off by {err} > 1e-3")
+        worst = max(worst, err)
+        print(f"adaptbf_alloc kernel vs plain at O={o} J={j}: allocations "
+              f"equal, record/remainder max |err| {err} (atol 1e-3)")
+    return worst
 
 
 def check_alloc_kernel(torch, alloc_ops, dev, rounds=3):
@@ -528,7 +638,8 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
     """One run under ``torch.profiler``: device busy time, idle share and
     device time by kernel (the ``top`` longest, and each kernel whose name
     holds a string of ``focus``: its launches and device time a launch),
-    printed; returns nothing."""
+    printed; returns (device busy ms, idle share), or None when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -546,7 +657,7 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
     if busy == 0:
         print(f"trace ({label}): the profiler recorded no device time "
               "(not measured)")
-        return
+        return None
     longest = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
     print(f"trace ({label}, {what}, {wall * 1e3:.1f} ms wall "
           f"under the profiler): {sum(e.count for e in device)} device "
@@ -560,6 +671,7 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
         print(f"trace ({label}): {name}: {count} launches, "
               f"{total / 1e3:.3f} ms device time, "
               f"{total / max(count, 1):.2f} us a launch")
+    return busy * 1e3, 1 - busy / wall
 
 # ------------------------------------------------------- the LM serving path
 
@@ -726,6 +838,35 @@ def check_ssd_kernel(torch, ssd_ops, dev):
         if (s, name) == (PREFILL_S, "bfloat16"):
             timed = args
     return timed, worst
+
+
+def check_ssd_warm_start(torch, ssd_ops, dev):
+    """B6 warm-started from a seeded ``initial_state`` [B, H, P, N]
+    (float32; the kernel rounds it to x's type, as the reference's oracle
+    casts it) against ``ref.ssd_chunked(initial_state=...)``, y and the
+    final state, in both types, at the prefill's shape and at S of 1 and
+    65; each call must launch the kernel once.  Returns the largest
+    error."""
+    gen = torch.Generator(device=dev).manual_seed(53)
+    worst = 0.0
+    for b, s, name in [(PREFILL_B, PREFILL_S, dt) for dt in SSD_TOL] + [
+            (2, s, dt) for s in (1, 65) for dt in SSD_TOL]:
+        h, p, n = 80, 64, 64
+        args = ssd_inputs(torch, gen, b, s, h, p, n, getattr(torch, name))
+        h0 = _randn(torch, gen, (b, h, p, n), torch.float32)
+        before = ssd_ops.launches
+        y, st = ssd_ops.ssd(*args[:5], d_skip=args[5], initial_state=h0)
+        if ssd_ops.launches != before + 1:
+            raise AssertionError("warm-started ssd did not launch the kernel")
+        wy, wst = ssd_ops.ref.ssd_chunked(*args[:5], d_skip=args[5],
+                                          initial_state=h0)
+        e_y = close_err(y, wy, SSD_TOL[name])
+        e_s = close_err(st, wst, SSD_TOL[name])
+        print(f"ssd_scan kernel vs plain, warm-started, B={b} S={s} H={h} "
+              f"P={p} N={n} {name}: max |err| y {e_y}, state {e_s} "
+              f"(atol = rtol = {SSD_TOL[name]})")
+        worst = max(worst, e_y, e_s)
+    return worst
 
 
 def attention_work(b, s, h, d, elem):
@@ -1021,15 +1162,35 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # the fleet kernels at the main path's width (8 lanes a thread)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    occupancy = {}
+    for name, marker in (
+            ("fleet_window", "fleet_window_kernelILi8EE"),
+            ("adaptbf_alloc", "adaptbf_alloc_kernelILi8EE"),
+            ("window_mega", "window_mega_kernelILi8ELi0EE")):
+        regs, stores, loads, smem = ptxas_of(
+            libs[name].with_suffix(".log"), marker)
+        blocks, dyn = _build.occupancy(name, J)
+        occupancy[name] = blocks
+        print(f"{name} at J={J} (8 lanes a thread): {regs} registers, "
+              f"{stores} B spill stores, {loads} B spill loads, {smem} B "
+              f"static + {dyn} B dynamic shared memory a block; {blocks} "
+              f"blocks an SM, {blocks * n_sm} rows a wave on {n_sm} SMs "
+              f"(O={O}: {-(-O // max(blocks * n_sm, 1))} wave(s))")
+
     # 2. each kernel against its plain version, at the main path's shapes
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
+    fw_err = max(fw_err, check_window_edges(torch, fw_ops, dev))
     al_args, al_err = check_alloc_kernel(torch, alloc_ops, dev)
+    al_err = max(al_err, check_alloc_edges(torch, alloc_ops, dev))
     mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
     stress_err = check_alloc_stress(torch, alloc_ops, mega_ops, dev)
     al_err, mega_err = max(al_err, stress_err), max(mega_err, stress_err)
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
     fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
+    ssd_err = max(ssd_err, check_ssd_warm_start(torch, ssd_ops, dev))
 
     # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1219,8 +1380,13 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # 5. where the time goes: one run of each kernel path under the profiler
-    trace(torch, "fused/pallas", lambda: run("fused", "pallas"))
-    trace(torch, "mega", lambda: run("mega", "core"))
+    fused = trace(torch, "fused/pallas", lambda: run("fused", "pallas"),
+                  focus=("fleet_window", "adaptbf_alloc"))
+    if fused:
+        print(f"trace (fused/pallas): device busy {fused[0]:.2f} ms, idle "
+              f"share {fused[1]:.3f}; with the allocation at one block an SM "
+              f"{ONE_BLOCK_FUSED_TRACE[0]} ms, {ONE_BLOCK_FUSED_TRACE[1]}")
+    trace(torch, "mega", lambda: run("mega", "core"), focus=("window_mega",))
 
     kernels = [
         {"name": "fleet_window", "route": "cuda",
@@ -1228,19 +1394,22 @@ def main() -> int:
          "replaces": "src/repro/kernels/fleet_window/kernel.py:77",
          "launches": launches["fleet_window"], "max_abs_err": fw_err,
          "ms": fw_ms, "plain_ms": fw_plain, "bound_ms": fw_b,
-         "bound_by": fw_by, "library_ms": None},
+         "bound_by": fw_by, "library_ms": None,
+         "blocks_per_sm": occupancy["fleet_window"]},
         {"name": "adaptbf_alloc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/adaptbf_alloc.cu",
          "replaces": "src/repro/kernels/adaptbf_alloc/kernel.py:135",
          "launches": launches["adaptbf_alloc"], "max_abs_err": al_err,
          "ms": al_ms, "plain_ms": al_plain, "bound_ms": al_b,
-         "bound_by": al_by, "library_ms": None},
+         "bound_by": al_by, "library_ms": None,
+         "blocks_per_sm": occupancy["adaptbf_alloc"]},
         {"name": "window_mega", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_mega.cu",
          "replaces": "src/repro/kernels/window_mega/kernel.py:168",
          "launches": mega_launches["window_mega"], "max_abs_err": mega_err,
          "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
-         "bound_by": mega_by, "library_ms": None},
+         "bound_by": mega_by, "library_ms": None,
+         "blocks_per_sm": occupancy["window_mega"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:79",

@@ -1,6 +1,6 @@
 """AdapTBF core: the paper's decentralized adaptive token borrowing allocator."""
 from repro_torch.core.adaptbf import allocate, fleet_allocate
-from repro_torch.core.baselines import static_allocate
+from repro_torch.core.baselines import no_bw_allocate, static_allocate
 from repro_torch.core.policies import (
     CodedPolicy,
     ControlPolicy,
@@ -28,6 +28,7 @@ __all__ = [
     "allocate",
     "fleet_allocate",
     "static_allocate",
+    "no_bw_allocate",
     "CodedPolicy",
     "ControlPolicy",
     "PolicyContext",

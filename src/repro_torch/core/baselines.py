@@ -21,3 +21,14 @@ def static_allocate(nodes: torch.Tensor, capacity) -> torch.Tensor:
     capacity = torch.as_tensor(capacity, dtype=torch.float32,
                                device=nodes.device)
     return capacity[..., None] * share
+
+
+def no_bw_allocate(demand: torch.Tensor, capacity) -> torch.Tensor:
+    """No-BW 'allocation': every job gets the capacity as its token count,
+    effectively unlimited (the simulator then arbitrates by backlog share).
+
+    demand: [..., J] (only its shape and device are read); capacity
+    broadcasts against it from the right, as ``jnp.full`` does."""
+    capacity = torch.as_tensor(capacity, dtype=torch.float32,
+                               device=demand.device)
+    return torch.broadcast_to(capacity, demand.shape).clone()

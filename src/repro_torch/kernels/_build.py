@@ -107,3 +107,13 @@ def launch(name: str, argtypes, *args) -> None:
     err = load(name, argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def occupancy(lib: str, n_jobs: int):
+    """(blocks resident on one SM, dynamic shared memory a block in bytes)
+    of the row kernel of ``csrc/<lib>.cu`` at row width ``n_jobs``, from
+    its C entry ``<lib>_occupancy`` (CUDA's occupancy calculator)."""
+    smem = ctypes.c_int(0)
+    blocks = load(f"{lib}_occupancy", [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                  lib=lib)(n_jobs, ctypes.byref(smem))
+    return blocks, smem.value

@@ -13,17 +13,26 @@
 // distribution (~230 a round); alloc_round.cuh's radix select, 32-candidate
 // excess descent and paired row sums take ~25 a round.
 //
-// Design: one thread block per OST row, the whole round in one launch, so
-// no intermediate leaves registers.  The round itself is alloc_round.cuh's
-// adaptbf_round, shared with the window megakernel (window_mega.cu).
-// Thread t owns lanes t + i * THREADS; lanes past J are absent from every
-// sum and count (J is not padded: padded lanes would enter the top-k
-// counts).  A reduction is a warp butterfly and one shared slot per warp
-// behind one barrier (common.cuh), and every thread receives the same
-// total, so each search's branches are uniform across the block.  At 128
-// registers a thread one block fits an SM, so 256 rows run as two rounds
-// of blocks; capping registers at 64 for two blocks an SM spilled and was
-// slower here (PERF.md), unlike in the megakernel.
+// Design: one thread block of 512 threads per OST row, the whole round in
+// one launch.  The round is alloc_round.cuh's adaptbf_round, shared with
+// the window megakernel (window_mega.cu).  Thread t owns lanes t + i *
+// THREADS; lanes past J are absent from every sum and count (J is not
+// padded: padded lanes would enter the top-k counts).  A reduction is a
+// warp butterfly and one shared slot per warp behind one barrier
+// (common.cuh), and every thread receives the same total, so each search's
+// branches are uniform across the block.
+//
+// One wave.  The chain of ~25 barriers leaves an SM idle while its one
+// block waits, so the kernel is built for two blocks an SM (at J <= 4096:
+// 264 slots for the main path's 256 rows, which then run in one wave
+// instead of two, each row's barriers overlapped by the other row's work).
+// That caps a thread at 64 registers.  The round's four live lane arrays
+// and the row's demand live in thread-private lanes of dynamic shared
+// memory (SmemRound: 5 x 16 KB a block at J = 4096, beside 18 KB of
+// reduction slots and search tables), lane masks are bits of a word, and
+// derived values are recomputed instead of held (alloc_round.cuh);
+// ptxas's registers and spills: PERF.md.  Rows wider than 4096 run one
+// block an SM.
 //
 // Numerics: see alloc_round.cuh.  The integer path is bitwise with the
 // reference; float row sums accumulate in double and round once, as the
@@ -36,8 +45,14 @@ namespace {
 
 using namespace repro;
 
+// dynamic shared memory a block: the round's lanes, then the demand's
 template <int LPT>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int smem_bytes() {
+  return SmemRound<LPT>::BYTES + LPT * THREADS * 4;
+}
+
+template <int LPT>
+__global__ void __launch_bounds__(THREADS, LPT <= 8 ? 2 : 1)
 adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      const float* __restrict__ nodes_g,
                      const float* __restrict__ record_g,
@@ -53,26 +68,23 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
   search_init(s);
   const size_t row = static_cast<size_t>(blockIdx.x) * n_jobs;
 
-  float demand[LPT];
+  SmemLanes<LPT, SmemRound<LPT>::ARRAYS> demand;  // after the round's
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
     demand[i] = j < n_jobs ? demand_g[row + j] : 0.0f;
   }
-  float alloc[LPT], record[LPT], rem[LPT];
-  adaptbf_round<LPT>(demand, nodes_g + row, record_g + row, remainder_g + row,
-                     prev_g + row, cap_g[blockIdx.x], u_max,
-                     /*integer_tokens=*/true, alloc, record, rem, n_jobs, r);
-
-#pragma unroll
-  for (int i = 0; i < LPT; ++i) {
-    const int j = lane_of(i);
-    if (j < n_jobs) {
-      alloc_out[row + j] = alloc[i];
-      record_out[row + j] = record[i];
-      remainder_out[row + j] = rem[i];
-    }
-  }
+  adaptbf_round<LPT>(demand, nodes_g + row, record_g + row,
+                     remainder_g + row, prev_g + row, cap_g[blockIdx.x],
+                     u_max, /*integer_tokens=*/true, n_jobs, r,
+                     [&](int i, float alloc, float record, float rem) {
+                       const int j = lane_of(i);
+                       if (j < n_jobs) {
+                         alloc_out[row + j] = alloc;
+                         record_out[row + j] = record;
+                         remainder_out[row + j] = rem;
+                       }
+                     });
 }
 
 }  // namespace
@@ -89,8 +101,19 @@ extern "C" int adaptbf_alloc(const float* demand, const float* nodes,
   if (n_jobs < 1 || n_jobs > MAX_J || n_ost < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_LPT(n_jobs, adaptbf_alloc_kernel<LPT><<<n_ost, THREADS, 0, st>>>(
-      demand, nodes, record, remainder, alloc_prev, capacity, alloc_out,
-      record_out, remainder_out, n_jobs, u_max));
-  return static_cast<int>(cudaGetLastError());
+  REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
+      launch_rows<adaptbf_alloc_kernel<LPT>, smem_bytes<LPT>()>(
+          n_ost, st, demand, nodes, record, remainder, alloc_prev, capacity,
+          alloc_out, record_out, remainder_out, n_jobs, u_max)));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the kernel resident on an SM at row width n_jobs (-1 on
+// error); its dynamic shared memory a block into *smem.
+extern "C" int adaptbf_alloc_occupancy(int n_jobs, int* smem) {
+  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  REPRO_DISPATCH_LPT(n_jobs, *smem = smem_bytes<LPT>();
+                     return blocks_per_sm<adaptbf_alloc_kernel<LPT>,
+                                          smem_bytes<LPT>()>());
+  return -1;
 }

@@ -15,9 +15,11 @@
 //     memory (shared atomics: aggregating them by __match_any_sync was
 //     slower) that every warp scans for the digit and the rank left below
 //     it, stopping once every lane sharing the digits found is selected;
-//     the tied lanes' rank by index is one ballot prefix count (index
-//     order is lane slot, warp, lane), only when the seats left are fewer
-//     than the ties;
+//     after four passes the tied lanes' rank by index is one ballot
+//     prefix count (index order is lane slot, warp, lane) -- ranking a
+//     small bucket's lanes directly after an earlier pass was measured
+//     and was no faster, and 11/11/10-bit digits (three passes, scanned
+//     in two levels) were slower (PERF.md);
 //   - the excess descent (only when the floors overshoot the budget)
 //     evaluates g(r) = sum min(fl, r) at 31 candidates a pass, 5 bits at a
 //     time, in 5 passes: a warp reduce-scatter of the candidates' integer
@@ -26,6 +28,19 @@
 // become 6).  Every search finds the unique answer of the reference's: the
 // k largest keys with ties to the lowest index, the threshold, the excess
 // round count p.
+//
+// Registers.  A row's lanes are spread 8 a thread at J = 4096, so every
+// float[LPT] array the round keeps alive across a barrier costs 8
+// registers, and two 512-thread blocks an SM leave 64 a thread.  The round
+// holds few: lane masks are bits of one word (active, the lenders, a
+// distribution's mask, eligibility, selection); the demand factor u and
+// the surplus are recomputed where they are used (the same expressions,
+// so the same bits), and record and the previous allocation are read again
+// from global memory instead of being held.  The values that live across
+// the round (the remainder carry, alpha, the redistributed record r_rd,
+// the reclaim, and until the reclaim is known the priority p in its
+// place) sit in thread-private lanes of dynamic shared memory
+// (SmemRound).
 //
 // Numerics: the integer path is bitwise with the reference.  Counts are
 // int32; the excess sums are of integers below 2^25, exact in any order and
@@ -47,6 +62,20 @@ constexpr float TWO25 = 33554432.0f;    // 2^25: above every descent candidate
 
 __device__ __forceinline__ int lane_of(int i) { return threadIdx.x + i * THREADS; }
 
+// The round's live lane arrays: lane arrays 0-3 of the kernel's dynamic
+// shared memory (a kernel puts its own after them, from ARRAYS on).  prio
+// (p) shares reclaim's lanes: p is last read before reclaim is written.
+template <int LPT>
+struct SmemRound {
+  static constexpr int ARRAYS = 4;
+  static constexpr int BYTES = ARRAYS * LPT * THREADS * 4;
+  SmemLanes<LPT, 0> rem;
+  SmemLanes<LPT, 1> alpha;
+  SmemLanes<LPT, 2> r_rd;
+  SmemLanes<LPT, 3> reclaim;
+  SmemLanes<LPT, 3> prio;
+};
+
 // Zero the radix tables before the block's first search (a reduction's
 // barrier must come between).  Search n counts into table set n & 1 and
 // zeroes the other set, which search n - 1 used: a barrier (the
@@ -55,21 +84,20 @@ __device__ __forceinline__ void search_init(Scratch& s) {
   for (int k = threadIdx.x; k < 2 * 4 * 256; k += THREADS) (&s.hist[0][0][0])[k] = 0;
 }
 
-// Membership of the k largest keys of the row, ties to the lowest index.
-// Every lane below n_jobs is ranked (-inf keys too, as in the reference).
+// Membership of the k largest keys of the row, ties to the lowest index,
+// as a lane mask.  Every lane below n_jobs is ranked (-inf keys too, as in
+// the reference).
 template <int LPT>
-__device__ __forceinline__ void topk_mask(const float (&key)[LPT], int k,
-                                          bool (&sel)[LPT], int n_jobs,
-                                          Red& r) {
+__device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
+                                              int n_jobs, Red& r) {
   Scratch& s = *r.s;
   const int set = r.searches++ & 1;
   for (int k2 = threadIdx.x; k2 < 4 * 256; k2 += THREADS)
     (&s.hist[set ^ 1][0][0])[k2] = 0;
-  if (k <= 0 || k >= n_jobs) {  // nothing, or every lane of the row
+  uint32_t in = 0;  // lanes below n_jobs
 #pragma unroll
-    for (int i = 0; i < LPT; ++i) sel[i] = k > 0 && lane_of(i) < n_jobs;
-    return;
-  }
+  for (int i = 0; i < LPT; ++i) in |= static_cast<uint32_t>(lane_of(i) < n_jobs) << i;
+  if (k <= 0 || k >= n_jobs) return k > 0 ? in : 0u;  // nothing, or every lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned u[LPT];  // the reference's int32 order map, as unsigned order
 #pragma unroll
@@ -90,7 +118,7 @@ __device__ __forceinline__ void topk_mask(const float (&key)[LPT], int k,
     const unsigned hi = pass == 0 ? 0u : 0xFFFFFFFFu << (shift + 8);
 #pragma unroll
     for (int i = 0; i < LPT; ++i)
-      if (lane_of(i) < n_jobs && (u[i] & hi) == pre)
+      if (bit(in, i) && (u[i] & hi) == pre)
         atomicAdd(&hist[(u[i] >> shift) & 255u], 1);
     __syncthreads();
     // every warp: lane l holds digits 8l .. 8l+7; the threshold's digit d
@@ -126,33 +154,36 @@ __device__ __forceinline__ void topk_mask(const float (&key)[LPT], int k,
     n_tied = hist[d];
     if (n_tied == krem) {  // every lane sharing the digits so far is in
       const unsigned mask = 0xFFFFFFFFu << shift;
+      uint32_t sel = 0;
 #pragma unroll
       for (int i = 0; i < LPT; ++i)
-        sel[i] = lane_of(i) < n_jobs && (u[i] & mask) >= pre;
-      return;
+        sel |= static_cast<uint32_t>(bit(in, i) && (u[i] & mask) >= pre) << i;
+      return sel;
     }
   }
   // the krem (< n_tied) lowest-index lanes equal to the threshold: a tied
   // lane's rank is the count of tied lanes before it in index order (lane
   // slot, warp, lane)
-  unsigned tied[LPT];
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    tied[i] = __ballot_sync(0xffffffffu, lane_of(i) < n_jobs && u[i] == pre);
-    if (lane == 0) s.tie[i][warp] = __popc(tied[i]);
+    const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
+    if (lane == 0) s.tie[i][warp] = __popc(tied);
   }
   __syncthreads();
   const unsigned below = (1u << lane) - 1u;
+  uint32_t sel = 0;
   int base = 0;  // tied lanes in earlier lane slots
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
+    const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
     const int v = lane < WARPS ? s.tie[i][lane] : 0;
-    const int rank = base + warp_count(lane < warp ? v : 0) +
-                     __popc(tied[i] & below);
+    const int rank = base + warp_count(lane < warp ? v : 0) + __popc(tied & below);
     base += warp_count(v);
-    sel[i] = lane_of(i) < n_jobs &&
-             (u[i] > pre || (((tied[i] >> lane) & 1u) && rank < krem));
+    sel |= static_cast<uint32_t>(bit(in, i) &&
+                                 (u[i] > pre || (bit(tied, lane) && rank < krem)))
+           << i;
   }
+  return sel;
 }
 
 // The excess rounds: p, the largest r < 2^25 with g(r) = sum min(fl, r) <=
@@ -224,25 +255,25 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
 }
 
 // Floor raw + remainder over the mask and correct largest-remainder-first
-// so the masked total equals `budget`; updates the remainder carry.
-// Callers pass mask = false for lanes past J.
-template <int LPT>
+// so the masked total equals `budget`; updates the remainder carry (lanes
+// of `remainder`, registers or shared memory).  Callers leave lanes past J
+// out of the mask.
+template <int LPT, class Rem>
 __device__ __forceinline__ void integerize(const float (&raw)[LPT],
-                                           float (&remainder)[LPT],
-                                           float budget,
-                                           const bool (&mask)[LPT],
-                                           float (&alloc)[LPT], int n_jobs,
-                                           Red& r) {
+                                           Rem& remainder, float budget,
+                                           uint32_t mask, float (&alloc)[LPT],
+                                           int n_jobs, Red& r) {
   float fl[LPT], rem[LPT];
   double part = 0.0;
   int cnt = 0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const float x = mask[i] ? raw[i] + remainder[i] : 0.0f;
+    const bool m = bit(mask, i);
+    const float x = m ? raw[i] + remainder[i] : 0.0f;
     fl[i] = fmaxf(floorf(x), 0.0f);
-    rem[i] = mask[i] ? x - fl[i] : 0.0f;
+    rem[i] = m ? x - fl[i] : 0.0f;
     part += fl[i];
-    cnt += mask[i];
+    cnt += m;
   }
   float fl_sum;
   int n_masked;
@@ -268,69 +299,74 @@ __device__ __forceinline__ void integerize(const float (&raw)[LPT],
   // down key/count otherwise
   const bool is_up = delta > 0.0f;
   float key[LPT];
-  bool elig[LPT], sel[LPT];
+  uint32_t elig = 0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    elig[i] = mask[i] && fl[i] >= p_f + 1.0f;
-    key[i] = (is_up ? mask[i] : elig[i]) ? rem[i] : __int_as_float(0xff800000);  // -inf
+    const bool e = bit(mask, i) && fl[i] >= p_f + 1.0f;
+    elig |= static_cast<uint32_t>(e) << i;
+    key[i] = (is_up ? bit(mask, i) : e) ? rem[i] : __int_as_float(0xff800000);  // -inf
   }
-  topk_mask<LPT>(key, is_up ? k_up : k_dn, sel, n_jobs, r);
+  const uint32_t sel = topk_mask<LPT>(key, is_up ? k_up : k_dn, n_jobs, r);
 
   const float qf = static_cast<float>(q);
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const float bump_up = qf * (mask[i] ? 1.0f : 0.0f) + ((sel[i] && mask[i]) ? 1.0f : 0.0f);
-    const float bump_dn = fminf(fl[i], p_f) + ((sel[i] && elig[i]) ? 1.0f : 0.0f);
+    const bool m = bit(mask, i), s = bit(sel, i);
+    const float bump_up = qf * (m ? 1.0f : 0.0f) + ((s && m) ? 1.0f : 0.0f);
+    const float bump_dn = fminf(fl[i], p_f) + ((s && bit(elig, i)) ? 1.0f : 0.0f);
     const float applied = delta > 0.0f ? bump_up : (delta < 0.0f ? -bump_dn : 0.0f);
     alloc[i] = fl[i] + applied;
-    if (mask[i]) remainder[i] = rem[i] - applied;
+    if (m) remainder[i] = rem[i] - applied;
   }
 }
 
 // The distribution primitive: integerize, or with float tokens the
 // reference's passthrough (raw over the mask, remainder unchanged).
-template <int LPT>
+template <int LPT, class Rem>
 __device__ __forceinline__ void distribute(bool integer_tokens,
                                            const float (&raw)[LPT],
-                                           float (&remainder)[LPT],
-                                           float budget,
-                                           const bool (&mask)[LPT],
-                                           float (&alloc)[LPT], int n_jobs,
-                                           Red& r) {
+                                           Rem& remainder, float budget,
+                                           uint32_t mask, float (&alloc)[LPT],
+                                           int n_jobs, Red& r) {
   if (integer_tokens) {
     integerize<LPT>(raw, remainder, budget, mask, alloc, n_jobs, r);
   } else {
 #pragma unroll
-    for (int i = 0; i < LPT; ++i) alloc[i] = mask[i] ? raw[i] : 0.0f;
+    for (int i = 0; i < LPT; ++i) alloc[i] = bit(mask, i) ? raw[i] : 0.0f;
   }
 }
 
-// One allocation round of this block's row.  demand holds the row's demand
-// in this thread's lanes (0 past n_jobs); the other inputs are read from
-// the row pointers.  Writes the next allocation, the new record and the new
-// remainder of this thread's lanes into alloc, record_out and rem.
-template <int LPT>
+// One allocation round of this block's row, its live lanes in the first
+// SmemRound<LPT>::BYTES of dynamic shared memory.  `demand` holds the
+// row's demand in this thread's lanes (0 past n_jobs): a float[LPT] or
+// lanes of shared memory.  nodes, record, the remainder carry and the
+// previous allocation are read from the row pointers.  For each lane slot
+// i, out(i, alloc, record, remainder) receives the next allocation, the
+// new record and the new remainder (lanes past n_jobs too: the caller
+// drops them).
+template <int LPT, class Dem, class Out>
 __device__ __forceinline__ void adaptbf_round(
-    const float (&demand)[LPT], const float* __restrict__ nodes_row,
+    Dem& demand, const float* __restrict__ nodes_row,
     const float* __restrict__ record_row,
     const float* __restrict__ remainder_row,
     const float* __restrict__ prev_row, float cap, float u_max,
-    bool integer_tokens, float (&alloc)[LPT], float (&record_out)[LPT],
-    float (&rem)[LPT], int n_jobs, Red& r) {
-  float record[LPT], p[LPT];
-  bool active[LPT];
+    bool integer_tokens, int n_jobs, Red& r, Out&& out) {
+  SmemRound<LPT> L;
+  // inputs past n_jobs read as 0
+  auto in_row = [&](const float* __restrict__ row, int i) {
+    const int j = lane_of(i);
+    return j < n_jobs ? row[j] : 0.0f;
+  };
+  uint32_t active = 0;
   double part = 0.0;
   int cnt = 0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const int j = lane_of(i);
-    const bool in = j < n_jobs;
-    record[i] = in ? record_row[j] : 0.0f;
-    rem[i] = in ? remainder_row[j] : 0.0f;
-    active[i] = in && demand[i] > 0.0f;
-    p[i] = active[i] ? nodes_row[j] : 0.0f;  // n_act
-    part += p[i];
-    cnt += active[i];
+    L.rem[i] = in_row(remainder_row, i);
+    const bool a = lane_of(i) < n_jobs && demand[i] > 0.0f;
+    active |= static_cast<uint32_t>(a) << i;
+    part += a ? nodes_row[lane_of(i)] : 0.0f;  // n_act
+    cnt += a;
   }
 
   // step 1: priority-based initial allocation (Eq. 1-2)
@@ -339,72 +375,91 @@ __device__ __forceinline__ void adaptbf_round(
   block_sum_count(part, cnt, r, n_sum, n_active);
   const float n_tot = fmaxf(n_sum, ALLOC_EPS);
   const float budget1 = n_active > 0 ? cap : 0.0f;
-  float raw[LPT], alpha[LPT];
+  // u = min(demand / max(prev, 1), u_max) over the active lanes
+  auto util = [&](int i) {
+    return bit(active, i)
+               ? fminf(demand[i] / fmaxf(in_row(prev_row, i), 1.0f), u_max)
+               : 0.0f;
+  };
+  // the demand factor (Eq. 5), 0 off the active lanes
+  auto dfac = [&](int i, float u, float p) {
+    const float d = u > 1.0f ? u + u * p : u * p;
+    return bit(active, i) ? d : 0.0f;
+  };
+  auto surplus = [&](int i) {
+    return bit(active, i) ? fmaxf(L.alpha[i] - demand[i], 0.0f) : 0.0f;
+  };
+  float raw[LPT];
+  {
+    float alpha[LPT];
 #pragma unroll
-  for (int i = 0; i < LPT; ++i) {
-    p[i] = p[i] / n_tot;
-    raw[i] = budget1 * p[i];
+    for (int i = 0; i < LPT; ++i) {
+      L.prio[i] = (bit(active, i) ? nodes_row[lane_of(i)] : 0.0f) / n_tot;
+      raw[i] = budget1 * L.prio[i];
+    }
+    distribute<LPT>(integer_tokens, raw, L.rem, budget1, active, alpha, n_jobs, r);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) L.alpha[i] = alpha[i];
   }
-  distribute<LPT>(integer_tokens, raw, rem, budget1, active, alpha, n_jobs, r);
 
   // step 2: surplus redistribution (Eq. 3-8); the surplus and demand-factor
-  // totals in one reduction
-  float u[LPT], surplus[LPT], df[LPT];
+  // totals in one reduction (raw holds df until it is scaled)
   part = 0.0;
   double part_df = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const int j = lane_of(i);
-    const float prev = j < n_jobs ? prev_row[j] : 0.0f;
-    u[i] = active[i] ? fminf(demand[i] / fmaxf(prev, 1.0f), u_max) : 0.0f;
-    surplus[i] = active[i] ? fmaxf(alpha[i] - demand[i], 0.0f) : 0.0f;
-    part += surplus[i];
-    const float d = u[i] > 1.0f ? u[i] + u[i] * p[i] : u[i] * p[i];
-    df[i] = active[i] ? d : 0.0f;
-    part_df += df[i];
+    part += surplus(i);
+    raw[i] = dfac(i, util(i), L.prio[i]);
+    part_df += raw[i];
   }
   const float2 s2 = block_sum2(part, part_df, r);
   const float t_s = s2.x;
   const float df_tot = fmaxf(s2.y, ALLOC_EPS);
 #pragma unroll
-  for (int i = 0; i < LPT; ++i) raw[i] = df[i] / df_tot * t_s;
-  float add[LPT], r_rd[LPT];
-  distribute<LPT>(integer_tokens, raw, rem, t_s, active, add, n_jobs, r);
+  for (int i = 0; i < LPT; ++i) raw[i] = raw[i] / df_tot * t_s;
+  {
+    float add[LPT];
+    distribute<LPT>(integer_tokens, raw, L.rem, t_s, active, add, n_jobs, r);
 #pragma unroll
-  for (int i = 0; i < LPT; ++i) {
-    alpha[i] = alpha[i] - surplus[i] + add[i];   // alpha_RD (Eq. 7)
-    r_rd[i] = record[i] + surplus[i] - add[i];   // r_RD (Eq. 8)
+    for (int i = 0; i < LPT; ++i) {
+      const float sur = surplus(i);                              // of alpha1
+      L.r_rd[i] = in_row(record_row, i) + sur - add[i];          // r_RD (Eq. 8)
+      L.alpha[i] = L.alpha[i] - sur + add[i];                    // alpha_RD (Eq. 7)
+    }
   }
 
   // step 3: re-compensation (Eq. 9-20); c with the lenders' demand-factor
-  // total, then the reclaim with what lenders are owed
-  bool j_plus[LPT];
+  // total, then the reclaim with what lenders are owed (raw holds df_plus:
+  // RF = DF, Eq. 18)
+  uint32_t j_plus = 0;
   part = 0.0;
   part_df = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    j_plus[i] = active[i] && record[i] > 0.0f && r_rd[i] > 0.0f;
-    const float u_future = demand[i] / fmaxf(alpha[i], 1.0f);
-    const float c_term = p[i] * (fmaxf(1.0f, u[i]) + fmaxf(0.0f, 1.0f - u_future)) / 2.0f;
-    part += j_plus[i] ? c_term : 0.0f;
-    df[i] = j_plus[i] ? df[i] : 0.0f;  // df_plus: RF = DF (Eq. 18)
-    part_df += df[i];
+    const bool jp = bit(active, i) && in_row(record_row, i) > 0.0f && L.r_rd[i] > 0.0f;
+    j_plus |= static_cast<uint32_t>(jp) << i;
+    const float u = util(i), p = L.prio[i];
+    const float u_future = demand[i] / fmaxf(L.alpha[i], 1.0f);
+    const float c_term = p * (fmaxf(1.0f, u) + fmaxf(0.0f, 1.0f - u_future)) / 2.0f;
+    part += jp ? c_term : 0.0f;
+    raw[i] = jp ? dfac(i, u, p) : 0.0f;
+    part_df += raw[i];
   }
   const float2 s3 = block_sum2(part, part_df, r);
   const float c = s3.x;
   const float dfp_tot = fmaxf(s3.y, ALLOC_EPS);
-  float reclaim[LPT], owed[LPT];
+  auto owed = [&](int i) { return bit(j_plus, i) ? L.r_rd[i] : 0.0f; };
   double part_owed = 0.0;
   part = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const bool j_minus = active[i] && record[i] < 0.0f && r_rd[i] < 0.0f;
-    float rc = fminf(fabsf(record[i]), fabsf(c * alpha[i]));
-    rc = fminf(rc, alpha[i]);
-    reclaim[i] = j_minus ? rc : 0.0f;
-    owed[i] = j_plus[i] ? r_rd[i] : 0.0f;
-    part += reclaim[i];
-    part_owed += owed[i];
+    const float record = in_row(record_row, i), alpha = L.alpha[i];
+    const bool j_minus = bit(active, i) && record < 0.0f && L.r_rd[i] < 0.0f;
+    float rc = fminf(fabsf(record), fabsf(c * alpha));
+    rc = fminf(rc, alpha);
+    L.reclaim[i] = j_minus ? rc : 0.0f;
+    part += L.reclaim[i];
+    part_owed += owed(i);
   }
   // total reclaim capped at what active lenders are owed (deviation 3)
   const float2 s4 = block_sum2(part, part_owed, r);
@@ -413,32 +468,34 @@ __device__ __forceinline__ void adaptbf_round(
   part = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    reclaim[i] = reclaim[i] * rc_scale;
-    if (integer_tokens) reclaim[i] = floorf(reclaim[i]);
-    part += reclaim[i];
+    float rc = L.reclaim[i] * rc_scale;
+    if (integer_tokens) rc = floorf(rc);
+    L.reclaim[i] = rc;
+    part += rc;
   }
   const float t_r = block_sum(part, r);
+  // the lenders' compensation, capped per lender (raw: df_plus, then it)
   part = 0.0;
   double part_head = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    add[i] = fminf(df[i] / dfp_tot * t_r, owed[i]);  // per-lender cap
-    part += add[i];
-    part_head += owed[i] - add[i];
+    raw[i] = fminf(raw[i] / dfp_tot * t_r, owed(i));
+    part += raw[i];
+    part_head += owed(i) - raw[i];
   }
   const float2 s5 = block_sum2(part, part_head, r);
   const float leftover = t_r - s5.x;
   const float head_tot = fmaxf(s5.y, ALLOC_EPS);
 #pragma unroll
   for (int i = 0; i < LPT; ++i)
-    raw[i] = add[i] + leftover * (owed[i] - add[i]) / head_tot;
-  distribute<LPT>(integer_tokens, raw, rem, t_r, j_plus, add, n_jobs, r);
-
+    raw[i] = raw[i] + leftover * (owed(i) - raw[i]) / head_tot;
+  float add[LPT];
+  distribute<LPT>(integer_tokens, raw, L.rem, t_r, j_plus, add, n_jobs, r);
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const float alpha_rc = alpha[i] - reclaim[i] + add[i];
-    alloc[i] = active[i] ? alpha_rc : 0.0f;
-    record_out[i] = r_rd[i] + reclaim[i] - add[i];
+    const float alpha_rc = L.alpha[i] - L.reclaim[i] + add[i];
+    out(i, bit(active, i) ? alpha_rc : 0.0f, L.r_rd[i] + L.reclaim[i] - add[i],
+        L.rem[i]);
   }
 }
 

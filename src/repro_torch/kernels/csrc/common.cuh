@@ -49,6 +49,27 @@ struct Red {
   int searches;
 };
 
+// The kernel's dynamic shared memory (the allocation round's lane arrays,
+// the megakernel's backlog caps).
+extern __shared__ float4 dyn_smem[];
+
+__device__ __forceinline__ float* dyn_floats() {
+  return reinterpret_cast<float*>(dyn_smem);
+}
+
+// Lane array A of a kernel's dynamic shared memory: [A][i][thread], so a
+// thread reads and writes only its own lanes (no barrier, no bank
+// conflict).  Stands in for a float[LPT] register array.
+template <int LPT, int A>
+struct SmemLanes {
+  __device__ __forceinline__ float& operator[](int i) const {
+    return dyn_floats()[(A * LPT + i) * THREADS + threadIdx.x];
+  }
+};
+
+// Bit i of a lane mask (bit i: lane slot i of this thread).
+__device__ __forceinline__ bool bit(uint32_t m, int i) { return (m >> i) & 1u; }
+
 __device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -103,6 +124,40 @@ __device__ __forceinline__ void block_sum_count(double x, int c, Red& r,
   block_reduce<1, 1>(f, c, r);
   sum = __double2float_rn(f[0]);
   count = c;
+}
+
+// Host side: kernel K (one instance of a kernel template) runs one block of
+// THREADS a row with SMEM bytes of dynamic shared memory.  Above 48 KB CUDA
+// needs the kernel's own leave, asked once per kernel (a function-local
+// static of each instance) for both the launch and the occupancy query.
+template <auto K, int SMEM>
+cudaError_t allow_smem() {
+  static const cudaError_t err =
+      SMEM > 0 ? cudaFuncSetAttribute(
+                     K, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)
+               : cudaSuccess;
+  return err;
+}
+
+// Launch K over `rows` blocks on stream s; the launch's cudaError_t.
+template <auto K, int SMEM, class... Args>
+cudaError_t launch_rows(int rows, cudaStream_t s, Args... args) {
+  const cudaError_t err = allow_smem<K, SMEM>();
+  if (err != cudaSuccess) return err;
+  K<<<rows, THREADS, SMEM, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// Blocks of K resident on one SM, from CUDA's occupancy calculator (-1 on
+// error).
+template <auto K, int SMEM>
+int blocks_per_sm() {
+  int blocks = -1;
+  if (allow_smem<K, SMEM>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, K, THREADS,
+                                                    SMEM) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace repro

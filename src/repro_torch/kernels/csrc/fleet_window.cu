@@ -19,7 +19,12 @@
 // cap, served accumulator) stays in registers across all W ticks; only the
 // tick's rate row is read, coalesced, each tick, and only the window
 // results are written.  The tick loop is serve.cuh's serve_window, shared
-// with the window megakernel (window_mega.cu).
+// with the window megakernel (window_mega.cu).  At 86 registers one block
+// fits an SM, so 256 rows run in two waves; one wave (two blocks an SM, at
+// 64 registers with this loop, or with the rate rows brought by 1-d bulk
+// copies into a shared-memory ring) was measured and was no faster: the
+// tick is bound by its instruction stream on the SM, not by residency or
+// bytes in flight (PERF.md).
 //
 // Numerics: see serve.cuh.  Row sums accumulate in double and round once,
 // as the plain version's do; in other orders, so the two agree to a float32
@@ -90,8 +95,18 @@ extern "C" int fleet_window(const float* queue, const float* vol,
   if (n_jobs < 1 || n_jobs > MAX_J || n_ost < 1 || n_ticks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_LPT(n_jobs, fleet_window_kernel<LPT><<<n_ost, THREADS, 0, s>>>(
-      queue, vol, budget, backlog, rates, cap_tick, queue_out, vol_out,
-      served_out, n_ost, n_jobs, n_ticks));
-  return static_cast<int>(cudaGetLastError());
+  REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
+      launch_rows<fleet_window_kernel<LPT>, 0>(
+          n_ost, s, queue, vol, budget, backlog, rates, cap_tick, queue_out,
+          vol_out, served_out, n_ost, n_jobs, n_ticks)));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the kernel resident on an SM at row width n_jobs (-1 on
+// error); its dynamic shared memory a block (none) into *smem.
+extern "C" int fleet_window_occupancy(int n_jobs, int* smem) {
+  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  *smem = 0;
+  REPRO_DISPATCH_LPT(n_jobs, return blocks_per_sm<fleet_window_kernel<LPT>, 0>());
+  return -1;
 }

@@ -21,14 +21,13 @@ namespace repro {
 constexpr float SERVE_EPS = 1e-9f;
 
 // q/v/b/acc: queue, remaining volume, token budget and the window's served
-// accumulator of this thread's lanes, updated in place; bl: backlog caps.
-// rates points at tick 0 of this row; tick t's row is t * tick_stride
-// further.  Lanes at or past n_jobs are absent from every sum and left
-// untouched.
-template <int LPT>
+// accumulator of this thread's lanes, updated in place; bl: backlog caps
+// (read-only: a float[LPT] or lanes of shared memory).  rates points at
+// tick 0 of this row; tick t's row is t * tick_stride further.  Lanes at
+// or past n_jobs are absent from every sum and left untouched.
+template <int LPT, class BL>
 __device__ __forceinline__ void serve_window(float (&q)[LPT], float (&v)[LPT],
-                                             float (&b)[LPT],
-                                             const float (&bl)[LPT],
+                                             float (&b)[LPT], const BL& bl,
                                              float (&acc)[LPT],
                                              const float* __restrict__ rates,
                                              size_t tick_stride, int n_ticks,

@@ -8,7 +8,9 @@
 //   w[i][j]  = (C_i . B_j) * exp(min(cum_i - cum_j, 0)),  j <= i, else 0
 //   y        = w (x dt) + (C exp(cum)) h + x d_skip
 //   h        = h exp(cum_Q) + (B exp(cum_Q - cum))^T (x dt)
-// and after the last chunk writes h as state [B, H, N, P] float32.
+// and after the last chunk writes h as state [B, H, N, P] float32.  h
+// starts from zeros or, warm-started, from the caller's state [B, H, P, N]
+// rounded to x's type (the reference's oracle casts it so).
 // Plain version: kernels/ssd/ref.py::ssd_chunked (the kernel's own order
 // of rounding and summing: ref.py::ssd_scan_model).
 //
@@ -88,6 +90,7 @@ struct SsdParams {
   const float* d_skip;
   void* y;
   float* state;
+  const float* h0;             // warm start [B, H, P, N] float32, or null
   long long x_sb, x_ss, x_sh;  // element strides: batch, position, head
   long long dt_sb, dt_ss;      // batch, position (head stride 1)
   long long b_sb, b_ss;        // batch, position (state dim stride 1)
@@ -141,7 +144,13 @@ ssd_scan_kernel(const SsdParams p) {
   const float a = p.a[h];
   const float dskip = p.d_skip[h];
 
-  for (int i = tid; i < NM * SSD_LD; i += SSD_THREADS) hs[i] = 0.0f;
+  // h from the warm start (rounded to x's type) or zeros; padding is zero
+  const float* const H0 =
+      p.h0 ? p.h0 + (static_cast<long long>(b) * p.H + h) * p.P * p.N : nullptr;
+  for (int i = tid; i < NM * SSD_LD; i += SSD_THREADS) {
+    const int n = i / SSD_LD, pp = i % SSD_LD;
+    hs[i] = H0 && n < p.N && pp < p.P ? rnd<T>(H0[pp * p.N + n]) : 0.0f;
+  }
 
   const int n_chunks = (p.S + SSD_Q - 1) / SSD_Q;
   for (int ch = 0; ch < n_chunks; ++ch) {
@@ -317,7 +326,28 @@ __device__ __forceinline__ uint32_t swz(int row, int c, int t) {
   return row * 128 + ((c ^ (row & 7)) << 4) + 4 * t;
 }
 
+// h.astype(bf16) into the shared tile the next C h product reads (the
+// 128-byte swizzle; NM rows of 64 columns, every byte written): this
+// thread's accumulator rows r0, r0 + 8 of each 64-row slab.
 template <int NM>
+__device__ __forceinline__ void store_h_bf16(uint8_t* h_g,
+                                             const float (&hacc)[NM / 64][32],
+                                             int r0, int t) {
+#pragma unroll
+  for (int m = 0; m < NM / 64; ++m)
+#pragma unroll
+    for (int cb = 0; cb < 8; ++cb) {
+      const int n0 = m * 64 + r0, n1 = n0 + 8;
+      *reinterpret_cast<uint32_t*>(h_g + swz(n0, cb, t)) =
+          sm90::pack_bf16(hacc[m][4 * cb + 0], hacc[m][4 * cb + 1]);
+      *reinterpret_cast<uint32_t*>(h_g + swz(n1, cb, t)) =
+          sm90::pack_bf16(hacc[m][4 * cb + 2], hacc[m][4 * cb + 3]);
+    }
+}
+
+// WARM: h starts from p.h0 (a case of its own, so that the zero start keeps
+// its registers: the warm start's loads raised the consumers' spills).
+template <int NM, bool WARM>
 __global__ void __launch_bounds__(Tc<NM>::THREADS, 1)
 ssd_scan_tc(const __grid_constant__ CUtensorMap tm_x,
             const __grid_constant__ CUtensorMap tm_b,
@@ -415,15 +445,33 @@ ssd_scan_tc(const __grid_constant__ CUtensorMap tm_x,
     const float a = p.a[h], dskip = p.d_skip[h];
     __nv_bfloat16* const Y =
         static_cast<__nv_bfloat16*>(p.y) + b * p.y_sb + h * p.y_sh;
+    // h and its bf16 copy for the first chunk's C h (the previous item's
+    // last products, which read h, are behind that chunk's closing
+    // barrier): zeros, or the warm start [P, N] of this (b, h) rounded to
+    // bf16, hacc[m][4 cb + 2 rr + e] holding h[n][pp], n = 64 m + (rr ? r1
+    // : r0), pp = 8 cb + 2 t + e
     float hacc[NM / 64][32];
+    if constexpr (WARM) {
+      const float* const H0 =
+          p.h0 + (static_cast<long long>(b) * p.H + h) * p.P * p.N;
 #pragma unroll
-    for (int m = 0; m < NM / 64; ++m)
+      for (int m = 0; m < NM / 64; ++m)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) hacc[m][i] = 0.0f;
-    // h = 0 for the first chunk's C h (the previous item's last products,
-    // which read h, are behind that chunk's closing barrier)
-    for (int i = tid; i < K::H / 16; i += 128)
-      reinterpret_cast<uint4*>(h_g)[i] = make_uint4(0u, 0u, 0u, 0u);
+        for (int i = 0; i < 32; ++i) {
+          const int n = m * 64 + ((i & 2) ? r1 : r0);
+          const int pp = 8 * (i >> 2) + 2 * t + (i & 1);
+          hacc[m][i] = n < p.N && pp < p.P
+                           ? rnd<__nv_bfloat16>(H0[pp * p.N + n]) : 0.0f;
+        }
+      store_h_bf16<NM>(h_g, hacc, r0, t);
+    } else {
+#pragma unroll
+      for (int m = 0; m < NM / 64; ++m)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hacc[m][i] = 0.0f;
+      for (int i = tid; i < K::H / 16; i += 128)
+        reinterpret_cast<uint4*>(h_g)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
 
     for (int ch = 0; ch < n_chunks; ++ch, ++it) {
       const int s = it & 1;
@@ -613,18 +661,7 @@ ssd_scan_tc(const __grid_constant__ CUtensorMap tm_x,
       pend_ch = ch;
       mbar_arrive(empty(c, s));
       // h.astype(x.dtype) for the next chunk's C h
-      if (ch + 1 < n_chunks) {
-#pragma unroll
-        for (int m = 0; m < NM / 64; ++m)
-#pragma unroll
-          for (int cb = 0; cb < 8; ++cb) {
-            const int n0 = m * 64 + r0, n1 = n0 + 8;
-            *reinterpret_cast<uint32_t*>(h_g + swz(n0, cb, t)) =
-                pack_bf16(hacc[m][4 * cb + 0], hacc[m][4 * cb + 1]);
-            *reinterpret_cast<uint32_t*>(h_g + swz(n1, cb, t)) =
-                pack_bf16(hacc[m][4 * cb + 2], hacc[m][4 * cb + 3]);
-          }
-      }
+      if (ch + 1 < n_chunks) store_h_bf16<NM>(h_g, hacc, r0, t);
     }
 
     // the final state [B, H, N, P] in float32
@@ -668,7 +705,7 @@ cudaError_t launch_tc(const SsdParams& p, cudaStream_t s) {
       !sm90::tensor_map(&ty, p.y, p.B, p.S, p.H, p.P, p.y_sb, p.y_ss, p.y_sh,
                         SSD_Q, 64))
     return cudaErrorInvalidValue;
-  auto kernel = ssd_scan_tc<NM>;
+  auto kernel = p.h0 ? ssd_scan_tc<NM, true> : ssd_scan_tc<NM, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err != cudaSuccess) return err;

@@ -29,9 +29,13 @@
 // buffer (the caller still reads the allocation after the round).
 // Residency: the blocks are held to 64 registers a thread, two 512-thread
 // blocks an SM, so all 256 rows of the main path run in one wave (264
-// slots) rather than two; the allocation round then spills a few hundred
-// bytes a thread to L1, which costs less than the second wave (ptxas and
-// the measured times: PERF.md).
+// slots) rather than two.  To spill less at that cap, the read-only
+// backlog caps sit in thread-private lanes of dynamic shared memory during
+// the ticks, and the adaptbf case keeps the allocation round's live lanes
+// there too (alloc_round.cuh's SmemRound, 64 KB a block, as
+// adaptbf_alloc.cu does; the caps use the round's first array, which the
+// round fills only after the ticks): fewer spills than with either in
+// registers, and faster (ptxas and the measured times: PERF.md).
 //
 // Numerics: as serve.cuh and alloc_round.cuh.  The policy constants (AIMD's
 // ai_frac, md, sat, floor) come from the Python class as float arguments;
@@ -139,7 +143,8 @@ window_mega_kernel(const MegaParams p) {
   constexpr bool OPEN_ZERO = POLICY == POLICY_ADAPTBF ||
                              POLICY == POLICY_STATIC_WC ||
                              POLICY == POLICY_AIMD;
-  float q[LPT], v[LPT], b[LPT], bl[LPT], acc[LPT];
+  float q[LPT], v[LPT], b[LPT], acc[LPT];
+  SmemLanes<LPT, 0> bl;  // read-only; the round's lanes start after the ticks
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
@@ -188,20 +193,18 @@ window_mega_kernel(const MegaParams p) {
   // step --------------------------------------------------------------
   float next[LPT];
   if constexpr (POLICY == POLICY_ADAPTBF) {
-    float rec[LPT], rem[LPT];
-    adaptbf_round<LPT>(od, p.nodes + row, p.state0 + row, p.state1 + row,
-                       p.state2 + row, cap_w, p.u_max, p.integer_tokens != 0,
-                       next, rec, rem, n_jobs, s);
     // lender-side ledger reclaim: a down OST's record is pinned to zero
     const bool up = !p.has_faults || p.up[o] > 0.0f;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int j = lane_of(i);
-      if (j < n_jobs) {
-        p.state0_out[row + j] = up ? rec[i] : 0.0f;
-        p.state1_out[row + j] = rem[i];
-      }
-    }
+    adaptbf_round<LPT>(od, p.nodes + row, p.state0 + row, p.state1 + row,
+                       p.state2 + row, cap_w, p.u_max, p.integer_tokens != 0,
+                       n_jobs, s, [&](int i, float a, float rec, float rem) {
+                         next[i] = a;
+                         const int j = lane_of(i);
+                         if (j < n_jobs) {
+                           p.state0_out[row + j] = up ? rec : 0.0f;
+                           p.state1_out[row + j] = rem;
+                         }
+                       });
   } else if constexpr (POLICY == POLICY_STATIC) {
     float nd[LPT];
     const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, nd, n_jobs, s),
@@ -278,11 +281,20 @@ window_mega_kernel(const MegaParams p) {
   }
 }
 
+// Dynamic shared memory a block: the allocation round's lanes (adaptbf),
+// whose first array holds the backlog caps during the ticks; the caps'
+// lanes alone for the other policies.
+template <int LPT, int POLICY>
+constexpr int smem_bytes() {
+  return POLICY == POLICY_ADAPTBF ? SmemRound<LPT>::BYTES : LPT * THREADS * 4;
+}
+
 template <int POLICY>
 cudaError_t launch(const MegaParams& p, cudaStream_t s) {
-  REPRO_DISPATCH_LPT(p.n_jobs, window_mega_kernel<LPT, POLICY>
-                     <<<p.n_ost, THREADS, 0, s>>>(p));
-  return cudaGetLastError();
+  REPRO_DISPATCH_LPT(p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY>,
+                                                  smem_bytes<LPT, POLICY>()>(
+                                   p.n_ost, s, p));
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -302,4 +314,15 @@ extern "C" int window_mega(const MegaParams* params, void* stream) {
     case POLICY_AIMD: return static_cast<int>(launch<POLICY_AIMD>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Blocks of the adaptbf case resident on an SM at row width n_jobs (-1 on
+// error); its dynamic shared memory a block into *smem.
+extern "C" int window_mega_occupancy(int n_jobs, int* smem) {
+  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  REPRO_DISPATCH_LPT(
+      n_jobs, *smem = smem_bytes<LPT, POLICY_ADAPTBF>();
+      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF>,
+                           smem_bytes<LPT, POLICY_ADAPTBF>()>());
+  return -1;
 }

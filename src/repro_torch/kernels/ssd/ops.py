@@ -30,7 +30,8 @@ class _SsdParams(ctypes.Structure):
     """``SsdParams`` of ``csrc/ssd_scan.cu``, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-                    "x", "dt", "a", "bm", "cm", "d_skip", "y", "state")]
+                    "x", "dt", "a", "bm", "cm", "d_skip", "y", "state",
+                    "h0")]
                 + [(n, ctypes.c_longlong) for n in (
                     "x_sb", "x_ss", "x_sh", "dt_sb", "dt_ss", "b_sb", "b_ss",
                     "c_sb", "c_ss", "y_sb", "y_ss", "y_sh")]
@@ -69,24 +70,33 @@ def _check(x, dt, a, B, C):
 
 def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
     """Chunked SSD scan (prefill).  x [B,S,H,P]; dt [B,S,H] float32; a [H]
-    float32; B/C [B,S,N] in x's type; d_skip [H] or None.  Returns
-    (y [B,S,H,P] in x's type, final state [B,H,P,N]: float32 from the
-    kernel, x's type from the plain version, as in the reference)."""
+    float32; B/C [B,S,N] in x's type; d_skip [H] or None; initial_state
+    [B,H,P,N] or None (zeros).  Returns (y [B,S,H,P] in x's type, final
+    state [B,H,P,N]: float32 from the kernel, x's type from the plain
+    version, as in the reference).
+
+    A warm start is rounded to x's type before the first chunk, as the
+    reference's oracle casts it (``ref.ssd_chunked``).  The kernel runs
+    chunks of ``CHUNK`` = 64 positions only; another ``chunk`` raises
+    ``ValueError`` on the card (no model path passes one)."""
     global launches
     if not route(x, dt, a, B, C):
         return ref.ssd_chunked(x, dt, a, B, C, d_skip=d_skip,
                                initial_state=initial_state, chunk=chunk)
-    if initial_state is not None:
-        raise NotImplementedError(
-            "the SSD kernel starts from a zero state; a warm-started scan "
-            "(initial_state) is not ported to the card (ROADMAP.md, queue A, "
-            "\"LM stack\")")
     if chunk != CHUNK:
         raise ValueError(f"the SSD kernel runs chunks of {CHUNK}, got "
                          f"chunk={chunk}")
     _check(x, dt, a, B, C)
     b, s, h, p = x.shape
     n = B.shape[-1]
+    h0 = None
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (b, h, p, n):
+            raise ValueError(f"initial_state must have shape {(b, h, p, n)}, "
+                             f"got {tuple(initial_state.shape)}")
+        if initial_state.device != x.device:
+            raise ValueError("initial_state must lie on x's device")
+        h0 = initial_state.to(torch.float32).contiguous()
     skip = (torch.zeros(h, dtype=torch.float32, device=x.device)
             if d_skip is None else d_skip.to(torch.float32).contiguous())
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
@@ -94,6 +104,7 @@ def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
     prm = _SsdParams(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
         C.data_ptr(), skip.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if h0 is None else h0.data_ptr(),
         *x.stride()[:3], *dt.stride()[:2], *B.stride()[:2], *C.stride()[:2],
         *y.stride()[:3], b, s, h, p, n, _DTYPES[x.dtype])
     _build.launch("ssd_scan", [ctypes.POINTER(_SsdParams), ctypes.c_void_p],

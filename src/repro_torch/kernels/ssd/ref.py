@@ -93,15 +93,17 @@ def ssd_chunked(
     return y.to(x.dtype), h_prev
 
 
-def ssd_scan_model(x, dt, a, B, C, d_skip=None, chunk: int = 64):
+def ssd_scan_model(x, dt, a, B, C, d_skip=None, initial_state=None,
+                   chunk: int = 64):
     """Test-only plain model of ``csrc/ssd_scan.cu`` (the bfloat16
     tensor-core kernel; in float32 the same sums): per chunk, x dt, w, C
     exp(cum), B exp(cum_Q - cum) and h rounded to x's type where the
     reference casts; the two y products summed in ONE float32 sum over
     their K = Q + N terms (the kernel's shared accumulator, where the
     reference adds two float32 sums); h carried in float32 and scaled by
-    exp(cum_Q) before its product is added.  Returns (y [B,S,H,P] in x's
-    type, final state [B,H,P,N] float32)."""
+    exp(cum_Q) before its product is added; a warm start [B,H,P,N] is
+    rounded to x's type first.  Returns (y [B,S,H,P] in x's type, final
+    state [B,H,P,N] float32)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     dtype = x.dtype
@@ -120,7 +122,8 @@ def ssd_scan_model(x, dt, a, B, C, d_skip=None, chunk: int = 64):
     Cc = C.reshape(b, 1, nc, chunk, n).to(f32)
     skip = (torch.zeros(h) if d_skip is None else d_skip).to(f32)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
-    hs = torch.zeros((b, h, n, p), dtype=f32)
+    hs = (torch.zeros((b, h, n, p), dtype=f32) if initial_state is None
+          else rnd(initial_state.to(f32)).transpose(-1, -2))
     ys = []
     for c in range(nc):
         dtk = dtc[:, :, c]                                     # [b,h,q]

@@ -9,7 +9,7 @@ Both cast float32 weights to the compute dtype inside the call; pass
 weights cast once (``models.cast_params``) and that cast is a no-op.
 ``make_prefill_step(kernels=False)`` runs the plain versions of the
 attention and SSD kernels (the comparison path).  The train step waits for training (ROADMAP.md,
-queue A, item 1).
+queue A, item 9).
 """
 from __future__ import annotations
 

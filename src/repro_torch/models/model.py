@@ -12,7 +12,7 @@ cache keeps the reference's stacked layout ([n_layers, ...] per leaf) and
 
 ``kernels=False`` runs the plain versions of the attention and SSD kernels
 on any device: the comparison path.  ``loss_fn`` and remat wait for training
-(ROADMAP.md, queue A, item 1).
+(ROADMAP.md, queue A, item 9).
 """
 from __future__ import annotations
 
@@ -169,7 +169,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend} frontend is not ported to PyTorch yet "
-            "(ROADMAP.md, queue A, item 1, \"the audio and vision "
+            "(ROADMAP.md, queue A, item 9, \"the audio and vision "
             "frontends\")")
     return params["embed"].to(dtype)[batch["tokens"].long()]
 

@@ -29,7 +29,14 @@ from repro_torch.storage.simulator import (
     simulate_fleet,
     window_step,
 )
-from repro_torch.storage.striping import FleetDemand, route, stripe_weights
+from repro_torch.storage.striping import (
+    FleetDemand,
+    route,
+    route_progressive,
+    route_round_robin,
+    stripe_targets,
+    stripe_weights,
+)
 from repro_torch.storage.workloads import FleetScenario, Scenario
 
 __all__ = [
@@ -67,6 +74,9 @@ __all__ = [
     "window_step",
     "FleetDemand",
     "route",
+    "route_progressive",
+    "route_round_robin",
+    "stripe_targets",
     "stripe_weights",
     "FleetScenario",
     "Scenario",

@@ -83,6 +83,34 @@ def test_radix_topk_model_ties_at_every_digit():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
 
 
+@pytest.mark.parametrize("j", [40, 300, 4096])
+def test_radix_topk_model_tied_keys_over_many_binades(j):
+    """Keys spread over many binades, each value repeated (exact ties),
+    with -0.0 beside +0.0 and -inf lanes, bitwise with the port's sort and
+    the reference's probe search.  A search ends by the index rank of tied
+    keys exactly when the k-th and (k+1)-th largest keys are equal, else by
+    the exact-count stop: both endings occur among the cases."""
+    rng = np.random.default_rng(j + 29)
+    vals = (rng.random(j // 3 + 1) * 2.0 ** rng.integers(-60, 60, j // 3 + 1)
+            * rng.choice([-1.0, 1.0], j // 3 + 1)).astype(np.float32)
+    key = np.stack([np.repeat(vals, 3)[:j], rng.permutation(np.repeat(vals, 3)[:j])])
+    key[1, rng.random(j) < 0.2] = -np.inf
+    key[0, ::11] = 0.0
+    key[0, 5::11] = -0.0
+    padded = jnp.asarray(_pad(key, -np.inf))
+    desc = -np.sort(-key, axis=1)
+    endings = set()
+    for kk in (1, 2, 3, j // 7, j // 2, j - 2):
+        k = np.array([kk, kk], np.int32)
+        got = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(k))
+        port = tref.topk_mask(torch.from_numpy(key), torch.from_numpy(k)[:, None])
+        want = np.asarray(jref.topk_mask(padded, jnp.asarray(k)[:, None]))[:, :j]
+        np.testing.assert_array_equal(got.numpy(), port.numpy(), err_msg=f"k={k}")
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
+        endings.update(desc[:, kk - 1] == desc[:, kk])
+    assert endings == {True, False}
+
+
 def _bit_descent(floored, d_dn):
     """The reference's 25-step descent on exact sums: (p, g(p))."""
     f = floored.astype(np.int64)

@@ -131,7 +131,7 @@ def _alloc_stress(j, seed):
     return demand, nodes, record, remainder, prev, cap
 
 
-@pytest.mark.parametrize("j", [1, 4095, 4096, MAX_JOBS])
+@pytest.mark.parametrize("j", [1, 4093, 4095, 4096, MAX_JOBS])
 def test_alloc_kernel_on_search_stress_rows(cuda, j):
     """Allocations integer-equal to the plain round, record and remainder
     within 1e-3, on rows that drive the radix select through ties, -inf
@@ -144,7 +144,46 @@ def test_alloc_kernel_on_search_stress_rows(cuda, j):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
 
 
-@pytest.mark.parametrize("j", [1, 4095, 4096, MAX_JOBS])
+@pytest.mark.parametrize("o,j,w,cap_scale", [
+    (1, 4093, 10, 1), (133, 3, 10, 1), (265, 4093, 1, 1), (133, 4096, 0, 1),
+    (265, 64, 10, 1), (3, 8192, 10, 1), (5, 4093, 10, 1000)])
+def test_window_kernel_edge_shapes(cuda, o, j, w, cap_scale):
+    """Rows of J % 4 != 0 (off a 16-byte boundary), O one past a full wave (133 rows at one block an
+    SM, 265 at two), W of 0 and 1, a capacity phase 1 fits (its scale
+    exactly 1); budgets of +inf and 0 and backlog caps below the queue on
+    some lanes."""
+    queue, vol, budget, rates, backlog, cap = _window_case(o, j, w, o + j,
+                                                           cuda)
+    cap = cap * cap_scale
+    budget[:, ::7] = 0.0
+    backlog[:, ::5] = queue[:, ::5] * 0.5
+    before = fw_ops.launches
+    got = fw_ops.fleet_window_serve(queue, vol, budget, rates, backlog, cap)
+    assert fw_ops.launches == before + 1
+    want = fw_ops.fleet_window_ref(queue, vol, budget, rates, backlog, cap)
+    for name, g, w_ in zip(("queue", "vol_left", "served"), got, want):
+        assert torch.equal(g.isfinite(), w_.isfinite()), name
+        fin = w_.isfinite()
+        torch.testing.assert_close(g[fin], w_[fin], rtol=0, atol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("o,j", [(133, 64), (265, 4093), (1, 4093),
+                                 (265, 1)])
+def test_alloc_kernel_edge_shapes(cuda, o, j):
+    """O one past a full wave and J % 4 != 0: allocations equal to the
+    plain round, record and remainder within 1e-3."""
+    args = _alloc_case(o, j, seed=o + j, dev=cuda)
+    before = alloc_ops.launches
+    got = alloc_ops.fleet_alloc(*args)
+    assert alloc_ops.launches == before + 1
+    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("record", "remainder"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("j", [1, 4093, 4095, 4096, MAX_JOBS])
 def test_mega_kernel_on_search_stress_rows(cuda, j):
     """The window megakernel's adaptbf case on the same rows (row 2 gets
     no traffic, so it observes no demand), against its plain round."""
@@ -523,6 +562,27 @@ def test_ssd_scan_edges(cuda, b, s, h, p, n, dtype):
     torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 200, 3, 64, 64), (2, 1, 5, 64, 64), (1, 65, 4, 32, 128),
+    (1, 130, 2, 64, 16)])
+def test_ssd_scan_warm_start(cuda, b, s, h, p, n, dtype):
+    """initial_state [B,H,P,N] (float32, rounded to x's type by the kernel
+    as the reference casts it) against the plain warm-started scan."""
+    x, dt, a, B, C, skip = _ssd_case(cuda, b, s, h, p, n, dtype, s + 7 * n)
+    gen = torch.Generator(device=cuda).manual_seed(b + s + h)
+    h0 = _rand(gen, (b, h, p, n), torch.float32)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd(x, dt, a, B, C, d_skip=skip, initial_state=h0)
+    assert ssd_ops.launches == before + 1
+    wy, wst = ssd_ops.ref.ssd_chunked(x, dt, a, B, C, d_skip=skip,
+                                      initial_state=h0)
+    tol = SSD_TOL[dtype]
+    assert st.dtype == torch.float32 and tuple(st.shape) == (b, h, p, n)
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
+
+
 def test_ssd_bf16_rejects_what_tma_cannot_read(cuda):
     """The bfloat16 scan moves x, B, C and y by TMA: a B or C row of 100
     elements (200-byte stride), an x base off 16 bytes and P=4 (an 8-byte
@@ -576,9 +636,9 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     dt = torch.ones((1, 64, 2), device=cuda)
     a = -torch.ones(2, device=cuda)
     bc = _rand(gen, (1, 64, 8), torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="initial_state must have shape"):
         ssd_ops.ssd(x, dt, a, bc, bc,
-                    initial_state=torch.zeros((1, 2, 16, 8), device=cuda))
+                    initial_state=torch.zeros((1, 2, 8, 16), device=cuda))
     with pytest.raises(ValueError, match="chunks of 64"):
         ssd_ops.ssd(x, dt, a, bc, bc, chunk=32)
     with pytest.raises(TypeError, match="dt must be"):

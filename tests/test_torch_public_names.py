@@ -1,0 +1,108 @@
+"""The port keeps the reference's public names: every name in the
+``__all__`` of a ported reference module exists in the port's counterpart,
+and every public top-level function of a ported reference module without
+an ``__all__`` does too.  Names the port does not have yet are listed
+below with the ROADMAP item that ports each; a listed name that appears in
+the port fails the test, so the list shrinks as items land."""
+import importlib
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import baselines as jbase
+from repro_torch.core import no_bw_allocate
+
+# reference name -> the ROADMAP.md queue A item that ports it
+NOT_YET = {
+    "storage": {
+        "StreamResult": "2, streaming telemetry",
+        "StreamStats": "2, streaming telemetry",
+        "FleetService": "3, service and checkpoint",
+        "IngestResult": "3, service and checkpoint",
+        "simulate_tenants": "4, tenants",
+        "utilization": "6, host-side consumers (metrics)",
+        "active_between": "6, the scenario registry",
+        "continuous": "6, the scenario registry",
+        "periodic_bursts": "6, the scenario registry",
+        "get_scenario": "6, the scenario registry",
+        "list_scenarios": "6, the scenario registry",
+        "list_fleet_scenarios": "6, the scenario registry",
+        "register_scenario": "6, the scenario registry",
+        "scenario_allocation": "6, the scenario registry",
+        "scenario_redistribution": "6, the scenario registry",
+        "scenario_recompensation": "6, the scenario registry",
+    },
+    "models": {
+        "loss_fn": "9.1, training",
+        "param_shapes": "9.4, specs and shape helpers",
+        "cache_shapes": "9.4, specs and shape helpers",
+        "param_specs": "9.4, specs and shape helpers",
+        "cache_specs": "9.4, specs and shape helpers",
+    },
+    "launch.steps": {
+        "init_train_state": "9.1, training",
+        "make_train_step": "9.1, training",
+    },
+}
+
+WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
+            "kernels.window_mega"]
+WITHOUT_ALL = ["launch.steps", "kernels.adaptbf_alloc.ops",
+               "kernels.attention.ops", "kernels.ssd.ops"]
+
+
+def _public_functions(module):
+    return [name for name, v in vars(module).items()
+            if not name.startswith("_") and inspect.isfunction(v)
+            and v.__module__ == module.__name__]
+
+
+@pytest.mark.parametrize("name", WITH_ALL + WITHOUT_ALL)
+def test_port_module_has_the_reference_public_names(name):
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    names = getattr(ref, "__all__", None)
+    assert (names is not None) == (name in WITH_ALL), name
+    if names is None:
+        names = _public_functions(ref)
+    assert names, name
+    later = NOT_YET.get(name, {})
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert missing == sorted(n for n in later if n in names), (
+        f"repro_torch.{name} lacks {missing}; listed as not yet ported: "
+        f"{sorted(later)}")
+    port_all = getattr(port, "__all__", None)
+    if port_all is not None:   # what the port defines, it exports
+        assert not [n for n in names if hasattr(port, n)
+                    and n not in port_all], name
+
+
+def test_c2_names_import():
+    from repro_torch.storage import (  # noqa: F401
+        route_progressive,
+        route_round_robin,
+        stripe_targets,
+    )
+    import repro_torch.storage as st
+    assert {"route_progressive", "route_round_robin",
+            "stripe_targets"} <= set(st.__all__)
+    import repro_torch.core as core
+    assert "no_bw_allocate" in core.__all__
+
+
+@pytest.mark.parametrize("shape,cap", [
+    ((7,), 123.0), ((3, 5), 40.0), ((4, 6), np.arange(6, dtype=np.float32)),
+    ((2, 3, 4), np.float32(1e30))])
+def test_no_bw_allocate_matches_reference(shape, cap):
+    demand = np.random.default_rng(len(shape)).integers(
+        0, 50, shape).astype(np.float32)
+    want = np.asarray(jbase.no_bw_allocate(jnp.asarray(demand),
+                                           jnp.asarray(cap)))
+    got = no_bw_allocate(torch.from_numpy(demand), torch.as_tensor(cap))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = no_bw_allocate(torch.from_numpy(demand), cap)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -133,6 +133,29 @@ def test_plain_ssd_takes_an_initial_state_on_the_cpu():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_model_warm_start_matches_plain_and_reference(dtype):
+    """A warm-started scan (the state rounded to x's type, as the
+    reference's oracle casts it) in the CUDA kernel's order against the
+    plain version and the reference's ``ssd_chunked(initial_state=...)``,
+    at the reference's kernel tolerances."""
+    args = _inputs(1, 130, 3, 16, 16, seed=5)
+    h0 = np.random.default_rng(6).standard_normal((1, 3, 16, 16)).astype(
+        np.float32)
+    tx, tdt, ta, tB, tC, tskip = _port(args, dtype)
+    y, st = ref.ssd_scan_model(tx, tdt, ta, tB, tC, d_skip=tskip,
+                               initial_state=torch.from_numpy(h0))
+    py, pst = ref.ssd_chunked(tx, tdt, ta, tB, tC, d_skip=tskip,
+                              initial_state=torch.from_numpy(h0))
+    _close(y, py.float(), dtype)
+    _close(st, pst.float(), dtype)
+    jx, jdt, ja, jB, jC, jskip = _ref(args, dtype)
+    wy, wst = jref.ssd_chunked(jx, jdt, ja, jB, jC, d_skip=jskip,
+                               initial_state=jnp.asarray(h0), chunk=64)
+    _close(y, wy, dtype)
+    _close(st, wst, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_update_matches_reference(dtype):
     rng = np.random.default_rng(11)
     b, h, p, n = 3, 4, 16, 8
