@@ -49,7 +49,21 @@ Phases, each of which raises on failure (the run then exits non-zero):
    service); then ``serve_backend="mega"`` (one megakernel launch a
    window and nothing else), compared with the fused/pallas run the same
    way; then ``control="coded"`` with AdapTBF's code under "mega", which
-   must equal the direct run bitwise.  The LM serving path: zamba2-2.7b at
+   must equal the direct run bitwise.  Streaming telemetry and the online
+   service on the same fleet: each of the three runs again with
+   ``telemetry="streaming"`` (launch counters as above; queue_final equal
+   to the trajectory run's, coded's stats equal to mega's), the
+   ``streaming_*`` finalizers against the trajectory metrics of the same
+   run (the tolerances of ``tests/test_streaming_telemetry.py``); 60
+   ``FleetService.step`` calls equal to ``simulate_fleet`` bitwise for
+   fused/pallas, mega and coded in both telemetry modes, the counters
+   moving once a window; an outage of every fourth OST in windows 20-30,
+   the service saved at window 25 (``build/chip_smoke_checkpoints``,
+   removed after), a new service restored and run to window 60, equal to
+   the uninterrupted run bitwise (checkpoint bytes, save and restore
+   seconds printed); 2000 windows of streaming mega with the same peak
+   device memory as 60 (within 2 MiB) and ``stats.windows`` 2000.  The LM
+   serving path: zamba2-2.7b at
    full width and depth on weights from ``torch.Generator(0)``; the
    prefill step (``make_prefill_step``, bfloat16, B=4 x S=2048; 9 flash
    attention and 54 SSD launches) against the plain path on the card,
@@ -60,14 +74,18 @@ Phases, each of which raises on failure (the run then exits non-zero):
    kernel run's inputs and compared at every step.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
-   as the library yardstick), the fleet paths in windows per second, the
-   prefill in tokens per second on both paths and the engine in
-   generated tokens per second.
-5. Trace one fused/pallas run, one mega run, one bfloat16 prefill step
+   as the library yardstick), the fleet paths in windows per second
+   (trajectory and streaming, median and spread of 5 runs),
+   ``FleetService.step`` latency (p50, p99 over 60 windows; the window's
+   rates on the card or handed over as numpy), the prefill in tokens per
+   second on both paths and the engine in generated tokens per second.
+5. Trace one fused/pallas run, one mega run, one streaming fused/pallas
+   run, 60 telemetry folds at the main shape, one bfloat16 prefill step
    and one engine run with ``torch.profiler``: device busy time, idle
    share and device time by kernel (the fused/pallas run's beside the
    one from before the allocation kernel ran two blocks an SM,
-   ``ONE_BLOCK_FUSED_TRACE``).
+   ``ONE_BLOCK_FUSED_TRACE``; the fold's device time a window beside the
+   service and allocation kernels').
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel.  Without a CUDA
@@ -638,8 +656,8 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
     """One run under ``torch.profiler``: device busy time, idle share and
     device time by kernel (the ``top`` longest, and each kernel whose name
     holds a string of ``focus``: its launches and device time a launch),
-    printed; returns (device busy ms, idle share), or None when the
-    profiler saw no device time."""
+    printed; returns (device busy ms, idle share, {focus: (launches,
+    device ms)}), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -664,14 +682,253 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
           f"operations, device busy {busy * 1e3:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}; device time by kernel: "
           + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in longest))
+    per_focus = {}
     for name in focus:
         hits = [e for e in device if name in e.key]
         count = sum(e.count for e in hits)
         total = sum(e.self_device_time_total for e in hits)
+        per_focus[name] = (count, total / 1e3)
         print(f"trace ({label}): {name}: {count} launches, "
               f"{total / 1e3:.3f} ms device time, "
               f"{total / max(count, 1):.2f} us a launch")
-    return busy * 1e3, 1 - busy / wall
+    return busy * 1e3, 1 - busy / wall, per_focus
+
+# -------------------------------------- streaming telemetry, the service
+
+
+FIELDS = ("served", "demand", "alloc", "record")
+
+
+def trajectory_metrics(res, nodes, cap_w):
+    """The trajectory metrics of a fleet run (host-side numpy)."""
+    from repro_torch.storage import metrics
+    served = res.served.cpu().numpy()
+    demand = res.demand.cpu().numpy()
+    return {"aggregate_mb": metrics.aggregate_mb(served),
+            "mean_utilization": metrics.mean_utilization(served, cap_w),
+            "fairness": metrics.fairness(served.sum(1, dtype=np.float64),
+                                         nodes,
+                                         demand.sum(1, dtype=np.float64)),
+            "job_slowdown": metrics.job_slowdown(served, cap_w),
+            "p99_queue": metrics.p99_queue(demand, served)}
+
+
+def check_streaming_metrics(label, stats, want, nodes, cap_w):
+    """The ``streaming_*`` finalizers against the trajectory metrics of the
+    same run, at the tolerances of ``tests/test_streaming_telemetry.py``;
+    returns the largest relative difference of the first four."""
+    from repro_torch.storage import metrics
+    got = {"aggregate_mb": metrics.streaming_aggregate_mb(stats),
+           "mean_utilization": metrics.streaming_mean_utilization(stats),
+           "fairness": metrics.streaming_fairness(stats, nodes),
+           "job_slowdown": metrics.streaming_job_slowdown(stats, cap_w),
+           "p99_queue": metrics.streaming_p99_queue(stats)}
+    worst = 0.0
+    for name in ("aggregate_mb", "mean_utilization", "fairness",
+                 "job_slowdown"):
+        g, w = np.asarray(got[name], np.float64), np.asarray(want[name])
+        np.testing.assert_allclose(
+            g, w, rtol=1e-5, atol=1e-7 if name == "fairness" else 0,
+            equal_nan=True, err_msg=f"{label}: {name}")
+        fin = np.isfinite(w) & (w != 0)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(g[fin] - w[fin])
+                                            / np.abs(w[fin]))))
+    exact, approx = want["p99_queue"], got["p99_queue"]
+    if not exact * 0.77 - 0.05 <= approx <= exact * 1.3 + 0.05:
+        raise AssertionError(f"{label}: streaming p99 {approx} vs {exact}")
+    print(f"streaming vs trajectory ({label}): aggregate "
+          f"{got['aggregate_mb']:.1f} MB, utilization "
+          f"{got['mean_utilization']:.6f}, fairness {got['fairness']:.6f}, "
+          f"p99 backlog {approx:.3f} (histogram) vs {exact:.3f}; max rel "
+          f"diff {worst:.3g} (rtol 1e-5)")
+    return worst
+
+
+def same_stats(torch, a, b) -> bool:
+    """Every ``StreamStats`` leaf equal, dtype included."""
+    from repro_torch.pytree import leaves_with_paths
+    return all(x.dtype == y.dtype and bool(torch.equal(x, y))
+               for (_, x), (_, y) in zip(leaves_with_paths(a),
+                                         leaves_with_paths(b)))
+
+
+def fleet_online(torch, dev, inputs, scn, run, counted, zero_counts, counts,
+                 offline):
+    """Streaming telemetry and ``FleetService`` at the main fleet shape:
+    streaming equals trajectory (finalizers against metrics), online equals
+    offline for fused/pallas, mega and coded in both telemetry modes with
+    the launch counters moving once a window, a save inside an outage
+    restored into a new service, the 2000-window horizon's peak memory,
+    and the service's step latency.  Returns what phase 4 prints."""
+    import shutil
+    from repro_torch.storage import (FLEET_CONTROL_CODES, FleetConfig,
+                                     FleetService, faults)
+    nodes_np, cap_w_np = scn.nodes, scn.capacity_per_tick * W
+    trace_windows = inputs["trace_windows"]
+    code = FLEET_CONTROL_CODES["adaptbf"]
+    configs = {"fused/pallas": ("fused", "pallas", "adaptbf", None),
+               "mega": ("mega", "core", "adaptbf", None),
+               "coded": ("mega", "core", "coded", code)}
+    kernel_of = {"fused": {"fleet_window": N_WINDOWS,
+                           "adaptbf_alloc": N_WINDOWS},
+                 "mega": {"window_mega": N_WINDOWS}}
+    out = {"rel": 0.0}
+
+    # streaming equals trajectory, on the card
+    streamed = {}
+    for label, (serve, alloc, control, c) in configs.items():
+        res, _ = counted(f"{label}, streaming", kernel_of[serve], serve,
+                         alloc, control, c, telemetry="streaming")
+        if not torch.equal(res.queue_final, offline[label].queue_final):
+            raise AssertionError(f"{label}: streaming queue_final differs "
+                                 "from the trajectory run's")
+        if int(res.stats.windows) != N_WINDOWS:
+            raise AssertionError(f"{label}: stats.windows "
+                                 f"{int(res.stats.windows)}")
+        streamed[label] = res
+    for label in ("fused/pallas", "mega"):
+        want = trajectory_metrics(offline[label], nodes_np, cap_w_np)
+        out["rel"] = max(out["rel"], check_streaming_metrics(
+            label, streamed[label].stats, want, nodes_np, cap_w_np))
+    if not same_stats(torch, streamed["coded"].stats,
+                      streamed["mega"].stats):
+        raise AssertionError("coded streaming stats differ from direct")
+
+    # online equals offline, bitwise, both telemetry modes
+    def service(label, telemetry, **kw):
+        serve, alloc, control, c = configs[label]
+        cfg = FleetConfig(control=control, serve_backend=serve,
+                          alloc_backend=alloc, telemetry=telemetry)
+        return FleetService(cfg, inputs["nodes"], inputs["volume"],
+                            inputs["cap"], inputs["backlog"],
+                            control_code=c, device=dev, **kw)
+
+    def window(w):
+        s = (w % trace_windows) * W
+        return inputs["rates"][s:s + W]
+
+    for label in configs:
+        for telemetry in ("trajectory", "streaming"):
+            serve = configs[label][0]
+            svc = service(label, telemetry)
+            base = offline[label] if telemetry == "trajectory" \
+                else streamed[label]
+            zero_counts()
+            same = True
+            for w in range(N_WINDOWS):
+                o = svc.step(window(w))
+                if o is not None:
+                    same &= all(bool(torch.equal(x, getattr(base, f)[w]))
+                                for x, f in zip(o, FIELDS))
+            got = counts()
+            want = {n: kernel_of[serve].get(n, 0) for n in got}
+            if got != want:
+                raise AssertionError(f"service {label} {telemetry}: "
+                                     f"launches {got}, expected {want}")
+            if telemetry == "streaming":
+                same &= same_stats(torch, svc.stats, base.stats)
+            same &= bool(torch.equal(svc.queue, base.queue_final))
+            if not same:
+                raise AssertionError(f"FleetService ({label}, {telemetry}) "
+                                     "differs from simulate_fleet")
+            print(f"online == offline ({label}, {telemetry}): "
+                  f"{N_WINDOWS} FleetService.step calls bitwise equal to "
+                  f"simulate_fleet; launches {got}")
+            del svc
+
+    # save inside an outage, restore into a new service, run on
+    osts = np.arange(0, O, 4)
+    plan = faults.outage(N_WINDOWS, O, 20, 30, osts=osts)
+    ckdir = ROOT / "build" / "chip_smoke_checkpoints"
+    for label in ("fused/pallas", "mega"):
+        serve, alloc, _, _ = configs[label]
+        base = run(serve, alloc, telemetry="streaming", fault_plan=plan)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        svc = service(label, "streaming", checkpoint_dir=str(ckdir),
+                      fault_plan=plan)
+        for w in range(25):
+            svc.step(window(w))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(svc.save())
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in path.iterdir())
+        n_leaves = len(list(path.glob("leaf_*.npy")))
+        committed = sorted(d.name for d in ckdir.iterdir())
+        del svc
+        svc = service(label, "streaming", checkpoint_dir=str(ckdir),
+                      fault_plan=plan)
+        t0 = time.perf_counter()
+        step = svc.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for w in range(step, N_WINDOWS):
+            svc.step(window(w))
+        down = svc.stats.down_windows.cpu().numpy()
+        want_down = np.zeros(O, np.int32)
+        want_down[osts] = 10
+        if not (same_stats(torch, svc.stats, base.stats)
+                and bool(torch.equal(svc.queue, base.queue_final))
+                and step == 25 and np.array_equal(down, want_down)):
+            raise AssertionError(f"outage restore ({label}) differs from "
+                                 "the uninterrupted run")
+        print(f"outage restore ({label}, streaming): {len(osts)} OSTs down "
+              f"in windows 20-30; saved at window 25 ({n_bytes} B, "
+              f"{n_bytes / 1e6:.1f} MB, in {n_leaves} leaves, save {save_s:.3f} s, restore "
+              f"{restore_s:.3f} s; committed: {committed}, the first by "
+              f"the fault trigger), new service run to window {N_WINDOWS}: "
+              "bitwise equal to the uninterrupted run, down_windows 10 on "
+              "each outage OST")
+        out[f"ckpt_{label}"] = (n_bytes, save_s, restore_s)
+        del svc, base
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # horizon independence: 60 and 2000 windows of streaming mega
+    peaks = {}
+    for n in (N_WINDOWS, 2000):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run("mega", "core", telemetry="streaming", n_windows=n)
+        secs = time.perf_counter() - t0
+        peaks[n] = torch.cuda.max_memory_allocated()
+        if int(res.stats.windows) != n:
+            raise AssertionError(f"{n} windows: stats.windows "
+                                 f"{int(res.stats.windows)}")
+        out[f"horizon_{n}_w_s"] = n / secs
+        del res
+    if abs(peaks[2000] - peaks[N_WINDOWS]) > 2 << 20:
+        raise AssertionError(f"peak device memory grew with the horizon: "
+                             f"{peaks}")
+    print(f"horizon independence (mega, streaming): peak device memory "
+          f"{peaks[N_WINDOWS]} B over {N_WINDOWS} windows, {peaks[2000]} B "
+          f"over 2000 (stats.windows 2000; {out['horizon_2000_w_s']:.1f} "
+          "windows/s)")
+    out["peaks"] = peaks
+
+    # FleetService.step latency, rates on the card and as numpy
+    for label in ("fused/pallas", "mega"):
+        for source in ("card", "numpy"):
+            svc = service(label, "streaming")
+            lat = []
+            for w in range(N_WINDOWS):
+                if source == "card":
+                    x = window(w)
+                else:
+                    s = (w % trace_windows) * W
+                    x = scn.issue_rate[s:s + W]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc.step(x)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            out[f"lat_{label}_{source}"] = (
+                1e3 * float(np.percentile(lat, 50)),
+                1e3 * float(np.percentile(lat, 99)))
+            del svc
+    return out
+
 
 # ------------------------------------------------------- the LM serving path
 
@@ -1206,22 +1463,24 @@ def main() -> int:
     inputs["trace_windows"] = scn.issue_rate.shape[0] // W
     cap_w = inputs["cap"].double() * W
 
-    def run(serve, alloc, control="adaptbf", code=None):
+    def run(serve, alloc, control="adaptbf", code=None,
+            telemetry="trajectory", n_windows=N_WINDOWS, fault_plan=None):
         cfg = FleetConfig(control=control, serve_backend=serve,
-                          alloc_backend=alloc)
+                          alloc_backend=alloc, telemetry=telemetry)
         res = simulate_fleet(cfg, inputs["nodes"], inputs["rates"],
                              inputs["volume"], inputs["cap"],
                              inputs["backlog"], control_code=code,
-                             n_windows=N_WINDOWS, device=dev)
+                             n_windows=n_windows, fault_plan=fault_plan,
+                             device=dev)
         torch.cuda.synchronize()
         return res
 
-    def counted(label, want, *config):
+    def counted(label, want, *config, **kw):
         """One run with every launch counter set to 0 just before it and
         read just after; ``want`` maps each kernel to its expected count
         (every other kernel: 0)."""
         zero_counts()
-        res = run(*config)
+        res = run(*config, **kw)
         got = counts()
         print(f"main path ({label}), {N_WINDOWS} windows: launches {got}")
         want = {name: want.get(name, 0) for name in names}
@@ -1275,6 +1534,9 @@ def main() -> int:
           f"horizon served per OST max rel err {rel}; bitwise equal: {same}; "
           "invariants hold on both")
     del plain_res
+    # one window's observation at the main shape, for phase 5's fold
+    fold_inputs = tuple(getattr(kernel_res, f)[-1].clone()
+                        for f in ("served", "demand", "alloc"))
 
     mega_res, mega_launches = counted(
         "mega", {"fleet_window": 0, "adaptbf_alloc": 0,
@@ -1285,7 +1547,6 @@ def main() -> int:
     print(f"mega path vs fused/pallas path: alloc/record max |err| over all "
           f"{N_WINDOWS} windows {per_window}; horizon served per OST max rel "
           f"err {rel}; bitwise equal: {same}; invariants hold")
-    del kernel_res
     code = FLEET_CONTROL_CODES["adaptbf"]
     coded_res, _ = counted(
         f"mega, coded, code {code}", {"fleet_window": 0, "adaptbf_alloc": 0,
@@ -1297,10 +1558,15 @@ def main() -> int:
                                  f"adaptbf in {f}")
     print(f"coded dispatch, code {code} (adaptbf), under mega: bitwise equal "
           "to direct adaptbf in served, demand, alloc, record, queue_final")
-    del coded_res, mega_res
+
+    # 3b. streaming telemetry and the online service ----------------------
+    online = fleet_online(torch, dev, inputs, scn, run, counted, zero_counts,
+                          counts, {"fused/pallas": kernel_res,
+                                   "mega": mega_res, "coded": coded_res})
+    del kernel_res, coded_res, mega_res
     torch.cuda.empty_cache()
 
-    # 3b. the LM serving path: zamba2-2.7b prefill and engine ------------
+    # 3c. the LM serving path: zamba2-2.7b prefill and engine ------------
     lm = lm_main_path(torch, dev, counts, zero_counts)
     torch.cuda.empty_cache()
 
@@ -1340,15 +1606,20 @@ def main() -> int:
     fd_b, fd_by = bound_ms(*decode_work(lens, 32, 32, 80, 4))
     ssd_b, ssd_by = bound_ms(*ssd_work(PREFILL_B, PREFILL_S, 80, 64, 64, 2),
                              BF16_OPS_S)
-    rates = {}
-    for serve, alloc in (("fused", "pallas"), ("mega", "core"),
-                         ("scan", "core")):
+    rates, spread = {}, {}
+    for serve, alloc, telemetry in (
+            ("fused", "pallas", "trajectory"), ("mega", "core", "trajectory"),
+            ("scan", "core", "trajectory"), ("fused", "pallas", "streaming"),
+            ("mega", "core", "streaming")):
         secs = []
-        for _ in range(3):
+        for _ in range(5):
             t0 = time.perf_counter()
-            run(serve, alloc)
+            run(serve, alloc, telemetry=telemetry)
             secs.append(time.perf_counter() - t0)
-        rates[f"{serve}/{alloc}"] = N_WINDOWS / statistics.median(secs)
+        key = f"{serve}/{alloc}" + (", streaming" if telemetry == "streaming"
+                                    else "")
+        rates[key] = N_WINDOWS / statistics.median(secs)
+        spread[key] = (N_WINDOWS / max(secs), N_WINDOWS / min(secs))
     fw_b, fw_by = bound_ms(*window_work(O, J, W))
     al_b, al_by = bound_ms(*alloc_work(O, J))
     mega_b, mega_by = bound_ms(*mega_work(O, J, W))
@@ -1358,8 +1629,18 @@ def main() -> int:
           f"adaptbf_alloc {al_ms:.4f} ms (plain {al_plain:.4f} ms, bound "
           f"{al_b:.4f} ms); window_mega (adaptbf) {mega_ms:.4f} ms (plain "
           f"{mega_plain:.4f} ms, bound {mega_b:.4f} ms by {mega_by})")
-    print(f"main path windows/s at O={O} J={J} on {card}: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    print(f"main path windows/s at O={O} J={J} on {card} (median of 5 "
+          f"runs, [slowest, fastest]): "
+          + ", ".join(f"{k} {v:.2f} [{spread[k][0]:.2f}, {spread[k][1]:.2f}]"
+                      for k, v in rates.items()))
+    print(f"FleetService.step latency (streaming, {N_WINDOWS} windows, p50 / "
+          f"p99 ms) on {card}: "
+          + "; ".join(f"{lab} rates on the card {online[f'lat_{lab}_card'][0]:.3f}"
+                      f" / {online[f'lat_{lab}_card'][1]:.3f}, as numpy (a "
+                      f"{W * O * J * 4 / 1e6:.1f} MB copy a window) "
+                      f"{online[f'lat_{lab}_numpy'][0]:.3f} / "
+                      f"{online[f'lat_{lab}_numpy'][1]:.3f}"
+                      for lab in ("fused/pallas", "mega")))
     print(f"LM kernel times on {card}: flash_attention (B={PREFILL_B} "
           f"S={PREFILL_S} H=32 D=80 causal bfloat16) {fa_ms:.4f} ms (plain "
           f"{fa_plain:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms, "
@@ -1387,6 +1668,34 @@ def main() -> int:
               f"share {fused[1]:.3f}; with the allocation at one block an SM "
               f"{ONE_BLOCK_FUSED_TRACE[0]} ms, {ONE_BLOCK_FUSED_TRACE[1]}")
     trace(torch, "mega", lambda: run("mega", "core"), focus=("window_mega",))
+    streaming = trace(torch, "fused/pallas, streaming",
+                      lambda: run("fused", "pallas", telemetry="streaming"),
+                      focus=("fleet_window", "adaptbf_alloc"))
+    from repro_torch.storage import telemetry as tel
+    stats0 = tel.init_stats(O, J, dev)
+    cap_w_dev = inputs["cap"] * W
+
+    def folds():
+        stats = stats0
+        for _ in range(N_WINDOWS):
+            stats = tel.update_stats(stats, *fold_inputs, cap_w_dev)
+        torch.cuda.synchronize()
+
+    fold = trace(torch, "telemetry fold", folds,
+                 what=f"{N_WINDOWS} folds at O={O} J={J}", top=12)
+    fold_ms = cuda_ms(lambda: tel.update_stats(stats0, *fold_inputs,
+                                               cap_w_dev), reps=20)
+    if fold and streaming:
+        (n1, t1), (n2, t2) = (streaming[2]["fleet_window"],
+                              streaming[2]["adaptbf_alloc"])
+        print(f"telemetry fold on {card}: {fold[0] / N_WINDOWS:.4f} ms of "
+              f"device time a window (profiler; {fold_ms:.4f} ms a fold "
+              f"between CUDA events) beside fleet_window "
+              f"{t1 / max(n1, 1):.4f} ms and adaptbf_alloc "
+              f"{t2 / max(n2, 1):.4f} ms a launch; streaming fused/pallas "
+              f"device busy {streaming[0]:.2f} ms, idle share "
+              f"{streaming[1]:.3f} (trajectory: "
+              f"{fused[0] if fused else float('nan'):.2f} ms)")
 
     kernels = [
         {"name": "fleet_window", "route": "cuda",

@@ -33,7 +33,9 @@ profile -- ``noisy`` / ``burst`` / ``churn`` / ``saturation`` / ``mixed``
 traces through the existing striping policies (``storage/striping.py``)
 into a ``FleetScenario``.  The same seed always yields the same arrays
 (pure ``numpy.random.default_rng``), so generated scenarios can anchor
-regression tests and committed benchmark artifacts.
+regression tests and committed benchmark artifacts.  Each profile is also
+registered in the scenario registry as ``fleet_gen_<profile>``
+(``workloads.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.storage import faults, striping
-from repro_torch.storage.workloads import FleetScenario
 
 
 # ------------------------------------------------------------ trace algebra
@@ -319,6 +320,7 @@ def build_fleet(name: str, jobs: Sequence[JobSpec], n_ost: int,
                 **route_kw):
     """Materialize job specs and route them through a striping policy into
     a ``FleetScenario`` for ``simulate_fleet``."""
+    from repro_torch.storage.workloads import FleetScenario  # lazy: cycle
     if not jobs:
         raise ValueError("build_fleet needs at least one JobSpec")
     if policy != "round_robin" and any(

@@ -31,6 +31,12 @@ observation select, policy step) with one launch of
 plain PyTorch versions on any device, and on CPU tensors every kernel
 backend takes its kernel's plain version.
 
+Telemetry is selectable: ``telemetry="trajectory"`` writes the
+``[n_windows, O, J]`` outputs; ``telemetry="streaming"`` folds each window
+into the carry's ``StreamStats`` (``storage/telemetry.py``), so device
+memory does not grow with the horizon and ``n_windows`` can tile a
+periodic trace far past its own length.
+
 ``control="coded"`` runs the ``CodedPolicy`` combinator over
 ``cfg.coded_policies``, the member picked by ``control_code``
 (``FLEET_CONTROL_CODES`` for the default subset).
@@ -56,7 +62,10 @@ from repro_torch.core.policies import (
 from repro_torch.core.state import AllocatorState
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.numerics import row_sum
+from repro_torch.pytree import leaves_with_paths, to_numpy, unflatten
+from repro_torch.storage import telemetry
 from repro_torch.storage.faults import FaultPlan
+from repro_torch.storage.telemetry import StreamStats
 
 _EPS = 1e-9
 
@@ -79,7 +88,7 @@ class SimConfig(NamedTuple):
     u_max: float = 64.0
     integer_tokens: bool = True
     max_backlog: float = 256.0         # default client in-flight cap per job
-    telemetry: str = "trajectory"      # trajectory (streaming: not ported)
+    telemetry: str = "trajectory"      # trajectory | streaming
 
 
 class FleetConfig(NamedTuple):
@@ -100,7 +109,8 @@ class FleetConfig(NamedTuple):
                                        #   launch per window) | mega (the
                                        #   whole control round, one launch
                                        #   of the CUDA megakernel)
-    telemetry: str = "trajectory"      # trajectory (streaming: not ported)
+    telemetry: str = "trajectory"      # trajectory | streaming (StreamStats
+                                       #   folded into the carry)
     coded_policies: tuple = DEFAULT_CODED_POLICIES
                                        # member subset for control="coded"
     partition: str = "none"            # none (ost_shard: not ported)
@@ -141,6 +151,17 @@ class FleetResult(NamedTuple):
             queue_final=self.queue_final[i],
             window_seconds=self.window_seconds,
         )
+
+
+class StreamResult(NamedTuple):
+    """Result of a ``telemetry="streaming"`` run: carry-resident sufficient
+    statistics instead of ``[n_windows, ...]`` trajectories.  Stats are
+    [O, J] from ``simulate_fleet`` and [J] from ``simulate``; feed them to
+    the ``streaming_*`` finalizers in ``storage/metrics.py``."""
+
+    stats: StreamStats
+    queue_final: torch.Tensor  # [O, J] (fleet) or [J] (single target)
+    window_seconds: float
 
 
 # --------------------------------------------------------- shared machinery
@@ -198,7 +219,7 @@ class WindowCarry(NamedTuple):
     vol_left: torch.Tensor     # [O, J] remaining volume per job per target
     policy_state: Any          # policy state (shape fixed by cfg.control)
     alloc: torch.Tensor        # [O, J] allocation applied next window
-    stats: Any                 # () (trajectory telemetry)
+    stats: Any                 # StreamStats (streaming) | () (trajectory)
     held: HeldObs              # last *delivered* observation
 
 
@@ -213,10 +234,7 @@ class WindowOut(NamedTuple):
 
 def _check_config(cfg: FleetConfig) -> None:
     """Reject options this package does not run, before any work."""
-    if cfg.telemetry == "streaming":
-        raise _not_ported('telemetry="streaming"',
-                          'queue A, "Streaming telemetry"')
-    if cfg.telemetry != "trajectory":
+    if cfg.telemetry not in ("trajectory", "streaming"):
         raise ValueError(f"unknown telemetry mode: {cfg.telemetry!r}")
     if cfg.serve_backend not in ("scan", "fused", "mega"):
         raise ValueError(f"unknown serve_backend: {cfg.serve_backend!r}")
@@ -229,16 +247,18 @@ def _check_config(cfg: FleetConfig) -> None:
 def init_carry(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
                volume: torch.Tensor) -> WindowCarry:
     """Window-0 carry: empty queues, full volumes, the policy's cold-start
-    state and allocation."""
+    state and allocation, and zeroed streaming stats when enabled."""
     _check_config(cfg)
 
     def zoj():
         return torch.zeros_like(ctx.nodes)
 
+    n_ost, n_jobs = ctx.nodes.shape
     return WindowCarry(
         window=0, queue=zoj(), vol_left=volume,
         policy_state=policy.init_state(ctx), alloc=policy.init_alloc(ctx),
-        stats=(),
+        stats=(telemetry.init_stats(n_ost, n_jobs, ctx.nodes.device)
+               if cfg.telemetry == "streaming" else ()),
         held=HeldObs(served=zoj(), demand=zoj(),
                      alloc=policy.init_alloc(ctx)))
 
@@ -274,7 +294,11 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
         policy's ``step`` sees the last delivered observation
         (``carry.held``) while the engine serves normally.
 
-    Returns ``(carry', out)`` with ``out`` a ``WindowOut``.
+    Streaming telemetry folds the window into ``carry.stats`` against the
+    window's effective capacity and fault row.
+
+    Returns ``(carry', out)`` with ``out`` a ``WindowOut`` in trajectory
+    mode and ``None`` in streaming mode (the stats live in the carry).
     """
     if faults_w is None:
         ctx_w, cap_tick_w, up_col = ctx, cap_tick, None
@@ -313,11 +337,18 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
             carry.policy_state,
             WindowObs(served=obs_served, demand=obs_demand, alloc=obs_alloc,
                       up=up_col), ctx_w)
-    out = WindowOut(served=served_w, demand=demand, alloc=carry.alloc,
-                    record=policy.record(pstate, ctx_w))
+    if cfg.telemetry == "streaming":
+        stats = telemetry.update_stats(carry.stats, served_w, demand,
+                                       carry.alloc, ctx_w.cap_w,
+                                       faults_w=faults_w)
+        out = None
+    else:
+        stats = carry.stats
+        out = WindowOut(served=served_w, demand=demand, alloc=carry.alloc,
+                        record=policy.record(pstate, ctx_w))
     return WindowCarry(window=carry.window + 1, queue=queue,
                        vol_left=vol_left, policy_state=pstate,
-                       alloc=alloc_next, stats=carry.stats,
+                       alloc=alloc_next, stats=stats,
                        held=HeldObs(served=obs_served, demand=obs_demand,
                                     alloc=obs_alloc)), out
 
@@ -336,7 +367,9 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
     one row per executed window, and is never tiled.
 
     Returns ``(queue_final, outs)`` with ``outs`` a ``WindowOut`` of
-    preallocated ``[n_windows, O, J]`` trajectories.
+    preallocated ``[n_windows, O, J]`` trajectories in trajectory mode and
+    the final ``StreamStats`` in streaming mode (nothing is allocated per
+    window then).
     """
     t_total, n_ost, n_jobs = rates.shape
     trace_windows = t_total // cfg.window_ticks
@@ -361,17 +394,20 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
         control_code=control_code)
 
     carry = init_carry(cfg, policy, ctx, volume)
-    outs = WindowOut(*(rates.new_empty((n_windows, n_ost, n_jobs))
-                       for _ in WindowOut._fields))
+    streaming = cfg.telemetry == "streaming"
+    if not streaming:
+        outs = WindowOut(*(rates.new_empty((n_windows, n_ost, n_jobs))
+                           for _ in WindowOut._fields))
     for w in range(n_windows):
         faults_w = (None if fault_plan is None
                     else FaultPlan(*(leaf[w] for leaf in fault_plan)))
         carry, out = window_step(cfg, policy, ctx, cap_tick, backlog_cap,
                                  carry, trace[w % trace_windows],
                                  faults_w=faults_w)
-        for dst, src in zip(outs, out):
-            dst[w] = src
-    return carry.queue, outs
+        if not streaming:
+            for dst, src in zip(outs, out):
+                dst[w] = src
+    return carry.queue, (carry.stats if streaming else outs)
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
@@ -420,6 +456,9 @@ def simulate(cfg: SimConfig, nodes, issue_rate, volume, max_backlog=None,
       n_windows: optional horizon override; the rate trace is indexed
         periodically beyond its own length.
       device: None (CUDA; raises without a GPU) or "cpu".
+
+    Returns a ``SimResult``, or a ``StreamResult`` ([J] stats) when
+    ``cfg.telemetry == "streaming"``.
     """
     dev = resolve_device(device)
     # SimConfig's field names are a strict subset of FleetConfig's
@@ -438,10 +477,15 @@ def simulate(cfg: SimConfig, nodes, issue_rate, volume, max_backlog=None,
         torch.full((1,), cfg.capacity_per_tick, dtype=torch.float32,
                    device=dev),
         backlog_cap, None, n_windows)
+    window_seconds = cfg.window_ticks * cfg.tick_seconds
+    if cfg.telemetry == "streaming":
+        return StreamResult(stats=telemetry.squeeze_stats(outs),
+                            queue_final=queue[0],
+                            window_seconds=window_seconds)
     served, demand, alloc, record = (x[:, 0] for x in outs)
     return SimResult(served=served, demand=demand, alloc=alloc,
                      record=record, queue_final=queue[0],
-                     window_seconds=cfg.window_ticks * cfg.tick_seconds)
+                     window_seconds=window_seconds)
 
 
 # -------------------------------------------------------------------- fleet
@@ -476,7 +520,8 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
         it as float32 before any arithmetic.
 
     Returns:
-      FleetResult with [n_windows, O, J] trajectories on ``device``.
+      FleetResult with [n_windows, O, J] trajectories on ``device``, or a
+      StreamResult when ``cfg.telemetry == "streaming"``.
     """
     dev = resolve_device(device)
     policy = _resolve_policy(cfg, control_code)
@@ -498,8 +543,20 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
     queue, outs = _run_windows(cfg, policy, nodes, rates, _f32(volume, dev),
                                cap_tick, backlog_cap, _host_code(control_code),
                                n_windows, fault_plan=fault_plan)
+    window_seconds = cfg.window_ticks * cfg.tick_seconds
+    if cfg.telemetry == "streaming":
+        return StreamResult(stats=outs, queue_final=queue,
+                            window_seconds=window_seconds)
     return FleetResult(*outs, queue_final=queue,
-                       window_seconds=cfg.window_ticks * cfg.tick_seconds)
+                       window_seconds=window_seconds)
+
+
+def utilization(result, cfg, capacity_per_tick=None):
+    """Per-window fraction of disk capacity actually used; the definition
+    lives in ``storage/metrics.py``."""
+    from repro_torch.storage import metrics
+    return metrics.utilization(result, cfg,
+                               capacity_per_tick=capacity_per_tick)
 
 
 # ------------------------------------------------------- carrying state over
@@ -509,21 +566,6 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
 _CARRY_ARRAYS = (".queue", ".vol_left")
 _HELD = tuple(f".held.{f}" for f in HeldObs._fields)
 _STATE = ".policy_state"
-
-
-def _state_to_numpy(state, prefix: str) -> Dict[str, np.ndarray]:
-    """Policy-state leaves under ``prefix``: an ``AllocatorState`` as
-    ``prefix.record`` ..., one tensor as ``prefix``, a coded state tuple as
-    ``prefix[i]...`` per member (a stateless member has no leaves)."""
-    if isinstance(state, torch.Tensor):
-        return {prefix: state.detach().cpu().numpy()}
-    if isinstance(state, AllocatorState):
-        return {f"{prefix}.{f}": x.detach().cpu().numpy()
-                for f, x in zip(AllocatorState._fields, state)}
-    leaves = {}
-    for i, member in enumerate(state):
-        leaves.update(_state_to_numpy(member, f"{prefix}[{i}]"))
-    return leaves
 
 
 def _state_from_numpy(leaves, prefix: str, tensor):
@@ -538,16 +580,9 @@ def _state_from_numpy(leaves, prefix: str, tensor):
 def carry_to_numpy(carry: WindowCarry) -> Dict[str, np.ndarray]:
     """A ``WindowCarry`` as numpy leaves keyed by the reference's pytree path
     strings (``.window``, ``.queue``, ``.policy_state.record``,
-    ``.policy_state[0].record`` for a coded carry, ...)."""
-    def arr(x):
-        return x.detach().cpu().numpy()
-
-    leaves = {".window": np.asarray(carry.window, np.int32),
-              ".queue": arr(carry.queue), ".vol_left": arr(carry.vol_left)}
-    leaves.update(_state_to_numpy(carry.policy_state, _STATE))
-    leaves[".alloc"] = arr(carry.alloc)
-    leaves.update(zip(_HELD, map(arr, carry.held)))
-    return leaves
+    ``.policy_state[0].record`` for a coded carry, ``.stats.served_sum``,
+    ``.stats.comp.lag_hist`` ...), in the reference's order and dtypes."""
+    return {path: to_numpy(x) for path, x in leaves_with_paths(carry)}
 
 
 def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None, *,
@@ -559,12 +594,15 @@ def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None, *,
     (``.policy_state``, aimd's rates) or none, as the leaves say.  A coded
     carry (``.policy_state[i]...``) needs ``policy``, the run's
     ``CodedPolicy``: its member count sizes the state tuple, since a
-    stateless member leaves no key."""
+    stateless member leaves no key.  A streaming carry's ``.stats...``
+    leaves come back in their own dtypes (int32 counters, float32 sums);
+    every other leaf is float32."""
     dev = resolve_device(device)
+    stats_like = None
     if any(k.startswith(".stats") for k in leaves):
-        raise _not_ported("a streaming-telemetry carry",
-                          'queue A, "Streaming telemetry"')
-    missing = [k for k in (".window", *_CARRY_ARRAYS, ".alloc", *_HELD)
+        stats_like = leaves_with_paths(telemetry.init_stats(1, 1), ".stats")
+    missing = [k for k in (".window", *_CARRY_ARRAYS, ".alloc", *_HELD,
+                           *(p for p, _ in stats_like or ()))
                if k not in leaves]
     if missing:
         raise ValueError(f"carry leaves missing: {missing}")
@@ -581,7 +619,12 @@ def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None, *,
                          "policy=, the run's CodedPolicy")
     else:
         policy_state = _state_from_numpy(leaves, _STATE, t)
+    stats = ()
+    if stats_like is not None:
+        stats = unflatten(telemetry.init_stats(1, 1), (
+            torch.tensor(np.asarray(leaves[p]), dtype=x.dtype, device=dev)
+            for p, x in stats_like))
     return WindowCarry(
         window=int(leaves[".window"]), queue=t(".queue"),
         vol_left=t(".vol_left"), policy_state=policy_state,
-        alloc=t(".alloc"), stats=(), held=HeldObs(*map(t, _HELD)))
+        alloc=t(".alloc"), stats=stats, held=HeldObs(*map(t, _HELD)))

@@ -361,6 +361,55 @@ def test_simulate_fleet_kernel_path_matches_plain_path(cuda):
                                    msg=f)
 
 
+@pytest.mark.parametrize("serve,alloc", [("fused", "pallas"),
+                                         ("mega", "core")])
+@pytest.mark.parametrize("telemetry", ["trajectory", "streaming"])
+def test_fleet_service_on_the_card_equals_simulate_fleet(cuda, serve, alloc,
+                                                         telemetry, tmp_path):
+    """The online service steps the kernels once a window and equals the
+    offline run bitwise, across a save and restore inside an outage; the
+    streaming stats keep their int32 counters on the card."""
+    from repro_torch.pytree import leaves_with_paths
+    from repro_torch.storage import FleetService, faults
+    scn = random_fleet(3, n_ost=8, n_jobs=300, profile="mixed",
+                       duration_s=1.0)
+    n_windows = scn.issue_rate.shape[0] // 10
+    plan = faults.outage(n_windows, 8, 3, 7, osts=[1, 5])
+    cfg = FleetConfig(serve_backend=serve, alloc_backend=alloc,
+                      telemetry=telemetry)
+    args = (scn.nodes, scn.volume, scn.capacity_per_tick, scn.max_backlog)
+    offline = simulate_fleet(cfg, scn.nodes, scn.issue_rate, scn.volume,
+                             scn.capacity_per_tick, scn.max_backlog,
+                             fault_plan=plan)
+    rates = torch.as_tensor(scn.issue_rate, device=cuda)
+    svc = FleetService(cfg, *args, checkpoint_dir=str(tmp_path),
+                       fault_plan=plan)
+    k = 5
+    fw_ops.launches = alloc_ops.launches = mega_ops.launches = 0
+    outs = [svc.step(rates[w * 10:(w + 1) * 10]) for w in range(k)]
+    svc.save()
+    svc = FleetService(cfg, *args, checkpoint_dir=str(tmp_path),
+                       fault_plan=plan)
+    assert svc.restore() == k
+    outs += [svc.step(scn.issue_rate[w * 10:(w + 1) * 10])   # numpy in
+             for w in range(k, n_windows)]
+    want = ((0, 0, n_windows) if serve == "mega"
+            else (n_windows, n_windows, 0))
+    assert (fw_ops.launches, alloc_ops.launches, mega_ops.launches) == want
+    if telemetry == "trajectory":
+        for i, f in enumerate(("served", "demand", "alloc", "record")):
+            assert torch.equal(torch.stack([o[i] for o in outs]),
+                               getattr(offline, f)), f
+    else:
+        for (path, a), (_, b) in zip(leaves_with_paths(offline.stats),
+                                     leaves_with_paths(svc.stats)):
+            assert b.device.type == "cuda" and a.dtype == b.dtype, path
+            assert torch.equal(a, b), path
+        assert svc.stats.windows.dtype == torch.int32
+        assert int(svc.stats.windows) == n_windows
+    assert torch.equal(svc.queue, offline.queue_final)
+
+
 # ------------------------------------------------------------ LM kernels
 
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402

@@ -1,5 +1,6 @@
 """The port's ``simulate`` regenerates the committed paper timelines
-(``experiments/paper/*.csv``) from the reference's numpy scenario builders,
+(``experiments/paper/*.csv``) from the port's scenario registry (its arrays
+equal the reference's bitwise, ``tests/test_torch_workloads.py``),
 at the reference's own tolerance (rtol = atol = 1e-5,
 ``tests/test_paper_parity.py``), column by column.
 
@@ -16,8 +17,7 @@ import pytest
 import torch
 from test_paper_parity import CONTROLS, FIGURES, PAPER
 
-from repro.storage import get_scenario
-from repro_torch.storage import SimConfig, simulate
+from repro_torch.storage import SimConfig, get_scenario, simulate
 
 torch.set_num_threads(1)
 

@@ -1,7 +1,7 @@
 """The port keeps the reference's public names: every name in the
 ``__all__`` of a ported reference module exists in the port's counterpart,
-and every public top-level function of a ported reference module without
-an ``__all__`` does too.  Names the port does not have yet are listed
+and every public top-level function and class of a ported reference module
+without an ``__all__`` does too.  Names the port does not have yet are listed
 below with the ROADMAP item that ports each; a listed name that appears in
 the port fails the test, so the list shrinks as items land."""
 import importlib
@@ -18,22 +18,10 @@ from repro_torch.core import no_bw_allocate
 # reference name -> the ROADMAP.md queue A item that ports it
 NOT_YET = {
     "storage": {
-        "StreamResult": "2, streaming telemetry",
-        "StreamStats": "2, streaming telemetry",
-        "FleetService": "3, service and checkpoint",
-        "IngestResult": "3, service and checkpoint",
         "simulate_tenants": "4, tenants",
-        "utilization": "6, host-side consumers (metrics)",
-        "active_between": "6, the scenario registry",
-        "continuous": "6, the scenario registry",
-        "periodic_bursts": "6, the scenario registry",
-        "get_scenario": "6, the scenario registry",
-        "list_scenarios": "6, the scenario registry",
-        "list_fleet_scenarios": "6, the scenario registry",
-        "register_scenario": "6, the scenario registry",
-        "scenario_allocation": "6, the scenario registry",
-        "scenario_redistribution": "6, the scenario registry",
-        "scenario_recompensation": "6, the scenario registry",
+    },
+    "storage.telemetry": {
+        "stats_pspecs": "5, sharding",
     },
     "models": {
         "loss_fn": "9.1, training",
@@ -43,20 +31,24 @@ NOT_YET = {
         "cache_specs": "9.4, specs and shape helpers",
     },
     "launch.steps": {
+        "TrainState": "9.1, training",
         "init_train_state": "9.1, training",
         "make_train_step": "9.1, training",
     },
 }
 
 WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
-            "kernels.window_mega"]
+            "kernels.window_mega", "checkpoint"]
 WITHOUT_ALL = ["launch.steps", "kernels.adaptbf_alloc.ops",
-               "kernels.attention.ops", "kernels.ssd.ops"]
+               "kernels.attention.ops", "kernels.ssd.ops",
+               "storage.telemetry", "storage.metrics", "storage.service",
+               "storage.workloads", "checkpoint.manager"]
 
 
-def _public_functions(module):
+def _public_definitions(module):
     return [name for name, v in vars(module).items()
-            if not name.startswith("_") and inspect.isfunction(v)
+            if not name.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
             and v.__module__ == module.__name__]
 
 
@@ -67,7 +59,7 @@ def test_port_module_has_the_reference_public_names(name):
     names = getattr(ref, "__all__", None)
     assert (names is not None) == (name in WITH_ALL), name
     if names is None:
-        names = _public_functions(ref)
+        names = _public_definitions(ref)
     assert names, name
     later = NOT_YET.get(name, {})
     missing = sorted(n for n in names if not hasattr(port, n))

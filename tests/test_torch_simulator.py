@@ -276,7 +276,7 @@ def test_device_none_needs_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,code,err,match", [
-    (dict(telemetry="streaming"), None, NotImplementedError, "ROADMAP"),
+    (dict(telemetry="psychic"), None, ValueError, "telemetry"),
     (dict(partition="ost_shard"), None, NotImplementedError, "ROADMAP"),
     (dict(control="coded"), None, ValueError, "requires control_code"),
     (dict(), 0, ValueError, 'requires cfg.control == "coded"'),
@@ -284,8 +284,9 @@ def test_device_none_needs_a_gpu(monkeypatch):
     (dict(partition="mesh"), None, ValueError, "unknown"),
 ])
 def test_unported_and_unknown_options_raise(kw, code, err, match):
-    """Options not ported name their ROADMAP item; coded dispatch follows
-    the reference's rules (a code exactly when ``control="coded"``)."""
+    """Options not ported name their ROADMAP item, unknown ones raise
+    ``ValueError``; coded dispatch follows the reference's rules (a code
+    exactly when ``control="coded"``)."""
     case = _build_case(1, seed=3)
     with pytest.raises(err, match=match):
         simulate_fleet(FleetConfig(window_ticks=WINDOW_TICKS, **kw), *case,
