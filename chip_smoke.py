@@ -71,7 +71,18 @@ Phases, each of which raises on failure (the run then exits non-zero):
    launcher's workload through ``ServingEngine`` and
    ``AdapTBFController`` (8 requests, 16 new tokens, 4 slots, float32; 9
    flash decode launches a step), the plain path teacher-forced on the
-   kernel run's inputs and compared at every step.
+   kernel run's inputs and compared at every step.  The tenant axis
+   (``simulate_tenants``, ``tenant_phase``): 16 fleets at the fleet's full
+   width sharing its trace, per-fleet codes (the default trio cycled and
+   one out of range), 60 windows of streaming telemetry under
+   fused/pallas and mega/pallas, each fleet bitwise its own
+   ``simulate_fleet`` run, B1 and B2 once a window over all rows or B3
+   once a window a distinct code, the peak device memory below 16 copies
+   of the trace; 4 fleets in trajectory mode with a batched fault plan,
+   bitwise the same way; and many small tenants (O=4, J=8, 20 windows, F
+   of 16, 256 and 1024): F=1024 bitwise the per-fleet loop with its
+   launch counts, windows/s batched and as a per-fleet loop, and the
+   three fleet kernels' time a launch at F*O rows.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
@@ -227,12 +238,16 @@ def cuda_ms(fn, reps: int, groups: int = 5, warmup: int = 2) -> float:
     return statistics.median(per_call)
 
 
-def window_work(o, j, w):
+def window_work(o, j, w, rate_rows=None):
     """(bytes, operations) one window's service must move and do: every
     input read once ([W, O, J] rates, four [O, J] arrays, [O] capacity),
     every output written once (three [O, J]); about 24 float operations per
-    lane per tick (issue 6, phase 1 8, phase 2 6, update 4)."""
-    return 4 * ((w + 7) * o * j + o), 24 * w * o * j
+    lane per tick (issue 6, phase 1 8, phase 2 6, update 4).
+    ``rate_rows``: the rows of distinct rates (default ``o``); a batch of
+    fleets sharing one trace reads its O rows once, through a stride-0
+    fleet axis, however many fleets' rows it serves."""
+    rate_rows = o if rate_rows is None else rate_rows
+    return 4 * (w * rate_rows * j + 7 * o * j + o), 24 * w * o * j
 
 
 def alloc_work(o, j):
@@ -248,16 +263,19 @@ def alloc_work(o, j):
     return 4 * (8 * o * j + o), per_lane * o * j
 
 
-def mega_work(o, j, w):
+def mega_work(o, j, w, rate_rows=None):
     """(bytes, operations) of one megakernel round under AdapTBF without
     faults: the [W, O, J] rates, eight [O, J] inputs (queue, volume,
     allocation, backlog caps, nodes, record, remainder, previous
     allocation) and two [O] capacities read once, seven [O, J] outputs
     (queue, volume, served, demand, allocation, record, remainder) written
-    once; the window service's and the allocation round's operations."""
+    once; the window service's and the allocation round's operations.
+    ``rate_rows`` as in ``window_work``."""
+    rate_rows = o if rate_rows is None else rate_rows
     _, serve_ops = window_work(o, j, w)
     _, alloc_ops = alloc_work(o, j)
-    return 4 * ((w + 15) * o * j + 2 * o), serve_ops + alloc_ops
+    return (4 * (w * rate_rows * j + 15 * o * j + 2 * o),
+            serve_ops + alloc_ops)
 
 
 def bound_ms(n_bytes, n_ops, ops_s=FP32_OPS_S):
@@ -930,6 +948,319 @@ def fleet_online(torch, dev, inputs, scn, run, counted, zero_counts, counts,
     return out
 
 
+# ------------------------------------------------------------ the tenant axis
+
+TENANT_F = 16                     # fleets at the main path's width
+TENANT_TRAJ_F = 4                 # fleets of the trajectory check
+SMALL = dict(o=4, j=8, windows=20, fleets=(16, 256, 1024), loop_cap=256)
+
+
+def tenant_leaves_equal(torch, batched, one, f: int, label: str) -> None:
+    """Every tensor leaf of fleet ``f`` of a batched result equals the
+    per-fleet result's, bitwise and in dtype; raises otherwise."""
+    from repro_torch.pytree import leaves_with_paths
+    got = dict(leaves_with_paths(batched))
+    for path, x in leaves_with_paths(one):
+        if isinstance(x, torch.Tensor):
+            y = got[path][f]
+            if y.dtype != x.dtype or not torch.equal(y, x):
+                raise AssertionError(f"tenants {label}: fleet {f} differs "
+                                     f"from its own simulate_fleet in {path}")
+
+
+def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
+    """(B1, B2, B3 adaptbf) milliseconds a launch over ``n_fleets`` fleets'
+    rows (CUDA events, 20 launches, median of 5): one window's shared
+    [W, O, J] rates read through a stride-0 fleet axis, the fleets' [F, O,
+    J] nodes, seeded queues, volumes, budgets and demand."""
+    from repro_torch.core.policies import PolicyContext, get_policy
+    from repro_torch.core.state import init_fleet_state
+    from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
+    from repro_torch.kernels.fleet_window import ops as fw_ops
+    from repro_torch.kernels.window_mega import ops as mega_ops
+    _, o, j = rates_w.shape
+    r = n_fleets * o
+    g = np.random.default_rng(n_fleets)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    queue, vol = t(g.random((r, j)) * 12), t(g.integers(0, 500, (r, j)))
+    budget = t(np.where(g.random((r, j)) < 0.3, np.inf,
+                        g.integers(0, 30, (r, j))))
+    backlog = torch.full((r, j), 256.0, device=dev)
+    cap_r = cap.repeat(n_fleets)
+    rates_f = rates_w.expand(n_fleets, *rates_w.shape)
+    demand = t(g.integers(0, 300, (r, j)))
+    nodes = nodes.reshape(r, j).contiguous()
+    state = init_fleet_state(r, j, device=dev)
+    ctx = PolicyContext(nodes=nodes, cap_w=cap_r * W)
+    pol = get_policy("adaptbf")
+    return (
+        cuda_ms(lambda: fw_ops.fleet_window_serve(
+            queue, vol, budget, rates_f, backlog, cap_r), reps=20),
+        cuda_ms(lambda: alloc_ops.fleet_alloc(
+            demand, nodes, *state, cap_r * W), reps=20),
+        cuda_ms(lambda: mega_ops.mega_window_round(
+            pol, ctx, cap_r, backlog, queue, vol, budget,
+            (demand, demand, budget), state, rates_f), reps=20))
+
+
+def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
+    """The tenant axis on the card.  (1) 16 fleets at the main path's width
+    (each with its own seeded permutation of the fleet's job nodes and
+    volumes, the 839 MB trace shared), the default coded trio cycled plus
+    one out-of-range code, 60 windows of streaming telemetry under
+    fused/pallas and mega/pallas: bitwise the per-fleet ``simulate_fleet``
+    runs, B1 and B2 once a window over all 4096 rows or B3 once a window a
+    distinct code, the peak device memory below 16 copies of the trace,
+    fleet-windows/s batched and looped (median of 5 each), and B1/B2/B3's
+    time a launch over the 4096 rows.  (2) 4 fleets, trajectory, with a
+    batched fault plan (an outage of every fourth OST in fleet 1 in
+    windows 20-30, lost telemetry on half the OSTs of fleet 2 in windows
+    30-40), both paths: bitwise the loop.
+    (3) Many small tenants (O=4, J=8, 20 windows, shared trace, streaming
+    adaptbf, ``benchmarks/tenant_scaling.py``'s shape): at F=1024, each
+    fleet bitwise its own ``simulate_fleet`` run and B1 and B2 (or B3)
+    once a window; at F of 16, 256 and 1024, aggregate windows/s of the
+    batched run and of the per-fleet loop (capped at 256 fleets,
+    extrapolated above), and B1/B2/B3's time a launch at F*O rows.
+    Returns what phase 4 prints."""
+    from repro_torch.storage import (FaultPlan, FleetConfig, faults,
+                                     random_fleet, simulate_fleet,
+                                     simulate_tenants)
+    out = {}
+    trace_bytes = inputs["rates"].numel() * 4
+    paths = {"fused/pallas": ("fused", "pallas"), "mega/pallas": ("mega",
+                                                                  "pallas")}
+
+    def fleet_inputs(n_fleets):
+        nodes, volume = [], []
+        for f in range(n_fleets):
+            perm = np.random.default_rng(100 + f).permutation(J)
+            nodes.append(np.broadcast_to(scn.nodes[perm], (O, J)))
+            volume.append(scn.volume[:, perm])
+        return (torch.as_tensor(np.stack(nodes), device=dev),
+                torch.as_tensor(np.stack(volume), device=dev))
+
+    def expect(serve, n_codes, n_win=N_WINDOWS):
+        want = ({"window_mega": n_win * n_codes} if serve == "mega" else
+                {"fleet_window": n_win, "adaptbf_alloc": n_win})
+        return {name: want.get(name, 0) for name in names}
+
+    def rate_of(n_fleet_windows, fn, runs=5):
+        """(median, slowest, fastest) fleet-windows/s of ``runs`` calls of
+        ``fn`` (host clock around each, synchronized)."""
+        secs = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return (n_fleet_windows / statistics.median(secs),
+                n_fleet_windows / max(secs), n_fleet_windows / min(secs))
+
+    # (1) 16 fleets at full width, streaming, the trace shared
+    codes = [i % 3 for i in range(TENANT_F - 1)] + [3]
+    nodes, volume = fleet_inputs(TENANT_F)
+    for label, (serve, alloc) in paths.items():
+        cfg = FleetConfig(control="coded", serve_backend=serve,
+                          alloc_backend=alloc, telemetry="streaming")
+        def batched():
+            res = simulate_tenants(cfg, nodes, inputs["rates"], volume,
+                                   inputs["cap"], inputs["backlog"],
+                                   control_code=codes, n_windows=N_WINDOWS,
+                                   device=dev)
+            torch.cuda.synchronize()
+            return res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = batched()
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        if got != expect(serve, len(set(codes))):
+            raise AssertionError(f"tenants {label}: launches {got}")
+        if peak >= TENANT_F * trace_bytes:
+            raise AssertionError(f"tenants {label}: peak {peak} B reaches 16 "
+                                 "copies of the trace")
+        def one(f, code):
+            return simulate_fleet(cfg, nodes[f], inputs["rates"], volume[f],
+                                  inputs["cap"], inputs["backlog"],
+                                  control_code=code, n_windows=N_WINDOWS,
+                                  device=dev)
+
+        for f, code in enumerate(codes):
+            tenant_leaves_equal(torch, res, one(f, code), f, label)
+        del res
+        fw = TENANT_F * N_WINDOWS
+        rate = rate_of(fw, batched)
+        loop = rate_of(fw, lambda: [one(f, c) for f, c in enumerate(codes)])
+        print(f"tenants ({label}, streaming): {TENANT_F} fleets x O={O} x "
+              f"J={J}, codes {codes}, {N_WINDOWS} windows, launches {got}; "
+              f"every fleet bitwise equal to its own simulate_fleet run; "
+              f"peak device memory {peak:,} B (16 copies of the trace: "
+              f"{TENANT_F * trace_bytes:,} B); fleet-windows/s (median of 5 "
+              f"runs, [slowest, fastest]): batched {rate[0]:.2f} "
+              f"[{rate[1]:.2f}, {rate[2]:.2f}], per-fleet loop {loop[0]:.2f} "
+              f"[{loop[1]:.2f}, {loop[2]:.2f}] on {card}")
+        out[f"peak_{label}"] = peak
+        out[f"launches_{label}"] = got
+    # B1/B2/B3 a launch over the 16 wide fleets' 4096 rows (CUDA events)
+    wide = time_fleet_launches(torch, dev, TENANT_F, inputs["rates"][:W],
+                               inputs["cap"], nodes)
+    bounds = [bound_ms(*work)[0] for work in (
+        window_work(TENANT_F * O, J, W, rate_rows=O),
+        alloc_work(TENANT_F * O, J),
+        mega_work(TENANT_F * O, J, W, rate_rows=O))]
+    print(f"tenants: a launch over {TENANT_F} fleets' {TENANT_F * O} rows of "
+          f"J={J} (the shared trace's rates counted once in the bounds): "
+          f"fleet_window {wide[0]:.4f} ms (bound {bounds[0]:.4f}), "
+          f"adaptbf_alloc {wide[1]:.4f} ms (bound {bounds[1]:.4f}), "
+          f"window_mega (adaptbf) {wide[2]:.4f} ms (bound {bounds[2]:.4f}) "
+          f"(CUDA events, 20 launches, median of 5) on {card}")
+    out["wide_ms"] = wide
+    del nodes, volume
+
+    # (2) 4 fleets, trajectory, a batched fault plan
+    codes = [0, 0, 0, 2]
+    nodes, volume = fleet_inputs(TENANT_TRAJ_F)
+    plans = [faults.no_faults(N_WINDOWS, O) for _ in codes]
+    plans[1] = faults.outage(N_WINDOWS, O, 20, 30, osts=range(0, O, 4))
+    plans[2].telem_ok[30:40, : O // 2] = 0.0
+    plan = FaultPlan(*(np.stack(x) for x in zip(*plans)))
+    for label, (serve, alloc) in paths.items():
+        cfg = FleetConfig(control="coded", serve_backend=serve,
+                          alloc_backend=alloc)
+        zero_counts()
+        res = simulate_tenants(cfg, nodes, inputs["rates"], volume,
+                               inputs["cap"], inputs["backlog"],
+                               control_code=codes, n_windows=N_WINDOWS,
+                               fault_plan=plan, device=dev)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != expect(serve, len(set(codes))):
+            raise AssertionError(f"tenants {label}, trajectory: launches "
+                                 f"{got}")
+        for f, code in enumerate(codes):
+            one = simulate_fleet(cfg, nodes[f], inputs["rates"], volume[f],
+                                 inputs["cap"], inputs["backlog"],
+                                 control_code=code, n_windows=N_WINDOWS,
+                                 fault_plan=plans[f], device=dev)
+            tenant_leaves_equal(torch, res, one, f, f"{label}, trajectory")
+            del one
+        print(f"tenants ({label}, trajectory, faults): {TENANT_TRAJ_F} "
+              f"fleets, codes {codes}, outage in fleet 1, lost telemetry in "
+              f"fleet 2, launches {got}; every fleet bitwise equal to its own "
+              f"simulate_fleet run ({res.served.numel() * 16 / 1e9:.1f} GB "
+              "of trajectories)")
+        del res
+    del nodes, volume
+    torch.cuda.empty_cache()
+
+    # (3) many small tenants
+    o, j, n_win = SMALL["o"], SMALL["j"], SMALL["windows"]
+    base = random_fleet(0, n_ost=o, n_jobs=j, duration_s=n_win * W * 0.01)
+    rates = torch.as_tensor(base.issue_rate, device=dev)
+    cap = torch.as_tensor(base.capacity_per_tick, device=dev)
+    rng = np.random.default_rng(7)
+    n_max = max(SMALL["fleets"])
+    nodes_all = torch.as_tensor(
+        rng.integers(1, 32, (n_max, o, j)).astype(np.float32), device=dev)
+    volume_all = torch.as_tensor(np.where(
+        rng.random((n_max, o, j)) < 0.2, 500.0, np.inf).astype(np.float32),
+        device=dev)
+    small = {}
+    for label, (serve, alloc) in paths.items():
+        cfg = FleetConfig(serve_backend=serve, alloc_backend=alloc,
+                          telemetry="streaming")
+        # the largest batch (F*O rows of J=8) against the per-fleet loop
+        n_f = n_max
+        zero_counts()
+        res = simulate_tenants(cfg, nodes_all, rates, volume_all, cap,
+                               device=dev)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != expect(serve, 1, n_win):
+            raise AssertionError(f"small tenants {label}: launches {got}")
+        for f in range(n_f):
+            tenant_leaves_equal(torch, res, simulate_fleet(
+                cfg, nodes_all[f], rates, volume_all[f], cap, device=dev),
+                f, f"small {label}")
+        del res
+        print(f"small tenants ({label}, streaming adaptbf, O={o} J={j}, "
+              f"{n_win} windows) F={n_f}: launches {got}; every fleet "
+              "bitwise equal to its own simulate_fleet run")
+        for n_f in SMALL["fleets"]:
+            nodes, volume = nodes_all[:n_f], volume_all[:n_f]
+
+            def batched():
+                simulate_tenants(cfg, nodes, rates, volume, cap, device=dev)
+                torch.cuda.synchronize()
+
+            def loop(k):
+                for f in range(k):
+                    simulate_fleet(cfg, nodes[f], rates, volume[f], cap,
+                                   device=dev)
+                torch.cuda.synchronize()
+
+            batched()
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                batched()
+                secs.append(time.perf_counter() - t0)
+            entry = {"batched": n_f * n_win / statistics.median(secs)}
+            if label == "fused/pallas":
+                k = min(n_f, SMALL["loop_cap"])
+                loop(1)
+                t0 = time.perf_counter()
+                loop(k)
+                entry["loop"] = k * n_win / (time.perf_counter() - t0)
+                entry["extrapolated"] = k < n_f
+            small[(label, n_f)] = entry
+    # B1/B2/B3's time a launch at F*O rows of J=8 (CUDA events)
+    launch_ms = {n_f: time_fleet_launches(torch, dev, n_f, rates[:W], cap,
+                                          nodes_all[:n_f])
+                 for n_f in SMALL["fleets"]}
+    for (label, n_f), e in small.items():
+        loop_txt = ""
+        if "loop" in e:
+            loop_txt = (f", per-fleet loop {e['loop']:.1f}"
+                        + (f" (measured on {SMALL['loop_cap']} fleets, "
+                           "extrapolated)" if e["extrapolated"] else ""))
+        print(f"small tenants ({label}, streaming adaptbf, O={o} J={j}, "
+              f"{n_win} windows) F={n_f}: batched {e['batched']:.1f} "
+              f"windows/s{loop_txt} on {card}")
+    for n_f, (b1, b2, b3) in launch_ms.items():
+        r = n_f * o
+        bounds = [bound_ms(*work)[0] for work in (
+            window_work(r, j, W, rate_rows=o), alloc_work(r, j),
+            mega_work(r, j, W, rate_rows=o))]
+        print(f"small tenants: a launch at F*O={r} rows of J={j}: "
+              f"fleet_window {b1:.4f} ms (bound {bounds[0]:.5f}), "
+              f"adaptbf_alloc {b2:.4f} ms (bound {bounds[1]:.5f}), "
+              f"window_mega (adaptbf) {b3:.4f} ms (bound {bounds[2]:.5f}) "
+              f"(CUDA events, 20 launches, median of 5) on {card}; a "
+              f"512-thread block holds J={j} jobs: {512 - j} of 512 threads "
+              "idle")
+    out["small"], out["launch_ms"] = small, launch_ms
+    return out
+
+
+def tenant_entry(tenants, name: str, k: int) -> dict:
+    """A fleet kernel's tenant numbers for the kernels line: its launches
+    in the 16-fleet streaming runs and its time a launch by rows x jobs (the
+    wide fleets' 4096 x 4096 and the small tenants' F*O x 8)."""
+    ms = {f"{TENANT_F * O}x{J}": tenants["wide_ms"][k]}
+    ms.update({f"{n_f * SMALL['o']}x{SMALL['j']}": t[k]
+               for n_f, t in tenants["launch_ms"].items()})
+    return {"tenant_launches": sum(tenants[f"launches_{p}"][name]
+                                   for p in ("fused/pallas", "mega/pallas")),
+            "tenant_ms_by_rows_x_jobs": ms}
+
+
 # ------------------------------------------------------- the LM serving path
 
 
@@ -1425,7 +1756,7 @@ def main() -> int:
     for name, marker in (
             ("fleet_window", "fleet_window_kernelILi8EE"),
             ("adaptbf_alloc", "adaptbf_alloc_kernelILi8EE"),
-            ("window_mega", "window_mega_kernelILi8ELi0EE")):
+            ("window_mega", "window_mega_kernelILi8ELi0ELb0EE")):
         regs, stores, loads, smem = ptxas_of(
             libs[name].with_suffix(".log"), marker)
         blocks, dyn = _build.occupancy(name, J)
@@ -1566,7 +1897,12 @@ def main() -> int:
     del kernel_res, coded_res, mega_res
     torch.cuda.empty_cache()
 
-    # 3c. the LM serving path: zamba2-2.7b prefill and engine ------------
+    # 3c. the tenant axis: many fleets in one run -------------------------
+    tenants = tenant_phase(torch, dev, inputs, scn, counts, zero_counts,
+                           names, card)
+    torch.cuda.empty_cache()
+
+    # 3d. the LM serving path: zamba2-2.7b prefill and engine ------------
     lm = lm_main_path(torch, dev, counts, zero_counts)
     torch.cuda.empty_cache()
 
@@ -1704,21 +2040,24 @@ def main() -> int:
          "launches": launches["fleet_window"], "max_abs_err": fw_err,
          "ms": fw_ms, "plain_ms": fw_plain, "bound_ms": fw_b,
          "bound_by": fw_by, "library_ms": None,
-         "blocks_per_sm": occupancy["fleet_window"]},
+         "blocks_per_sm": occupancy["fleet_window"],
+         **tenant_entry(tenants, "fleet_window", 0)},
         {"name": "adaptbf_alloc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/adaptbf_alloc.cu",
          "replaces": "src/repro/kernels/adaptbf_alloc/kernel.py:135",
          "launches": launches["adaptbf_alloc"], "max_abs_err": al_err,
          "ms": al_ms, "plain_ms": al_plain, "bound_ms": al_b,
          "bound_by": al_by, "library_ms": None,
-         "blocks_per_sm": occupancy["adaptbf_alloc"]},
+         "blocks_per_sm": occupancy["adaptbf_alloc"],
+         **tenant_entry(tenants, "adaptbf_alloc", 1)},
         {"name": "window_mega", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_mega.cu",
          "replaces": "src/repro/kernels/window_mega/kernel.py:168",
          "launches": mega_launches["window_mega"], "max_abs_err": mega_err,
          "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
          "bound_by": mega_by, "library_ms": None,
-         "blocks_per_sm": occupancy["window_mega"]},
+         "blocks_per_sm": occupancy["window_mega"],
+         **tenant_entry(tenants, "window_mega", 2)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:79",

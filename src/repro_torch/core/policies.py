@@ -39,8 +39,10 @@ index), so one configuration runs any member of a policy subset.
 
 Each built-in declares a ``device_id``: the case of the window megakernel
 (``kernels/csrc/window_mega.cu``) that runs its gate and step on the card.
-A policy without one of its own (a custom policy, or a subclass of a
-built-in) runs the megakernel's plain version on the CPU only.
+A custom policy, or a subclass of a built-in that defines anything but
+its name and the constants the kernel takes (AIMD's), has no case: it
+runs the megakernel's plain version on the CPU only
+(``kernels/window_mega/ops.py::megakernel_case``).
 """
 from __future__ import annotations
 
@@ -66,7 +68,9 @@ class PolicyContext(NamedTuple):
     alloc_backend:  "core" (plain PyTorch) | "pallas" (the allocation
                     kernel, ``kernels/adaptbf_alloc``) for adaptbf rounds.
     control_code:   selects the member of a ``CodedPolicy`` (a host int or a
-                    0-d integer tensor); None under direct dispatch.
+                    0-d integer tensor; a batch of fleets passes an
+                    ``[O, 1]`` int32 column, one code a row); None under
+                    direct dispatch.
     """
 
     nodes: torch.Tensor
@@ -100,7 +104,8 @@ class ControlPolicy:
 
     name: str = "?"
     #: the megakernel's case for this policy (``csrc/window_mega.cu``);
-    #: only a class that declares its own id runs there
+    #: a class that declares its own id runs there, and so does a subclass
+    #: that defines nothing but its name and the kernel's inputs
     device_id: Optional[int] = None
 
     def init_state(self, ctx: PolicyContext) -> Any:
@@ -338,8 +343,13 @@ class AIMDPolicy(ControlPolicy):
 
 def _where(cond, a, b):
     """``torch.where`` for a tensor condition; a plain pick for a host bool
-    (a host control code), which selects the same values."""
+    (a host control code), which selects the same values.  A per-row
+    ``[O, 1]`` condition is shaped to ``a``'s rank first, so it selects
+    whole rows of an ``[O]`` or ``[O, ...]`` leaf too (an ``[O]`` leaf
+    against ``[O, 1]`` would otherwise broadcast to ``[O, O]``)."""
     if isinstance(cond, torch.Tensor):
+        if cond.ndim == 2 and a.ndim != 2:
+            cond = cond.reshape(cond.shape[0], *(1,) * (a.ndim - 1))
         return torch.where(cond, a, b)
     return a if cond else b
 

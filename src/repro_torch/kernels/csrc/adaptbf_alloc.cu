@@ -34,6 +34,10 @@
 // ptxas's registers and spills: PERF.md.  Rows wider than 4096 run one
 // block an SM.
 //
+// A batch of F independent fleets (storage/tenants.py) is F * O rows of one
+// launch: the round reads no rates and nothing of a row's place, so a row
+// gives the same bits launched alone or in a batch.
+//
 // Numerics: see alloc_round.cuh.  The integer path is bitwise with the
 // reference; float row sums accumulate in double and round once, as the
 // plain version's do, in other orders, so the two agree to a float32 ulp

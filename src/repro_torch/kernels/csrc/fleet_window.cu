@@ -26,6 +26,13 @@
 // tick is bound by its instruction stream on the SM, not by residency or
 // bytes in flight (PERF.md).
 //
+// A batch of F independent fleets (storage/tenants.py) is F * O rows in one
+// launch: block r serves row o = r % O of fleet f = r / O, whose rates start
+// f * fleet_rows * J floats into the rate block (fleet_rows = 0 when every
+// fleet reads one shared trace, T * O for a [F, T, O, J] trace) with ticks
+// O * J apart.  Nothing else in a row's arithmetic depends on its place, so
+// a row gives the same bits launched alone or in a batch.
+//
 // Numerics: see serve.cuh.  Row sums accumulate in double and round once,
 // as the plain version's do; in other orders, so the two agree to a float32
 // ulp (in practice bitwise); against the reference's float32 sums, values
@@ -47,12 +54,17 @@ fleet_window_kernel(const float* __restrict__ queue_in,
                     float* __restrict__ queue_out,
                     float* __restrict__ vol_out,
                     float* __restrict__ served_out,
-                    int n_ost, int n_jobs, int n_ticks) {
+                    int n_jobs, int n_ticks, int rows_per_fleet,
+                    int fleet_rows) {
   __shared__ Scratch scratch;
   Red red{&scratch, 0};
   const int o = blockIdx.x;
+  const int fleet = o / rows_per_fleet;
   const size_t row = static_cast<size_t>(o) * n_jobs;
   const float cap = cap_tick[o];
+  const float* rate_row =
+      rates + (static_cast<size_t>(fleet) * fleet_rows + o -
+               fleet * rows_per_fleet) * n_jobs;
 
   float q[LPT], v[LPT], b[LPT], bl[LPT], acc[LPT];
 #pragma unroll
@@ -66,9 +78,9 @@ fleet_window_kernel(const float* __restrict__ queue_in,
     acc[i] = 0.0f;
   }
 
-  serve_window<LPT>(q, v, b, bl, acc, rates + row,
-                    static_cast<size_t>(n_ost) * n_jobs, n_ticks, cap, n_jobs,
-                    red);
+  serve_window<LPT>(q, v, b, bl, acc, rate_row,
+                    static_cast<size_t>(rows_per_fleet) * n_jobs, n_ticks, cap,
+                    n_jobs, red);
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
@@ -83,22 +95,27 @@ fleet_window_kernel(const float* __restrict__ queue_in,
 
 }  // namespace
 
-// queue/vol/budget/backlog: [O, J]; rates: [W, O, J]; cap_tick: [O];
-// outputs [O, J].  Launches on `stream`, does not synchronise, allocates
-// nothing; returns the launch's cudaError_t.
+// queue/vol/budget/backlog: [R, J] with R = F * O rows (F fleets of
+// rows_per_fleet = O rows); rates: [F, W, O, J] with fleet f's block
+// f * fleet_rows * J floats from the base; cap_tick: [R]; outputs [R, J].
+// Launches on `stream`, does not synchronise, allocates nothing; returns
+// the launch's cudaError_t.
 extern "C" int fleet_window(const float* queue, const float* vol,
                             const float* budget, const float* backlog,
                             const float* rates, const float* cap_tick,
                             float* queue_out, float* vol_out,
-                            float* served_out, int n_ost, int n_jobs,
-                            int n_ticks, void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_J || n_ost < 1 || n_ticks < 0)
+                            float* served_out, int n_rows, int n_jobs,
+                            int n_ticks, int rows_per_fleet, int fleet_rows,
+                            void* stream) {
+  if (n_jobs < 1 || n_jobs > MAX_J || n_rows < 1 || n_ticks < 0 ||
+      rows_per_fleet < 1 || n_rows % rows_per_fleet || fleet_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
       launch_rows<fleet_window_kernel<LPT>, 0>(
-          n_ost, s, queue, vol, budget, backlog, rates, cap_tick, queue_out,
-          vol_out, served_out, n_ost, n_jobs, n_ticks)));
+          n_rows, s, queue, vol, budget, backlog, rates, cap_tick, queue_out,
+          vol_out, served_out, n_jobs, n_ticks, rows_per_fleet,
+          fleet_rows)));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

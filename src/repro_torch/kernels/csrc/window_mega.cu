@@ -37,6 +37,26 @@
 // round fills only after the ticks): fewer spills than with either in
 // registers, and faster (ptxas and the measured times: PERF.md).
 //
+// A batch of F independent fleets (storage/tenants.py): F * O rows, the
+// rates of row o = f * O + r at (f * rate_fleet_rows + r) * J floats (0 rows
+// a fleet for one shared trace), ticks O * J apart, as in fleet_window.cu.
+// Per-fleet control codes: the host launches once for each distinct code
+// present, each launch's grid over that code's rows only (`rows`, the row
+// of each block; null: block b is row b), with its member's template case,
+// so no kernel branches on the policy.  A batch of fleets is a template
+// case of its own (FLEETS): with one fleet and no row list the kernel is
+// the single-fleet code it was, its rates at `rates + row`, because the
+// fleet's rate offset (a division and a 64-bit pointer held through the
+// ticks) raised the adaptbf case's spill stores from 104 to 148 bytes at
+// the 64-register cap and its time by ~3% (PERF.md).
+// Those launches write disjoint rows of the fresh outputs.  The member
+// state of the rows a launch does not select must come out unchanged, so
+// the wrapper (window_mega/ops.py) copies the member's input state into
+// its state outputs before the member's launch, which then overwrites its
+// own rows only; an out-of-range code runs the last member's case with its
+// state outputs sent to a scratch buffer (no state advances, as the coded
+// where-chain does).
+//
 // Numerics: as serve.cuh and alloc_round.cuh.  The policy constants (AIMD's
 // ai_frac, md, sat, floor) come from the Python class as float arguments;
 // each expression keeps the plain version's order, e.g. (ai_frac * cap) * p
@@ -75,7 +95,7 @@ struct MegaParams {
   float* alloc_out;
   float* state0_out;          // adaptbf: record; aimd: rate
   float* state1_out;          // adaptbf: remainder
-  int n_ost;
+  int n_ost;                  // rows in all: F * O for F fleets
   int n_jobs;
   int n_ticks;
   int policy;
@@ -86,6 +106,10 @@ struct MegaParams {
   float md;
   float sat;
   float floor;
+  const int* rows;            // [n_rows] the row of each block, or null
+  int n_rows;                 // blocks launched (n_ost when rows is null)
+  int rows_per_fleet;         // O: rows of one fleet (n_ost for one fleet)
+  int rate_fleet_rows;        // rates' fleet stride in rows of J (0: shared)
 };
 
 }  // namespace repro
@@ -124,13 +148,14 @@ __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
   return block_sum(part, s);
 }
 
-template <int LPT, int POLICY>
+template <int LPT, int POLICY, bool FLEETS>
 __global__ void __launch_bounds__(THREADS, 2)
 window_mega_kernel(const MegaParams p) {
   __shared__ Scratch scratch;
   Red s{&scratch, 0};
   if constexpr (POLICY == POLICY_ADAPTBF) search_init(scratch);
-  const int o = blockIdx.x;
+  const int o = FLEETS && p.rows != nullptr ? p.rows[blockIdx.x]
+                                            : static_cast<int>(blockIdx.x);
   const int n_jobs = p.n_jobs;
   const size_t row = static_cast<size_t>(o) * n_jobs;
   const float cap_w = p.cap_w[o];
@@ -156,9 +181,20 @@ window_mega_kernel(const MegaParams p) {
     b[i] = OPEN_ZERO ? (a > 0.0f ? a : inf_f()) : a;
     acc[i] = 0.0f;
   }
-  serve_window<LPT>(q, v, b, bl, acc, p.rates + row,
-                    static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
-                    p.cap_tick[o], n_jobs, s);
+  if constexpr (FLEETS) {
+    // row r of fleet f: rates at (f * rate_fleet_rows + r) * J, ticks
+    // O * J apart
+    const int fleet = o / p.rows_per_fleet;
+    serve_window<LPT>(q, v, b, bl, acc,
+                      p.rates + (static_cast<size_t>(fleet) * p.rate_fleet_rows
+                                 + o - fleet * p.rows_per_fleet) * n_jobs,
+                      static_cast<size_t>(p.rows_per_fleet) * n_jobs,
+                      p.n_ticks, p.cap_tick[o], n_jobs, s);
+  } else {
+    serve_window<LPT>(q, v, b, bl, acc, p.rates + row,
+                      static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
+                      p.cap_tick[o], n_jobs, s);
+  }
 
   // observe: demand = served + standing queue; a lost-telemetry row hands
   // the step the last delivered observation instead
@@ -291,19 +327,28 @@ constexpr int smem_bytes() {
 
 template <int POLICY>
 cudaError_t launch(const MegaParams& p, cudaStream_t s) {
-  REPRO_DISPATCH_LPT(p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY>,
-                                                  smem_bytes<LPT, POLICY>()>(
-                                   p.n_ost, s, p));
+  if (p.rows != nullptr || p.rows_per_fleet != p.n_ost) {
+    REPRO_DISPATCH_LPT(
+        p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, true>,
+                                     smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
+  } else {
+    REPRO_DISPATCH_LPT(
+        p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, false>,
+                                     smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One control round for every OST row.  Launches on `stream`, does not
-// synchronise, allocates nothing; returns the launch's cudaError_t.
+// One control round for every OST row (or the rows listed in p.rows).
+// Launches on `stream`, does not synchronise, allocates nothing; returns
+// the launch's cudaError_t.
 extern "C" int window_mega(const MegaParams* params, void* stream) {
   const MegaParams& p = *params;
-  if (p.n_jobs < 1 || p.n_jobs > MAX_J || p.n_ost < 1 || p.n_ticks < 0)
+  if (p.n_jobs < 1 || p.n_jobs > MAX_J || p.n_ost < 1 || p.n_ticks < 0 ||
+      p.n_rows < 1 || p.rows_per_fleet < 1 || p.n_ost % p.rows_per_fleet ||
+      p.rate_fleet_rows < 0 || (p.rows == nullptr && p.n_rows != p.n_ost))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p.policy) {
@@ -322,7 +367,7 @@ extern "C" int window_mega_occupancy(int n_jobs, int* smem) {
   if (n_jobs < 1 || n_jobs > MAX_J) return -1;
   REPRO_DISPATCH_LPT(
       n_jobs, *smem = smem_bytes<LPT, POLICY_ADAPTBF>();
-      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF>,
+      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF, false>,
                            smem_bytes<LPT, POLICY_ADAPTBF>()>());
   return -1;
 }

@@ -71,3 +71,35 @@ def check_16b(rule: str, **tensors) -> None:
                 f"multiples of 16 bytes; got base offset "
                 f"{x.data_ptr() % 16} and strides (bytes) "
                 f"{[s * size for s in x.stride()]}")
+
+
+def check_rates(rates: torch.Tensor, n_rows: int, n_jobs: int):
+    """Raise unless ``rates`` is what the fleet kernels read: float32
+    ``[W, O, J]`` of one fleet of ``n_rows`` rows, or ``[F, W, O, J]`` of
+    ``F`` fleets of ``O`` rows each (``F * O == n_rows``), each fleet's
+    ``[W, O, J]`` contiguous and the fleet axis of any stride that is a
+    multiple of J (0: one trace shared by every fleet, as ``expand``
+    gives it).  Returns (W, O, the fleet stride in rows of J).  Reads
+    shapes and strides only (no views: this runs once a launch)."""
+    if rates.dtype != torch.float32:
+        raise TypeError(f"rates must be float32, got {rates.dtype}")
+    shape, strides = tuple(rates.shape), rates.stride()
+    if len(shape) not in (3, 4):
+        raise ValueError("rates must be [W, O, J] or [F, W, O, J], got "
+                         f"shape {shape}")
+    n_fleets = shape[0] if len(shape) == 4 else 1
+    n_ticks, rows_per_fleet, j = shape[-3:]
+    if j != n_jobs or n_fleets * rows_per_fleet != n_rows:
+        raise ValueError(f"rates of shape {shape} do not cover {n_rows} rows "
+                         f"of {n_jobs} jobs")
+    want = 1              # each fleet's [W, O, J] contiguous (or empty)
+    for size, stride in zip(shape[:-4:-1], strides[:-4:-1]):
+        if size != 1 and stride != want and 0 not in shape:
+            raise ValueError("rates must be contiguous within a fleet; got "
+                             f"strides {strides}")
+        want *= size
+    stride = strides[0] if n_fleets > 1 else 0
+    if stride < 0 or stride % n_jobs or stride // n_jobs >= 2**31:
+        raise ValueError("the fleet axis of rates must have a stride that is "
+                         f"a non-negative multiple of J; got strides {strides}")
+    return n_ticks, rows_per_fleet, stride // n_jobs

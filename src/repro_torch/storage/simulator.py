@@ -41,6 +41,14 @@ periodic trace far past its own length.
 ``cfg.coded_policies``, the member picked by ``control_code``
 (``FLEET_CONTROL_CODES`` for the default subset).
 
+The same loop runs a batch of F independent fleets (``storage/tenants.py``)
+when given a ``FleetAxis``: every ``[O, J]`` array is then held as
+``[F*O, J]`` rows and every ``[O]`` array as ``[F*O]``, which is exact
+because no engine or policy op mixes rows.  The rate trace keeps its own
+layout (one ``[T, O, J]`` trace shared by every fleet, or ``[F, T, O, J]``)
+and reaches the kernels as ``[F, W, O, J]`` windows whose fleet axis is a
+stride (0 when shared), so a shared trace is never copied F times.
+
 Entry points run on the card: ``device=None`` means CUDA and raises when no
 GPU is present; pass ``device="cpu"`` to run the plain versions on the CPU.
 """
@@ -78,6 +86,19 @@ FLEET_CONTROL_CODES = control_codes(DEFAULT_CODED_POLICIES)
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md, {item})")
+
+
+class FleetAxis(NamedTuple):
+    """F independent fleets of O rows each, held as ``[F*O, ...]`` rows.
+
+    ``code_rows``: under per-fleet control codes, one entry per distinct
+    code, ``(code, rows)`` with ``rows`` the int32 ``[n]`` row indices of
+    the fleets running that code, built once a run on the run's device
+    (the megakernel launches once a window for each); empty otherwise."""
+
+    n_fleets: int
+    rows_per_fleet: int
+    code_rows: tuple = ()
 
 
 class SimConfig(NamedTuple):
@@ -245,9 +266,11 @@ def _check_config(cfg: FleetConfig) -> None:
 
 
 def init_carry(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
-               volume: torch.Tensor) -> WindowCarry:
+               volume: torch.Tensor, n_fleets: Optional[int] = None
+               ) -> WindowCarry:
     """Window-0 carry: empty queues, full volumes, the policy's cold-start
-    state and allocation, and zeroed streaming stats when enabled."""
+    state and allocation, and zeroed streaming stats when enabled (with
+    ``n_fleets``, ``[n_fleets]`` window counters over ``[F*O]`` rows)."""
     _check_config(cfg)
 
     def zoj():
@@ -257,7 +280,8 @@ def init_carry(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
     return WindowCarry(
         window=0, queue=zoj(), vol_left=volume,
         policy_state=policy.init_state(ctx), alloc=policy.init_alloc(ctx),
-        stats=(telemetry.init_stats(n_ost, n_jobs, ctx.nodes.device)
+        stats=(telemetry.init_stats(n_ost, n_jobs, ctx.nodes.device,
+                                    n_fleets=n_fleets)
                if cfg.telemetry == "streaming" else ()),
         held=HeldObs(served=zoj(), demand=zoj(),
                      alloc=policy.init_alloc(ctx)))
@@ -278,7 +302,8 @@ def _serve_window(cfg: FleetConfig, queue, vol_left, budget0, rates_w,
 
 def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
                 cap_tick, backlog_cap, carry: WindowCarry, rates_w,
-                faults_w: Optional[FaultPlan] = None):
+                faults_w: Optional[FaultPlan] = None,
+                fleets: Optional[FleetAxis] = None):
     """One observation window: gate, serve every tick, observe, re-allocate.
 
     Args:
@@ -293,6 +318,10 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
         service rate; on a lost-telemetry window (``telem_ok == 0``) the
         policy's ``step`` sees the last delivered observation
         (``carry.held``) while the engine serves normally.
+      fleets: optional ``FleetAxis``: every ``[O]``/``[O, J]`` array above
+        (fault row included) is then ``[F*O]``/``[F*O, J]`` rows and
+        ``rates_w`` is ``[F, window_ticks, O, J]``, its fleet axis of any
+        stride.
 
     Streaming telemetry folds the window into ``carry.stats`` against the
     window's effective capacity and fault row.
@@ -305,7 +334,9 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
     else:
         # with an all-ones row every op below is an IEEE identity
         cap_tick_w = cap_tick * faults_w.up * faults_w.cap_scale
-        rates_w = rates_w * faults_w.up[None, :, None]
+        # up as [W=1, O, J=1] rows, [F, 1, O, 1] with fleets
+        rates_w = rates_w * faults_w.up.view(
+            *rates_w.shape[:-3], 1, rates_w.shape[-2], 1)
         ctx_w = ctx._replace(cap_w=cap_tick_w * cfg.window_ticks)
         up_col = faults_w.up[:, None]
     if cfg.serve_backend == "mega":
@@ -318,7 +349,8 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
             carry.vol_left, carry.alloc, carry.held, carry.policy_state,
             rates_w,
             telem_ok=None if faults_w is None else faults_w.telem_ok,
-            up=None if faults_w is None else faults_w.up)
+            up=None if faults_w is None else faults_w.up,
+            code_rows=None if fleets is None else fleets.code_rows)
     else:
         budget0 = policy.gate(carry.alloc, ctx_w)
         queue, vol_left, served_w = _serve_window(
@@ -338,9 +370,10 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
             WindowObs(served=obs_served, demand=obs_demand, alloc=obs_alloc,
                       up=up_col), ctx_w)
     if cfg.telemetry == "streaming":
-        stats = telemetry.update_stats(carry.stats, served_w, demand,
-                                       carry.alloc, ctx_w.cap_w,
-                                       faults_w=faults_w)
+        stats = telemetry.update_stats(
+            carry.stats, served_w, demand, carry.alloc, ctx_w.cap_w,
+            faults_w=faults_w,
+            n_fleets=None if fleets is None else fleets.n_fleets)
         out = None
     else:
         stats = carry.stats
@@ -354,10 +387,11 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
 
 
 def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
-                 volume, cap_tick, backlog_cap, control_code: Optional[int],
+                 volume, cap_tick, backlog_cap, control_code,
                  n_windows: Optional[int],
-                 fault_plan: Optional[FaultPlan] = None):
-    """The single window loop behind both entry points.
+                 fault_plan: Optional[FaultPlan] = None,
+                 fleets: Optional[FleetAxis] = None):
+    """The single window loop behind every entry point.
 
     nodes/volume/backlog_cap: [O, J]; rates: [T, O, J]; cap_tick: [O], all
     float32 on one device; ``control_code`` a host int or None.
@@ -366,12 +400,18 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
     covers.  ``fault_plan`` ([n_windows, O] leaves) covers the *run* horizon,
     one row per executed window, and is never tiled.
 
+    With ``fleets`` (F fleets of O rows): nodes/volume/backlog_cap are
+    [F*O, J], cap_tick and the fault plan's rows [F*O], rates [T, O, J]
+    shared by every fleet or [F, T, O, J], and ``control_code`` may be a
+    [F*O, 1] int32 tensor of per-row codes.
+
     Returns ``(queue_final, outs)`` with ``outs`` a ``WindowOut`` of
-    preallocated ``[n_windows, O, J]`` trajectories in trajectory mode and
-    the final ``StreamStats`` in streaming mode (nothing is allocated per
-    window then).
+    preallocated ``[n_windows, O, J]`` trajectories (``[F, n_windows, O,
+    J]`` with fleets) in trajectory mode and the final ``StreamStats`` in
+    streaming mode (nothing is allocated per window then).
     """
-    t_total, n_ost, n_jobs = rates.shape
+    t_total, n_ost, n_jobs = rates.shape[-3:]
+    n_rows = nodes.shape[0]
     trace_windows = t_total // cfg.window_ticks
     if trace_windows == 0:
         raise ValueError(
@@ -381,32 +421,46 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
     if fault_plan is not None:
         fault_plan = FaultPlan(*(_f32(x, rates.device) for x in fault_plan))
         for name, leaf in zip(FaultPlan._fields, fault_plan):
-            if tuple(leaf.shape) != (n_windows, n_ost):
+            if tuple(leaf.shape) != (n_windows, n_rows):
                 raise ValueError(
                     f"fault_plan.{name} must be [n_windows={n_windows}, "
-                    f"n_ost={n_ost}]; got {tuple(leaf.shape)} (the plan "
+                    f"n_ost={n_rows}]; got {tuple(leaf.shape)} (the plan "
                     "covers the run horizon, one row per executed window)")
-    trace = rates[: trace_windows * cfg.window_ticks].reshape(
-        trace_windows, cfg.window_ticks, n_ost, n_jobs)
+    # [..., trace_windows, W, O, J]: a view, whatever the leading axes
+    trace = rates[..., : trace_windows * cfg.window_ticks, :, :].reshape(
+        *rates.shape[:-3], trace_windows, cfg.window_ticks, n_ost, n_jobs)
+
+    def rates_at(w: int) -> torch.Tensor:
+        """Window w's rates: [W, O, J], or [F, W, O, J] with fleets (the
+        fleet axis of a shared trace a stride-0 expand, not a copy)."""
+        k = w % trace_windows
+        if fleets is None:
+            return trace[k]
+        if rates.ndim == 3:
+            return trace[k].expand(fleets.n_fleets, *trace.shape[1:])
+        return trace[:, k]
+
     ctx = PolicyContext(
         nodes=nodes, cap_w=cap_tick * cfg.window_ticks, u_max=cfg.u_max,
         integer_tokens=cfg.integer_tokens, alloc_backend=cfg.alloc_backend,
         control_code=control_code)
 
-    carry = init_carry(cfg, policy, ctx, volume)
+    carry = init_carry(cfg, policy, ctx, volume,
+                       n_fleets=None if fleets is None else fleets.n_fleets)
     streaming = cfg.telemetry == "streaming"
     if not streaming:
-        outs = WindowOut(*(rates.new_empty((n_windows, n_ost, n_jobs))
-                           for _ in WindowOut._fields))
+        shape = ((n_windows, n_ost, n_jobs) if fleets is None
+                 else (fleets.n_fleets, n_windows, n_ost, n_jobs))
+        outs = WindowOut(*(rates.new_empty(shape) for _ in WindowOut._fields))
     for w in range(n_windows):
         faults_w = (None if fault_plan is None
                     else FaultPlan(*(leaf[w] for leaf in fault_plan)))
         carry, out = window_step(cfg, policy, ctx, cap_tick, backlog_cap,
-                                 carry, trace[w % trace_windows],
-                                 faults_w=faults_w)
+                                 carry, rates_at(w), faults_w=faults_w,
+                                 fleets=fleets)
         if not streaming:
             for dst, src in zip(outs, out):
-                dst[w] = src
+                dst[..., w, :, :] = src.reshape(*dst.shape[:-3], n_ost, n_jobs)
     return carry.queue, (carry.stats if streaming else outs)
 
 

@@ -10,7 +10,9 @@ report metrics are ``storage/metrics.py``'s ``streaming_*`` functions.
 
 Every accumulator keeps a leading OST axis and is updated from that OST's
 row alone; the one fleet-wide quantity, the busy flag (a window is busy
-when any OST served anything), is an int32 count, exact in any order.
+when any OST served anything), is an int32 count, exact in any order.  A
+batch of F fleets (``storage/tenants.py``) folds ``[F*O]`` rows at once,
+with one window counter and one busy flag per fleet (``[F]`` int32).
 The reference's sharded form of this fold (``stats_pspecs`` and the
 ``axis_name`` psum of the busy count) belongs to ROADMAP queue A,
 "Sharding", and is not ported.
@@ -29,7 +31,7 @@ The field order is the checkpoint naming contract
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +64,9 @@ class StreamStats(NamedTuple):
 
     Per-job arrays are [O, J] ([J] after the single-target squeeze);
     per-target arrays are [O] ([] squeezed); the histogram is [O, NBINS]
-    ([NBINS] squeezed); ``windows`` and ``busy_windows`` are 0-d int32.
+    ([NBINS] squeezed); ``windows`` and ``busy_windows`` are 0-d int32
+    (``[F]`` in a batch of F fleets, whose every other leaf is then
+    ``[F, O, ...]`` as ``simulate_tenants`` returns it).
     Float sums are Kahan-compensated: a finalizer adds the matching
     ``comp`` term for the best estimate.
     """
@@ -90,9 +94,12 @@ class StreamStats(NamedTuple):
     obs_lost: torch.Tensor       # [O] windows whose observation was lost
 
 
-def init_stats(n_ost: int, n_jobs: int, device=None) -> StreamStats:
+def init_stats(n_ost: int, n_jobs: int, device=None,
+               n_fleets: Optional[int] = None) -> StreamStats:
     """Zeroed statistics on ``device`` (default: the CPU); every leaf is a
-    buffer of its own."""
+    buffer of its own.  With ``n_fleets``, ``n_ost`` counts the rows of
+    every fleet together and ``windows``/``busy_windows`` are
+    ``[n_fleets]``."""
     def f32(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
@@ -100,14 +107,15 @@ def init_stats(n_ost: int, n_jobs: int, device=None) -> StreamStats:
         return torch.full(shape, fill, dtype=torch.int32, device=device)
 
     oj, o, oh = (n_ost, n_jobs), (n_ost,), (n_ost, NBINS)
+    lead = () if n_fleets is None else (n_fleets,)
     return StreamStats(
-        windows=i32(),
+        windows=i32(*lead),
         served_sum=f32(*oj), served_sumsq=f32(*oj),
         demand_sum=f32(*oj), demand_sumsq=f32(*oj),
         alloc_sum=f32(*oj), alloc_sumsq=f32(*oj),
         alloc_windows=i32(*oj),
         util_sum=f32(*o),
-        busy_windows=i32(),
+        busy_windows=i32(*lead),
         lag_sum=f32(*o), lag_sumsq=f32(*o), lag_max=f32(*o),
         lag_hist=f32(*oh),
         last_served=i32(*oj, fill=-1),
@@ -153,7 +161,8 @@ def bin_upper_edge(b) -> float:
 
 
 def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
-                 faults_w=None) -> StreamStats:
+                 faults_w=None, n_fleets: Optional[int] = None
+                 ) -> StreamStats:
     """Fold one window's [O, J] observation into the carry.
 
     Mirrors the trajectory definitions in ``storage/metrics.py``: per-window
@@ -167,11 +176,19 @@ def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
     ``faults_w`` (optional ``faults.FaultPlan`` row, [O] tensors) advances
     the fault counters: windows down, windows up but degraded, observations
     lost.  ``None`` leaves them as they are.
+
+    ``n_fleets``: the rows are F fleets' ``[F*O]`` rows in fleet order,
+    and ``stats.windows``/``busy_windows`` are ``[F]``: each fleet's busy
+    flag reads its own rows only.
     """
     n_ost = served_w.shape[0]
     served_o = row_sum(served_w)[:, 0]
     util_o = served_o / torch.clamp_min(cap_w, 1e-12)
-    busy = ((served_o > 0).to(torch.int32).sum() > 0).to(torch.int32)
+    n_f = n_fleets or 1
+    busy = (served_o.view(n_f, -1) > 0).any(dim=1).to(torch.int32).view(
+        stats.busy_windows.shape)
+    window_of_row = stats.windows.reshape(n_f).repeat_interleave(
+        n_ost // n_f)[:, None]
     lag = demand - served_w
     ruled = torch.isfinite(alloc)
     alloc_f = torch.where(ruled, alloc, 0.0)
@@ -214,7 +231,7 @@ def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
         lag_sum=lag_sum, lag_sumsq=lag_sumsq,
         lag_max=torch.maximum(stats.lag_max, torch.amax(lag, dim=-1)),
         lag_hist=lag_hist,
-        last_served=torch.where(served_w > 0, stats.windows,
+        last_served=torch.where(served_w > 0, window_of_row,
                                 stats.last_served),
         comp=StreamComp(
             served_sum=c_served_sum, served_sumsq=c_served_sumsq,

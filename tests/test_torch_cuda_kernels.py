@@ -4,7 +4,9 @@ at widths that take every lanes-per-thread variant the kernels compile
 and for coded dispatch -- plus the wrappers' input checks and the kernel
 paths of ``simulate_fleet``, and the allocation round and the
 megakernel on rows built to stress the radix select and the excess
-descent; and the LM kernels (flash attention, flash decode, the SSD scan)
+descent; the tenant axis (the fleet kernels over F fleets' rows, the rate
+trace by fleet stride, the megakernel under per-fleet codes, and
+``simulate_tenants`` bitwise the per-fleet loop); and the LM kernels (flash attention, flash decode, the SSD scan)
 over head dims 16-128, GQA groups 1 and 4, ragged lengths, S at the tile
 and chunk edges and S != T, decode lengths around the host plan's split
 length, SSD state dims 16-128, and both element types, with their
@@ -304,7 +306,8 @@ def test_mega_raises_for_what_the_kernel_has_no_case_for(cuda):
     raise on CUDA tensors, before any launch, and never fall back to the
     plain round."""
     class Custom(AdapTBFPolicy):
-        pass
+        def step(self, state, obs, ctx):
+            return super().step(state, obs, ctx)
 
     args, _ = _mega_round("adaptbf", 64, seed=1, dev=cuda)
     before = mega_ops.launches
@@ -408,6 +411,217 @@ def test_fleet_service_on_the_card_equals_simulate_fleet(cuda, serve, alloc,
         assert svc.stats.windows.dtype == torch.int32
         assert int(svc.stats.windows) == n_windows
     assert torch.equal(svc.queue, offline.queue_final)
+
+
+# ------------------------------------------------------- the tenant axis
+
+FLEET_WIDTHS = [1, 8, 4097]
+
+
+def _fleet_rates(n_fleets, o, j, w, layout, seed, dev):
+    """Window 1 of a two-window trace: [F, W, O, J] with the fleet axis a
+    stride-0 expand of one shared trace, or a slice of an [F, T, O, J]
+    trace (fleet stride T*O*J)."""
+    rng = np.random.default_rng(seed)
+    if layout == "shared":
+        trace = rng.integers(0, 3, (2, w, o, j)).astype(np.float32)
+        return torch.as_tensor(trace, device=dev)[1].expand(n_fleets, w, o, j)
+    trace = rng.integers(0, 3, (n_fleets, 2, w, o, j)).astype(np.float32)
+    return torch.as_tensor(trace, device=dev)[:, 1]
+
+
+@pytest.mark.parametrize("layout", ["shared", "batched"])
+@pytest.mark.parametrize("n_fleets", [1, 3])
+@pytest.mark.parametrize("j", FLEET_WIDTHS)
+def test_window_kernel_reads_rates_by_fleet_stride(cuda, j, n_fleets, layout):
+    """F fleets of O=5 rows in one launch: against the plain version (atol
+    1e-4, as the single-fleet test), and each fleet's rows bitwise equal to
+    that fleet launched alone."""
+    o, w = 5, 10
+    args = _window_case(n_fleets * o, j, 1, seed=j + n_fleets, dev=cuda)
+    rates = _fleet_rates(n_fleets, o, j, w, layout, seed=j, dev=cuda)
+    args[3] = rates
+    before = fw_ops.launches
+    got = fw_ops.fleet_window_serve(*args)
+    assert fw_ops.launches == before + 1
+    want = fw_ops.fleet_window_ref(*args)
+    for name, g, x in zip(("queue", "vol_left", "served"), got, want):
+        assert torch.equal(g.isfinite(), x.isfinite()), name
+        fin = x.isfinite()
+        torch.testing.assert_close(g[fin], x[fin], rtol=0, atol=1e-4,
+                                   msg=name)
+    for f in range(n_fleets):
+        rows = slice(f * o, (f + 1) * o)
+        alone = fw_ops.fleet_window_serve(
+            *(x[rows].contiguous() for x in args[:3]), rates[f],
+            args[4][rows].contiguous(), args[5][rows].contiguous())
+        for g, a in zip(got, alone):
+            assert torch.equal(g[rows], a), f
+
+
+@pytest.mark.parametrize("n_fleets", [1, 3])
+@pytest.mark.parametrize("j", FLEET_WIDTHS)
+def test_alloc_kernel_on_fleet_rows(cuda, j, n_fleets):
+    """The allocation round over F*O rows: against the plain version (atol
+    1e-3) and each fleet bitwise equal to its own launch."""
+    o = 5
+    args = _alloc_case(n_fleets * o, j, seed=j + n_fleets, dev=cuda)
+    got = alloc_ops.fleet_alloc(*args)
+    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+    for name, g, x in zip(("alloc", "record", "remainder"), got, want):
+        torch.testing.assert_close(g, x, rtol=0, atol=1e-3, msg=name)
+    for f in range(n_fleets):
+        rows = slice(f * o, (f + 1) * o)
+        alone = alloc_ops.fleet_alloc(*(x[rows].contiguous() for x in args))
+        for g, a in zip(got, alone):
+            assert torch.equal(g[rows], a), f
+
+
+MEGA_MEMBERS = ("aimd", "static", "adaptbf")
+
+
+def _fleet_mega_round(codes, j, layout, seed, dev):
+    """One coded round over len(codes) fleets of O=4 rows, each fleet on
+    its own code, with evolved member states; returns the wrapper's
+    arguments and the code rows."""
+    from repro_torch.storage.tenants import _code_rows
+    rng = np.random.default_rng(seed)
+    o, w, n_f = 4, 10, len(codes)
+    r = n_f * o
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    policy = CodedPolicy(MEGA_MEMBERS)
+    cap_tick = t(rng.integers(1, 3, (r,)) * max(j // 2, 2))
+    code_col = torch.as_tensor(np.repeat(np.asarray(codes, np.int32), o),
+                               device=dev)[:, None]
+    ctx = PolicyContext(nodes=t(rng.integers(1, 64, (r, j))),
+                        cap_w=cap_tick * w, control_code=code_col)
+    alloc = t(np.where(rng.random((r, j)) < 0.3, 0.0,
+                       rng.integers(1, 20, (r, j))))
+    pstate = (t(1.0 + rng.random((r, j)) * 30.0), (),
+              AllocatorState(t(rng.integers(-50, 50, (r, j))),
+                             t(rng.random((r, j)) - 0.5),
+                             t(rng.integers(0, 30, (r, j)))))
+    zeros = torch.zeros((r, j), device=dev)
+    args = [policy, ctx, cap_tick, t(rng.choice([16.0, 64.0], (r, j))),
+            t(rng.random((r, j)) * 12),
+            t(np.where(rng.random((r, j)) < 0.3, np.inf, 150.0)), alloc,
+            (zeros, zeros, alloc), pstate,
+            _fleet_rates(n_f, o, j, w, layout, seed, dev)]
+    return args, _code_rows(codes, o, dev)
+
+
+def _fleet_slice(args, f, o, code):
+    """The wrapper's arguments for fleet f alone, its code a host int."""
+    rows = slice(f * o, (f + 1) * o)
+
+    def cut(tree):
+        if torch.is_tensor(tree):
+            return tree[rows].contiguous()
+        if isinstance(tree, tuple):
+            return type(tree)(*map(cut, tree)) if hasattr(tree, "_fields") \
+                else tuple(map(cut, tree))
+        return tree
+
+    ctx = args[1]
+    return [args[0], ctx._replace(nodes=cut(ctx.nodes), cap_w=cut(ctx.cap_w),
+                                  control_code=code),
+            *map(cut, args[2:9]), args[9][f]]
+
+
+@pytest.mark.parametrize("layout", ["shared", "batched"])
+@pytest.mark.parametrize("codes", [(2,), (0, 2, 7)])
+@pytest.mark.parametrize("j", FLEET_WIDTHS)
+def test_mega_kernel_with_per_fleet_codes(cuda, j, codes, layout):
+    """Per-fleet codes (aimd, adaptbf and an out-of-range code that runs
+    adaptbf's case and advances nothing): one launch a distinct code,
+    against the plain round (atol 1e-3), each fleet bitwise equal to its
+    own launch, and the member state of every row a member did not run
+    bitwise unchanged."""
+    args, code_rows = _fleet_mega_round(codes, j, layout, seed=j, dev=cuda)
+    before = mega_ops.launches
+    got = mega_ops.mega_window_round(*args, code_rows=code_rows)
+    assert mega_ops.launches == before + len(set(codes))
+    want = mega_ops.ref.mega_round_ref(*args)
+    for i, (g, x) in enumerate(zip(_mega_leaves(got), _mega_leaves(want),
+                                   strict=True)):
+        assert torch.equal(g.isfinite(), x.isfinite()), i
+        fin = x.isfinite()
+        torch.testing.assert_close(g[fin], x[fin], rtol=0, atol=1e-3,
+                                   msg=f"leaf {i}")
+    o = 4
+    for f, code in enumerate(codes):
+        rows = slice(f * o, (f + 1) * o)
+        for m, (new_m, old_m) in enumerate(zip(got[7], args[8])):
+            if m != code:    # not this fleet's member: untouched
+                for a, b in zip(mega_ops._leaves(new_m),
+                                mega_ops._leaves(old_m)):
+                    assert torch.equal(a[rows], b[rows]), (f, m)
+        alone = mega_ops.mega_window_round(*_fleet_slice(args, f, o, code))
+        for i, (g, a) in enumerate(zip(_mega_leaves(got), _mega_leaves(alone),
+                                       strict=True)):
+            assert torch.equal(g[rows], a), (f, i)
+
+
+def test_mega_runs_a_plain_subclass_as_its_base(cuda):
+    """A subclass of a built-in that overrides no policy method runs its
+    base's megakernel case: bitwise the base's round."""
+    class Plain(AdapTBFPolicy):
+        pass
+
+    args, faults = _mega_round("adaptbf", 300, seed=5, dev=cuda)
+    for extra in ((), faults):
+        base = mega_ops.mega_window_round(*args, *extra)
+        before = mega_ops.launches
+        sub = mega_ops.mega_window_round(Plain(), *args[1:], *extra)
+        assert mega_ops.launches == before + 1
+        for i, (a, b) in enumerate(zip(_mega_leaves(sub), _mega_leaves(base),
+                                       strict=True)):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("serve,alloc", [("fused", "pallas"),
+                                         ("mega", "pallas")])
+@pytest.mark.parametrize("telemetry", ["trajectory", "streaming"])
+def test_simulate_tenants_on_the_card_equals_per_fleet_loop(
+        cuda, serve, alloc, telemetry):
+    """Four fleets (their own scenarios) under per-fleet codes over every
+    policy and one out-of-range code, with a batched fault plan: bitwise
+    the per-fleet ``simulate_fleet`` runs; B1 and B2 once a window over all
+    rows, or B3 once a window for each distinct code."""
+    from repro_torch.pytree import leaves_with_paths
+    from repro_torch.storage import FaultPlan, faults, simulate_tenants
+    codes = [0, 2, 4, 9]
+    scns = [random_fleet(10 + i, n_ost=8, n_jobs=300, profile="mixed",
+                         duration_s=1.0) for i in range(len(codes))]
+    n_windows = scns[0].issue_rate.shape[0] // 10
+    plans = [faults.outage(n_windows, 8, 2 + i, 6, osts=[i, 7])
+             for i in range(len(codes))]
+    plan = FaultPlan(*(np.stack(x) for x in zip(*plans)))
+    stack = [np.stack([np.broadcast_to(s.nodes, s.volume.shape)
+                       for s in scns])]
+    stack += [np.stack([getattr(s, k) for s in scns]) for k in (
+        "issue_rate", "volume", "capacity_per_tick", "max_backlog")]
+    members = ("adaptbf", "aimd", "nobw", "static", "static_wc")
+    cfg = FleetConfig(control="coded", coded_policies=members,
+                      serve_backend=serve, alloc_backend=alloc,
+                      telemetry=telemetry)
+    fw_ops.launches = alloc_ops.launches = mega_ops.launches = 0
+    batched = simulate_tenants(cfg, *stack, control_code=codes,
+                               fault_plan=plan)
+    want = ((0, 0, n_windows * len(set(codes))) if serve == "mega"
+            else (n_windows, n_windows, 0))
+    assert (fw_ops.launches, alloc_ops.launches, mega_ops.launches) == want
+    got = dict(leaves_with_paths(batched))
+    for i, code in enumerate(codes):
+        one = simulate_fleet(cfg, *(x[i] for x in stack), control_code=code,
+                             fault_plan=plans[i])
+        for path, x in leaves_with_paths(one):
+            if torch.is_tensor(x):
+                assert got[path].device.type == "cuda", path
+                assert torch.equal(got[path][i], x), (i, path)
 
 
 # ------------------------------------------------------------ LM kernels

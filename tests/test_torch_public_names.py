@@ -17,9 +17,6 @@ from repro_torch.core import no_bw_allocate
 
 # reference name -> the ROADMAP.md queue A item that ports it
 NOT_YET = {
-    "storage": {
-        "simulate_tenants": "4, tenants",
-    },
     "storage.telemetry": {
         "stats_pspecs": "5, sharding",
     },
