@@ -82,7 +82,21 @@ Phases, each of which raises on failure (the run then exits non-zero):
    bitwise the same way; and many small tenants (O=4, J=8, 20 windows, F
    of 16, 256 and 1024): F=1024 bitwise the per-fleet loop with its
    launch counts, windows/s batched and as a per-fleet loop, and the
-   three fleet kernels' time a launch at F*O rows.
+   three fleet kernels' time a launch at F*O rows.  Sharding on
+   ``torch.distributed`` (``shard_phase``): the fleet cell under
+   ``partition="ost_shard"`` with NCCL at one rank (fused/pallas,
+   trajectory) and with gloo at 2 and 4 ranks sharing ``cuda:0``
+   (fused/pallas and mega in both telemetry modes, coded mega, an outage
+   of every fourth OST in windows 20-30 under streaming mega), and the 16
+   wide tenants under ``"fleet_shard"`` on a 2x2 grid (streaming,
+   fused/pallas and mega/pallas), each rank spawned with the inputs on the
+   host and every rank's gathered result bitwise the unsharded run (per
+   leaf SHA-256), B1 and B2 or B3 once a window a rank on its own rows,
+   each rank's peak device memory at 4 ranks within 0.4x the unsharded
+   run's in every run, trajectory and tenants too (the whole result is
+   gathered into host memory); windows/s per group (ranks sharing one card: not a
+   scaling figure), the busy-count all_reduce's host time a window and
+   the final gather's time.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
@@ -1006,6 +1020,22 @@ def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
             (demand, demand, budget), state, rates_f), reps=20))
 
 
+def wide_tenant_inputs(scn, n_fleets):
+    """[F, O, J] nodes and volumes of F wide fleets: each fleet's own seeded
+    permutation of the fleet cell's jobs."""
+    nodes, volume = [], []
+    for f in range(n_fleets):
+        perm = np.random.default_rng(100 + f).permutation(J)
+        nodes.append(np.broadcast_to(scn.nodes[perm], (O, J)))
+        volume.append(scn.volume[:, perm])
+    return np.stack(nodes), np.stack(volume)
+
+
+#: the wide tenants' per-fleet codes: the default trio cycled, then one
+#: out of range
+TENANT_CODES = [i % 3 for i in range(TENANT_F - 1)] + [3]
+
+
 def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
     """The tenant axis on the card.  (1) 16 fleets at the main path's width
     (each with its own seeded permutation of the fleet's job nodes and
@@ -1035,13 +1065,8 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
                                                                   "pallas")}
 
     def fleet_inputs(n_fleets):
-        nodes, volume = [], []
-        for f in range(n_fleets):
-            perm = np.random.default_rng(100 + f).permutation(J)
-            nodes.append(np.broadcast_to(scn.nodes[perm], (O, J)))
-            volume.append(scn.volume[:, perm])
-        return (torch.as_tensor(np.stack(nodes), device=dev),
-                torch.as_tensor(np.stack(volume), device=dev))
+        return tuple(torch.as_tensor(x, device=dev)
+                     for x in wide_tenant_inputs(scn, n_fleets))
 
     def expect(serve, n_codes, n_win=N_WINDOWS):
         want = ({"window_mega": n_win * n_codes} if serve == "mega" else
@@ -1061,7 +1086,7 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
                 n_fleet_windows / max(secs), n_fleet_windows / min(secs))
 
     # (1) 16 fleets at full width, streaming, the trace shared
-    codes = [i % 3 for i in range(TENANT_F - 1)] + [3]
+    codes = TENANT_CODES
     nodes, volume = fleet_inputs(TENANT_F)
     for label, (serve, alloc) in paths.items():
         cfg = FleetConfig(control="coded", serve_backend=serve,
@@ -1259,6 +1284,276 @@ def tenant_entry(tenants, name: str, k: int) -> dict:
     return {"tenant_launches": sum(tenants[f"launches_{p}"][name]
                                    for p in ("fused/pallas", "mega/pallas")),
             "tenant_ms_by_rows_x_jobs": ms}
+
+
+# ---------------------------------------------------------- sharding
+
+#: the sharded runs, each run unsharded in the parent and sharded on the
+#: ranks: label -> (entry point, FleetConfig fields, what else it takes)
+SHARD_JOBS = {
+    "fused/pallas": ("fleet", dict(serve_backend="fused",
+                                   alloc_backend="pallas"), ()),
+    "fused/pallas, streaming": ("fleet", dict(
+        serve_backend="fused", alloc_backend="pallas",
+        telemetry="streaming"), ()),
+    "mega": ("fleet", dict(serve_backend="mega"), ()),
+    "mega, streaming": ("fleet", dict(serve_backend="mega",
+                                      telemetry="streaming"), ()),
+    "coded mega, streaming": ("fleet", dict(
+        control="coded", serve_backend="mega", telemetry="streaming"),
+        ("code",)),
+    "faulted mega, streaming": ("fleet", dict(
+        serve_backend="mega", telemetry="streaming"), ("faults",)),
+    "tenants fused/pallas, streaming": ("tenants", dict(
+        control="coded", serve_backend="fused", alloc_backend="pallas",
+        telemetry="streaming"), ()),
+    "tenants mega/pallas, streaming": ("tenants", dict(
+        control="coded", serve_backend="mega", alloc_backend="pallas",
+        telemetry="streaming"), ()),
+}
+SHARD_FLEET = [k for k, v in SHARD_JOBS.items() if v[0] == "fleet"]
+#: (backend, ranks, runs): one group of processes each, in turn
+SHARD_GROUPS = [("nccl", 1, ["fused/pallas"]), ("gloo", 2, SHARD_FLEET),
+                ("gloo", 4, list(SHARD_JOBS))]
+TENANT_MESH = (2, 2)
+SHARD_MEMORY_CAP = 0.4    # a rank's peak / the unsharded run's, 4 ranks,
+                          # every run
+SHARD_DIR = ROOT / "build" / "chip_smoke_shard"
+
+
+def shard_run(label, data, sharded: bool, device=None):
+    """Run ``label`` of ``SHARD_JOBS`` on the global host inputs ``data``:
+    ``partition="ost_shard"`` (``"fleet_shard"`` on ``TENANT_MESH`` for the
+    tenants) when ``sharded``, else unsharded."""
+    from repro_torch.storage import (FLEET_CONTROL_CODES, FleetConfig, faults,
+                                     simulate_fleet, simulate_tenants)
+    entry, fields, extra = SHARD_JOBS[label]
+    kw = dict(n_windows=N_WINDOWS, device=device)
+    if entry == "tenants":
+        cfg = FleetConfig(**fields, partition=("fleet_shard" if sharded
+                                               else "none"))
+        if sharded:
+            kw["mesh_shape"] = TENANT_MESH
+        return simulate_tenants(
+            cfg, data["tenant_nodes"], data["rates"], data["tenant_volume"],
+            data["cap"], data["backlog"], control_code=TENANT_CODES, **kw)
+    cfg = FleetConfig(**fields, partition="ost_shard" if sharded else "none")
+    if "code" in extra:
+        kw["control_code"] = FLEET_CONTROL_CODES["adaptbf"]
+    if "faults" in extra:
+        kw["fault_plan"] = faults.outage(N_WINDOWS, O, 20, 30,
+                                         osts=range(0, O, 4))
+    return simulate_fleet(cfg, data["nodes"], data["rates"], data["volume"],
+                          data["cap"], data["backlog"], **kw)
+
+
+def leaf_digests(result) -> dict:
+    """SHA-256 of each tensor leaf's bytes, with its dtype and shape: two
+    results are bitwise equal exactly when their digests are."""
+    import hashlib
+
+    import torch
+    from repro_torch.pytree import leaves_with_paths
+    out = {}
+    for path, x in leaves_with_paths(result):
+        if isinstance(x, torch.Tensor):
+            a = x.detach().cpu().contiguous().numpy()
+            out[path] = (f"{a.dtype}{a.shape}"
+                         + hashlib.sha256(a.tobytes()).hexdigest())
+    return out
+
+
+def shard_rank(rank, world, backend, tmp, labels):
+    """One rank of the sharding phase: join the group (a file rendezvous),
+    run each of ``labels`` sharded on the global inputs the parent left in
+    ``tmp`` (the trace memory-mapped, so only the rank's rows reach its
+    device), hold every leaf of the gathered result to the parent's
+    unsharded digests, and write the rank's times, peak device memory,
+    launches and collectives to ``tmp``.  Raises on any difference."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
+    from repro_torch.kernels.fleet_window import ops as fw_ops
+    from repro_torch.kernels.window_mega import ops as mega_ops
+    from repro_torch.launch import mesh
+    kernels = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
+               "window_mega": mega_ops}
+    tmp = Path(tmp)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/rendezvous-{backend}-{world}",
+        rank=rank, world_size=world)
+    try:
+        data = dict(np.load(tmp / "inputs.npz"))
+        data["rates"] = np.load(tmp / "rates.npy", mmap_mode="c")
+        want = np.load(tmp / "unsharded.npz")
+        records = []
+        for label in labels:
+            for mod in kernels.values():
+                mod.launches = 0
+            mesh.reset_collectives()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = shard_run(label, data, sharded=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            got = leaf_digests(res)
+            del res
+            keys = [k.split("|", 1)[1] for k in want.files
+                    if k.startswith(label + "|")]
+            bad = sorted(set(keys) ^ set(got)) + [
+                p for p in keys if p in got and str(want[f"{label}|{p}"])
+                != got[p]]
+            if bad:
+                raise AssertionError(
+                    f"sharding ({backend}, rank {rank} of {world}) {label}: "
+                    f"not bitwise the unsharded run in {bad}")
+            records.append(dict(
+                label=label, secs=secs, peak=peak,
+                launches={n: m.launches for n, m in kernels.items()},
+                collectives={k: dict(v) for k, v in
+                             mesh.collectives.items()}))
+        (tmp / f"ranks-{backend}-{world}-{rank}.json").write_text(
+            json.dumps(records))
+        dist.barrier()         # no rank leaves the group while one works
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(torch, dev, scn, card):
+    """Sharding on ``torch.distributed`` (``partition="ost_shard"`` and
+    ``"fleet_shard"``) at the main fleet cell.  The parent runs each of
+    ``SHARD_JOBS`` unsharded on the card from host inputs (timing it and
+    taking its peak device memory), leaves the inputs (the 839 MB trace as
+    a ``.npy`` the ranks memory-map) and the unsharded results' per-leaf
+    digests (an ``.npz``) in ``SHARD_DIR``, and spawns each group of
+    ``SHARD_GROUPS`` in turn: NCCL at one rank, gloo at 2 and at 4 ranks
+    sharing ``cuda:0``.  Every rank's gathered result must be bitwise the
+    unsharded run, every rank must launch B1 and B2 (fused/pallas) or B3
+    (mega, once a distinct code among its fleets) once a window, and at 4
+    ranks each rank's peak device memory must stay within
+    ``SHARD_MEMORY_CAP`` of the unsharded run's in every run.  Returns each fleet
+    kernel's launches per rank by group."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    out = {name: {} for name in ("fleet_window", "adaptbf_alloc",
+                                 "window_mega")}
+    try:
+        t_nodes, t_volume = wide_tenant_inputs(scn, TENANT_F)
+        data = dict(nodes=scn.nodes, volume=scn.volume,
+                    cap=scn.capacity_per_tick, backlog=scn.max_backlog,
+                    tenant_nodes=t_nodes, tenant_volume=t_volume)
+        np.savez(SHARD_DIR / "inputs.npz", **data)
+        np.save(SHARD_DIR / "rates.npy", scn.issue_rate)
+        data["rates"] = scn.issue_rate
+        digests, peak, rate = {}, {}, {}
+        for label in SHARD_JOBS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = shard_run(label, data, sharded=False, device=dev)
+            torch.cuda.synchronize()
+            rate[label] = N_WINDOWS / (time.perf_counter() - t0)
+            peak[label] = torch.cuda.max_memory_allocated() - base
+            for path, d in leaf_digests(res).items():
+                digests[f"{label}|{path}"] = np.array(d)
+            del res
+        np.savez(SHARD_DIR / "unsharded.npz", **digests)
+        print("sharding: unsharded runs on the card from host inputs "
+              f"({N_WINDOWS} windows): " + "; ".join(
+                  f"{k} {rate[k]:.2f} windows/s, peak device memory "
+                  f"{peak[k]:,} B" for k in SHARD_JOBS) + f" on {card}")
+        torch.cuda.empty_cache()
+        for backend, world, labels in SHARD_GROUPS:
+            t0 = time.perf_counter()
+            mp.spawn(shard_rank, args=(world, backend, str(SHARD_DIR),
+                                       labels), nprocs=world, join=True)
+            wall = time.perf_counter() - t0
+            ranks = [json.loads((SHARD_DIR / f"ranks-{backend}-{world}-"
+                                 f"{r}.json").read_text())
+                     for r in range(world)]
+            group = f"{backend} x{world}"
+            shard_check(group, world, labels, ranks, peak)
+            for name in out:
+                out[name][group] = [sum(rec["launches"][name] for rec in rk)
+                                    for rk in ranks]
+            shard_print(group, world, labels, ranks, peak, rate, wall, card)
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return out
+
+
+def shard_expected(label, world, rank):
+    """The fleet-kernel launches one rank of ``world`` makes in ``label``."""
+    entry, fields, _ = SHARD_JOBS[label]
+    if fields.get("serve_backend") != "mega":
+        return {"fleet_window": N_WINDOWS, "adaptbf_alloc": N_WINDOWS,
+                "window_mega": 0}
+    n_codes = 1
+    if entry == "tenants":   # B3 once a window a distinct code of its fleets
+        per = TENANT_F // TENANT_MESH[0]
+        block = rank // TENANT_MESH[1] if world > 1 else 0
+        n_codes = len(set(TENANT_CODES[block * per:(block + 1) * per]))
+    return {"fleet_window": 0, "adaptbf_alloc": 0,
+            "window_mega": N_WINDOWS * n_codes}
+
+
+def shard_check(group, world, labels, ranks, peak):
+    for r, records in enumerate(ranks):
+        for rec in records:
+            want = shard_expected(rec["label"], world, r)
+            if rec["launches"] != want:
+                raise AssertionError(f"sharding ({group}) rank {r} "
+                                     f"{rec['label']}: launches "
+                                     f"{rec['launches']}, expected {want}")
+            if (world == 4
+                    and rec["peak"] > SHARD_MEMORY_CAP * peak[rec["label"]]):
+                raise AssertionError(
+                    f"sharding ({group}) rank {r} {rec['label']}: peak "
+                    f"device memory {rec['peak']:,} B above "
+                    f"{SHARD_MEMORY_CAP} x the unsharded run's "
+                    f"{peak[rec['label']]:,} B")
+    assert [[rec["label"] for rec in rk] for rk in ranks] == [labels] * world
+
+
+def shard_print(group, world, labels, ranks, peak, rate, wall, card):
+    print(f"sharding ({group}, ranks share one card: not a scaling figure; "
+          f"spawn to exit {wall:.1f} s): every rank's result bitwise the "
+          "unsharded run in " + ", ".join(labels) + f" on {card}")
+    for k, label in enumerate(labels):
+        recs = [rk[k] for rk in ranks]
+        coll = {}
+        for rec in recs:
+            for name, c in rec["collectives"].items():
+                agg = coll.setdefault(name, [0, 0.0])
+                agg[0] += c["calls"]
+                agg[1] = max(agg[1], c["seconds"] / max(c["calls"], 1))
+        ar = coll.get("all_reduce", [0, 0.0])
+        ag = coll.get("gather", [0, 0.0])
+        per_window = {n: [rec["launches"][n] / N_WINDOWS for rec in recs]
+                      for n in recs[0]["launches"]}
+        slowest = max(r["secs"] for r in recs)
+        top = max(r["peak"] for r in recs)
+        print(f"  {group} {label}: windows/s {N_WINDOWS / slowest:.2f} "
+              f"(slowest rank; unsharded {rate[label]:.2f}); peak device "
+              f"memory per rank {[r['peak'] for r in recs]} B vs unsharded "
+              f"{peak[label]:,} B (max {top / peak[label]:.3f}x); "
+              f"launches per rank per window {per_window}; busy-count "
+              f"all_reduce {ar[0] // world} a rank, "
+              f"{ar[1] * 1e3:.4f} ms of host time a window (slowest rank); "
+              f"final gather into host memory {ag[1] * 1e3:.2f} ms (slowest "
+              f"rank); staged "
+              f"through the host by the port: none ({group.split()[0]} "
+              "takes the card's tensors)")
 
 
 # ------------------------------------------------------- the LM serving path
@@ -1902,7 +2197,11 @@ def main() -> int:
                            names, card)
     torch.cuda.empty_cache()
 
-    # 3d. the LM serving path: zamba2-2.7b prefill and engine ------------
+    # 3d. sharding: ost_shard and fleet_shard on torch.distributed ------
+    shards = shard_phase(torch, dev, scn, card)
+    torch.cuda.empty_cache()
+
+    # 3e. the LM serving path: zamba2-2.7b prefill and engine ------------
     lm = lm_main_path(torch, dev, counts, zero_counts)
     torch.cuda.empty_cache()
 
@@ -2041,7 +2340,8 @@ def main() -> int:
          "ms": fw_ms, "plain_ms": fw_plain, "bound_ms": fw_b,
          "bound_by": fw_by, "library_ms": None,
          "blocks_per_sm": occupancy["fleet_window"],
-         **tenant_entry(tenants, "fleet_window", 0)},
+         **tenant_entry(tenants, "fleet_window", 0),
+         "shard_launches_per_rank": shards["fleet_window"]},
         {"name": "adaptbf_alloc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/adaptbf_alloc.cu",
          "replaces": "src/repro/kernels/adaptbf_alloc/kernel.py:135",
@@ -2049,7 +2349,8 @@ def main() -> int:
          "ms": al_ms, "plain_ms": al_plain, "bound_ms": al_b,
          "bound_by": al_by, "library_ms": None,
          "blocks_per_sm": occupancy["adaptbf_alloc"],
-         **tenant_entry(tenants, "adaptbf_alloc", 1)},
+         **tenant_entry(tenants, "adaptbf_alloc", 1),
+         "shard_launches_per_rank": shards["adaptbf_alloc"]},
         {"name": "window_mega", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_mega.cu",
          "replaces": "src/repro/kernels/window_mega/kernel.py:168",
@@ -2057,7 +2358,8 @@ def main() -> int:
          "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
          "bound_by": mega_by, "library_ms": None,
          "blocks_per_sm": occupancy["window_mega"],
-         **tenant_entry(tenants, "window_mega", 2)},
+         **tenant_entry(tenants, "window_mega", 2),
+         "shard_launches_per_rank": shards["window_mega"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:79",

@@ -12,7 +12,7 @@ order (``repro_torch.pytree``: ``.queue``, ``.policy_state.record``,
 ``.stats.comp.served_sum``, ``['a']['b']``).  A restore loads each leaf on
 the host and puts it where the matching leaf of ``like`` lives, in its
 dtype.  The reference's ``shardings`` argument (restore onto another device
-mesh) belongs to ROADMAP queue A, "Sharding", and is not ported.
+mesh) waits for the training slice, ROADMAP.md queue A, item 9.1.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Plain-dictionary module system, as in the reference package: every layer
 is a ``*_defs(cfg)`` function returning a tree of ``ParamDef`` plus an
 ``*_apply(p, x, ...)`` function on tensors.  The reference's logical
-sharding axes and its ``shard`` constraints wait for multi-device work
-(ROADMAP.md, queue A, "Sharding"); a ``ParamDef`` here is a shape and an
+sharding axes and its ``shard`` constraints are TPU-mesh code and wait
+for ROADMAP.md queue A, item 9.4; a ``ParamDef`` here is a shape and an
 initializer.
 """
 from __future__ import annotations

@@ -78,6 +78,16 @@ class FaultPlan(NamedTuple):
                          telem_ok=self.telem_ok[i])
 
 
+def plan_pspecs(lead: Optional[str] = None) -> FaultPlan:
+    """The layout of a plan over a mesh (``launch/mesh.py``): its ``[W,
+    O]`` leaves split by OST column over the ``ost`` axis, every window
+    whole, as the reference shards it (``P(None, "ost")``).  Each rank
+    reads only its own OSTs' fault rows, so faults add no communication.
+    ``lead`` names a leading fleet axis (``[F, W, O]`` batched plans)."""
+    front = (lead,) if lead is not None else ()
+    return FaultPlan(*((*front, None, "ost"),) * 3)
+
+
 def no_faults(n_windows: int, n_ost: int) -> FaultPlan:
     """The identity plan: everything up, full capacity, no loss."""
     ones = np.ones((n_windows, n_ost), np.float32)

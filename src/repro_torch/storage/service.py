@@ -123,7 +123,7 @@ class FleetService:
         if cfg.partition != "none":
             raise ValueError(
                 'FleetService runs the single-process online loop; '
-                f'partition={cfg.partition!r} is an offline-loop feature '
+                f'partition={cfg.partition!r} is an offline-scan feature '
                 '(use simulate_fleet for sharded batch runs)')
         dev = resolve_device(device)
         self.cfg = cfg

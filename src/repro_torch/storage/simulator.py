@@ -49,11 +49,23 @@ layout (one ``[T, O, J]`` trace shared by every fleet, or ``[F, T, O, J]``)
 and reaches the kernels as ``[F, W, O, J]`` windows whose fleet axis is a
 stride (0 when shared), so a shared trace is never copied F times.
 
+``partition="ost_shard"`` runs the loop on ``torch.distributed`` ranks, one
+shard of OST rows each (``launch/mesh.py``): every rank calls
+``simulate_fleet`` with the same global inputs, moves only its own rows to
+its device, runs ``_run_windows`` on them, and receives the whole result in
+host memory, in one gather at the end.  The one collective inside the loop
+is the streaming busy-OST count (``telemetry.update_stats``).  Every
+per-window op is row-local, so the result is bitwise the unsharded run's.
+``_run_on_mesh`` runs every layout, the tenants' too: an unsharded run is
+the one-rank mesh ``_WHOLE``.
+
 Entry points run on the card: ``device=None`` means CUDA and raises when no
-GPU is present; pass ``device="cpu"`` to run the plain versions on the CPU.
+GPU is present (a rank's is ``cuda:(rank % device_count)``); pass
+``device="cpu"`` to run the plain versions on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -70,9 +82,10 @@ from repro_torch.core.policies import (
 from repro_torch.core.state import AllocatorState
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.numerics import row_sum
+from repro_torch.launch.mesh import Mesh, ost_mesh, rank_device, require_world
 from repro_torch.pytree import leaves_with_paths, to_numpy, unflatten
 from repro_torch.storage import telemetry
-from repro_torch.storage.faults import FaultPlan
+from repro_torch.storage.faults import FaultPlan, plan_pspecs
 from repro_torch.storage.telemetry import StreamStats
 
 _EPS = 1e-9
@@ -81,11 +94,6 @@ _EPS = 1e-9
 #: evaluation modes.
 DEFAULT_CODED_POLICIES = ("adaptbf", "static", "nobw")
 FLEET_CONTROL_CODES = control_codes(DEFAULT_CODED_POLICIES)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item})")
 
 
 class FleetAxis(NamedTuple):
@@ -134,7 +142,8 @@ class FleetConfig(NamedTuple):
                                        #   folded into the carry)
     coded_policies: tuple = DEFAULT_CODED_POLICIES
                                        # member subset for control="coded"
-    partition: str = "none"            # none (ost_shard: not ported)
+    partition: str = "none"            # none | ost_shard (one shard of OST
+                                       #   rows a torch.distributed rank)
 
 
 class SimResult(NamedTuple):
@@ -259,9 +268,7 @@ def _check_config(cfg: FleetConfig) -> None:
         raise ValueError(f"unknown telemetry mode: {cfg.telemetry!r}")
     if cfg.serve_backend not in ("scan", "fused", "mega"):
         raise ValueError(f"unknown serve_backend: {cfg.serve_backend!r}")
-    if cfg.partition == "ost_shard":
-        raise _not_ported('partition="ost_shard"', 'queue A, "Sharding"')
-    if cfg.partition != "none":
+    if cfg.partition not in ("none", "ost_shard"):
         raise ValueError(f"unknown partition: {cfg.partition!r}")
 
 
@@ -302,7 +309,7 @@ def _serve_window(cfg: FleetConfig, queue, vol_left, budget0, rates_w,
 
 def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
                 cap_tick, backlog_cap, carry: WindowCarry, rates_w,
-                faults_w: Optional[FaultPlan] = None,
+                axis_name=None, faults_w: Optional[FaultPlan] = None,
                 fleets: Optional[FleetAxis] = None):
     """One observation window: gate, serve every tick, observe, re-allocate.
 
@@ -313,6 +320,9 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
       carry: the ``WindowCarry`` from the previous window (or
         ``init_carry``).
       rates_w: [window_ticks, O, J] this window's client issue attempts.
+      axis_name: the ``ost`` axis's process group when the rows are one
+        rank's shard (``Mesh.ost_group``): the streaming busy-OST count is
+        summed over it.
       faults_w: optional ``FaultPlan`` row ([O] tensors): a down OST
         (``up == 0``) serves and issues nothing; ``cap_scale`` scales its
         service rate; on a lost-telemetry window (``telem_ok == 0``) the
@@ -372,7 +382,7 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
     if cfg.telemetry == "streaming":
         stats = telemetry.update_stats(
             carry.stats, served_w, demand, carry.alloc, ctx_w.cap_w,
-            faults_w=faults_w,
+            axis_name=axis_name, faults_w=faults_w,
             n_fleets=None if fleets is None else fleets.n_fleets)
         out = None
     else:
@@ -388,7 +398,7 @@ def window_step(cfg: FleetConfig, policy: ControlPolicy, ctx: PolicyContext,
 
 def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
                  volume, cap_tick, backlog_cap, control_code,
-                 n_windows: Optional[int],
+                 n_windows: Optional[int], axis_name=None,
                  fault_plan: Optional[FaultPlan] = None,
                  fleets: Optional[FleetAxis] = None):
     """The single window loop behind every entry point.
@@ -397,8 +407,10 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
     float32 on one device; ``control_code`` a host int or None.
     ``n_windows`` extends (or trims) the horizon by
     indexing the trace periodically; None runs exactly the windows the trace
-    covers.  ``fault_plan`` ([n_windows, O] leaves) covers the *run* horizon,
-    one row per executed window, and is never tiled.
+    covers.  ``axis_name``: the ``ost`` axis's process group when the rows
+    are one rank's shard (see ``window_step``).  ``fault_plan`` ([n_windows,
+    O] leaves) covers the *run* horizon, one row per executed window, and
+    is never tiled.
 
     With ``fleets`` (F fleets of O rows): nodes/volume/backlog_cap are
     [F*O, J], cap_tick and the fault plan's rows [F*O], rates [T, O, J]
@@ -420,12 +432,7 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
         n_windows = trace_windows
     if fault_plan is not None:
         fault_plan = FaultPlan(*(_f32(x, rates.device) for x in fault_plan))
-        for name, leaf in zip(FaultPlan._fields, fault_plan):
-            if tuple(leaf.shape) != (n_windows, n_rows):
-                raise ValueError(
-                    f"fault_plan.{name} must be [n_windows={n_windows}, "
-                    f"n_ost={n_rows}]; got {tuple(leaf.shape)} (the plan "
-                    "covers the run horizon, one row per executed window)")
+        _check_plan(fault_plan, n_windows, n_rows)
     # [..., trace_windows, W, O, J]: a view, whatever the leading axes
     trace = rates[..., : trace_windows * cfg.window_ticks, :, :].reshape(
         *rates.shape[:-3], trace_windows, cfg.window_ticks, n_ost, n_jobs)
@@ -456,12 +463,144 @@ def _run_windows(cfg: FleetConfig, policy: ControlPolicy, nodes, rates,
         faults_w = (None if fault_plan is None
                     else FaultPlan(*(leaf[w] for leaf in fault_plan)))
         carry, out = window_step(cfg, policy, ctx, cap_tick, backlog_cap,
-                                 carry, rates_at(w), faults_w=faults_w,
-                                 fleets=fleets)
+                                 carry, rates_at(w), axis_name=axis_name,
+                                 faults_w=faults_w, fleets=fleets)
         if not streaming:
             for dst, src in zip(outs, out):
                 dst[..., w, :, :] = src.reshape(*dst.shape[:-3], n_ost, n_jobs)
     return carry.queue, (carry.stats if streaming else outs)
+
+
+def _check_plan(fault_plan: FaultPlan, n_windows: int, n_rows: int) -> None:
+    for name, leaf in zip(FaultPlan._fields, fault_plan):
+        if tuple(leaf.shape) != (n_windows, n_rows):
+            raise ValueError(
+                f"fault_plan.{name} must be [n_windows={n_windows}, "
+                f"n_ost={n_rows}]; got {tuple(leaf.shape)} (the plan "
+                "covers the run horizon, one row per executed window)")
+
+
+#: StreamStats fields counted once a fleet ([F] under a tenant batch),
+#: not once a row
+_PER_FLEET = ("windows", "busy_windows")
+
+#: each input's layout over a mesh, a fleet's own (``launch/mesh.py``):
+#: OST rows split over the ``ost`` axis, the trace's ticks whole
+_LAYOUTS = {"nodes": ("ost", None), "issue_rate": (None, "ost", None),
+            "volume": ("ost", None), "capacity_per_tick": ("ost",),
+            "max_backlog": ("ost", None)}
+
+#: the mesh of an unsharded run: one rank holding every block
+_WHOLE = Mesh({"fleet": 1, "ost": 1}, {"fleet": 0, "ost": 0}, None)
+
+
+def _split_stats(stats: StreamStats, n_fleets: int) -> StreamStats:
+    """[F*O, ...] row leaves -> [F, O, ...]; the per-fleet counters stay."""
+    def split(x):
+        return x.view(n_fleets, x.shape[0] // n_fleets, *x.shape[1:])
+
+    return stats._replace(
+        **{f: split(getattr(stats, f)) for f in stats._fields
+           if f not in _PER_FLEET + ("comp",)},
+        comp=type(stats.comp)(*map(split, stats.comp)))
+
+
+def _gather_windows(mesh: Mesh, cfg: FleetConfig, queue, outs,
+                    lead: Optional[str] = None):
+    """The whole run's ``(queue, outs)`` on every rank, from each rank's
+    rows: one gather, at the end of the run.  ``lead="fleet"``: a tenant
+    batch's ``[F, O, ...]`` blocks, split over the fleet axis too."""
+    front = () if lead is None else (lead,)
+    if cfg.telemetry == "streaming":
+        pairs = telemetry.stats_layout(
+            outs, telemetry.stats_pspecs("ost", lead=lead))
+    else:
+        pairs = [(x, (*front, None, "ost", None)) for x in outs]
+    got = mesh.gather([queue, *(x for x, _ in pairs)],
+                      [(*front, "ost", None), *(spec for _, spec in pairs)])
+    return got[0], unflatten(outs, got[1:])
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device for a rank's run, so its
+    kernels launch where its tensors are."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _run_on_mesh(mesh: Mesh, cfg: FleetConfig, policy: ControlPolicy, dev,
+                 inputs: Mapping[str, torch.Tensor], control_code,
+                 n_windows: Optional[int],
+                 fault_plan: Optional[FaultPlan] = None, *,
+                 batched: frozenset = frozenset(),
+                 fleets: Optional[FleetAxis] = None):
+    """``_run_windows`` on this rank's block of ``mesh``, and the whole
+    result.
+
+    ``inputs`` (``simulate_fleet``'s arrays by name: nodes, issue_rate,
+    volume, capacity_per_tick, max_backlog, in full) and
+    ``fault_plan`` are global and still where the caller had them: only
+    this rank's block of each (``_LAYOUTS``, ``faults.plan_pspecs``) moves
+    to ``dev``, so the whole trace never lands there.  The loop is the
+    single-device loop on those rows; its one collective is the streaming
+    busy-OST count over ``mesh.ost_group``.  Under a sharded
+    ``cfg.partition`` every rank receives the whole result in one gather
+    at the end (``Mesh.gather``, into host memory); unsharded (``_WHOLE``)
+    it stays on ``dev``.
+
+    With ``fleets`` (this rank's fleets and rows of a tenant batch),
+    ``batched`` names the inputs (and ``"fault_plan"``) that carry a
+    leading ``[F]`` axis, split over ``fleet``; the others are shared by
+    every fleet.  The blocks reach the loop as ``[F*O, ...]`` rows (the
+    plan as ``[W, F*O]``, the rates as they are) and the result leaves it
+    as ``[F, O, ...]``."""
+    def rows(x, is_batched: bool) -> torch.Tensor:
+        """A block [F, O, ...] (or a shared [O, ...]) -> [F*O, ...]."""
+        if not is_batched:
+            x = x.expand(fleets.n_fleets, *x.shape)
+        return x.reshape(-1, *x.shape[2:]).contiguous()
+
+    local = {}
+    for name, x in inputs.items():
+        lead = ("fleet",) if name in batched else ()
+        x = _f32(mesh.block(x, (*lead, *_LAYOUTS[name])), dev)
+        local[name] = (x if fleets is None or name == "issue_rate"
+                       else rows(x, name in batched))
+    if fault_plan is not None:
+        plan_batched = "fault_plan" in batched
+        fault_plan = FaultPlan(*(
+            _f32(mesh.block(leaf, spec), dev) for leaf, spec in
+            zip(fault_plan, plan_pspecs("fleet" if plan_batched else None))))
+        if fleets is not None:    # [W, F*O]: a window's row, every fleet
+            fault_plan = FaultPlan(*(
+                rows(leaf.transpose(-1, -2), plan_batched).T.contiguous()
+                for leaf in fault_plan))
+    with _on(dev):
+        queue, outs = _run_windows(
+            cfg._replace(partition="none"), policy, local["nodes"],
+            local["issue_rate"], local["volume"],
+            local["capacity_per_tick"], local["max_backlog"], control_code,
+            n_windows, axis_name=mesh.ost_group, fault_plan=fault_plan,
+            fleets=fleets)
+        if fleets is not None:
+            queue = queue.view(fleets.n_fleets, -1, queue.shape[-1])
+            if cfg.telemetry == "streaming":
+                outs = _split_stats(outs, fleets.n_fleets)
+        if cfg.partition == "none":
+            return queue, outs
+        return _gather_windows(mesh, cfg, queue, outs,
+                               lead=None if fleets is None else "fleet")
+
+
+def _tensor(x) -> torch.Tensor:
+    """Numpy or torch input as a tensor where it lies (no copy for numpy)."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+def _filled(shape, value: float) -> torch.Tensor:
+    """A float32 ``shape`` of ``value`` (an expanded scalar: no memory)."""
+    return torch.full((), value, dtype=torch.float32).expand(shape)
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
@@ -571,32 +710,50 @@ def simulate_fleet(cfg: FleetConfig, nodes, issue_rate, volume,
         service, lost-telemetry windows hold the controller's previous
         observation.
       device: None (CUDA; raises without a GPU) or "cpu".  Inputs move to
-        it as float32 before any arithmetic.
+        it as float32 before any arithmetic.  Under ``cfg.partition ==
+        "ost_shard"`` each rank's ``None`` is ``cuda:(rank %
+        device_count)``, and only the rank's rows move.
+
+    ``cfg.partition == "ost_shard"`` needs ``torch.distributed``'s default
+    process group (``ValueError`` otherwise) and ``n_ost`` divisible by its
+    size; every rank passes the same global inputs and receives the whole
+    result in host memory, bitwise the unsharded run's.
 
     Returns:
-      FleetResult with [n_windows, O, J] trajectories on ``device``, or a
-      StreamResult when ``cfg.telemetry == "streaming"``.
+      FleetResult with [n_windows, O, J] trajectories on ``device`` (in
+      host memory when sharded), or a StreamResult when ``cfg.telemetry ==
+      "streaming"``.
     """
-    dev = resolve_device(device)
     policy = _resolve_policy(cfg, control_code)
-    rates = _f32(issue_rate, dev)
+    rates = _tensor(issue_rate)
     _t, n_ost, n_jobs = rates.shape
-    nodes = _f32(nodes, dev)
+    nodes = _tensor(nodes)
     if nodes.ndim == 1:
-        nodes = nodes.expand(n_ost, n_jobs).contiguous()
-    if capacity_per_tick is None:
-        cap_tick = torch.full((n_ost,), cfg.capacity_per_tick,
-                              dtype=torch.float32, device=dev)
+        nodes = nodes.expand(n_ost, n_jobs)
+    cap_tick = (_filled((n_ost,), cfg.capacity_per_tick)
+                if capacity_per_tick is None else _tensor(capacity_per_tick))
+    backlog_cap = (_filled((n_ost, n_jobs), cfg.max_backlog)
+                   if max_backlog is None else _tensor(max_backlog))
+    if cfg.partition == "ost_shard":
+        require_world('partition="ost_shard"')
+        mesh = ost_mesh()
+        if n_ost % mesh.size:
+            raise ValueError(
+                f'partition="ost_shard" needs n_ost ({n_ost}) divisible by '
+                f"the mesh size ({mesh.size} devices); pad the fleet or "
+                "start a compatible number of ranks")
+        dev = rank_device(device)
     else:
-        cap_tick = _f32(capacity_per_tick, dev)
-    if max_backlog is None:
-        backlog_cap = torch.full((n_ost, n_jobs), cfg.max_backlog,
-                                 dtype=torch.float32, device=dev)
-    else:
-        backlog_cap = _f32(max_backlog, dev)
-    queue, outs = _run_windows(cfg, policy, nodes, rates, _f32(volume, dev),
-                               cap_tick, backlog_cap, _host_code(control_code),
-                               n_windows, fault_plan=fault_plan)
+        mesh, dev = _WHOLE, resolve_device(device)
+    if fault_plan is not None:    # the global plan, before it is cut
+        fault_plan = FaultPlan(*map(_tensor, fault_plan))
+        _check_plan(fault_plan, _t // cfg.window_ticks
+                    if n_windows is None else n_windows, n_ost)
+    queue, outs = _run_on_mesh(
+        mesh, cfg, policy, dev,
+        dict(nodes=nodes, issue_rate=rates, volume=_tensor(volume),
+             capacity_per_tick=cap_tick, max_backlog=backlog_cap),
+        _host_code(control_code), n_windows, fault_plan=fault_plan)
     window_seconds = cfg.window_ticks * cfg.tick_seconds
     if cfg.telemetry == "streaming":
         return StreamResult(stats=outs, queue_final=queue,

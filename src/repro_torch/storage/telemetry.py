@@ -13,9 +13,10 @@ row alone; the one fleet-wide quantity, the busy flag (a window is busy
 when any OST served anything), is an int32 count, exact in any order.  A
 batch of F fleets (``storage/tenants.py``) folds ``[F*O]`` rows at once,
 with one window counter and one busy flag per fleet (``[F]`` int32).
-The reference's sharded form of this fold (``stats_pspecs`` and the
-``axis_name`` psum of the busy count) belongs to ROADMAP queue A,
-"Sharding", and is not ported.
+Sharded over ranks (``partition="ost_shard"``/``"fleet_shard"``), each
+rank folds its own rows and the busy-OST count is summed over the ``ost``
+axis's process group (``axis_name``) before the flag is taken;
+``stats_pspecs`` gives the carry's layout over the mesh.
 
 Accuracy at long horizons: a plain float32 running sum stops advancing
 once its total passes 2^24 times the increment, so every float sum carries
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.numerics import row_sum
+from repro_torch.launch.mesh import all_reduce_sum
 from repro_torch.pytree import leaves_with_paths
 
 NBINS = 128            # backlog histogram resolution
@@ -134,6 +136,53 @@ def stream_stats_leaf_paths() -> Tuple[str, ...]:
     return tuple(path for path, _ in leaves_with_paths(init_stats(1, 1)))
 
 
+def stats_pspecs(axis: str, lead: Optional[str] = None) -> StreamStats:
+    """The layout of a ``StreamStats`` over a mesh (``launch/mesh.py``):
+    one tuple a leaf, an axis name for each dimension split over that
+    axis and None for a whole one, as the reference's ``PartitionSpec``s
+    read.  Every leaf is row-split over ``axis`` except the two counters,
+    which every rank of the axis holds whole.
+
+    ``lead`` names an optional leading fleet axis (the tenant batch of
+    ``storage/tenants.simulate_tenants``): every leaf, the two counters
+    included (``[F]`` in a batched carry), gains it in front of its row
+    layout."""
+    front = (lead,) if lead is not None else ()
+    oj = (*front, axis, None)
+    o = (*front, axis)
+    rep = front
+    return StreamStats(
+        windows=rep,
+        served_sum=oj, served_sumsq=oj,
+        demand_sum=oj, demand_sumsq=oj,
+        alloc_sum=oj, alloc_sumsq=oj,
+        alloc_windows=oj,
+        util_sum=o,
+        busy_windows=rep,
+        lag_sum=o, lag_sumsq=o, lag_max=o,
+        lag_hist=oj,
+        last_served=oj,
+        comp=StreamComp(
+            served_sum=oj, served_sumsq=oj, demand_sum=oj, demand_sumsq=oj,
+            alloc_sum=oj, alloc_sumsq=oj, util_sum=o,
+            lag_sum=o, lag_sumsq=o, lag_hist=oj),
+        down_windows=o, droop_windows=o, obs_lost=o,
+    )
+
+
+def stats_layout(stats: StreamStats, specs: StreamStats):
+    """``[(leaf, spec), ...]`` of a carry and its ``stats_pspecs``, in
+    flatten order (a spec is a tuple, so the two trees are walked by
+    field)."""
+    pairs = []
+    for leaf, spec in zip(stats, specs):
+        if isinstance(leaf, StreamComp):
+            pairs += list(zip(leaf, spec))
+        else:
+            pairs.append((leaf, spec))
+    return pairs
+
+
 def _kahan(total, comp, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """One compensated-summation step: returns (total', comp').  Three
     eager float32 ops in this order; nothing may reassociate them."""
@@ -161,8 +210,8 @@ def bin_upper_edge(b) -> float:
 
 
 def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
-                 faults_w=None, n_fleets: Optional[int] = None
-                 ) -> StreamStats:
+                 axis_name=None, faults_w=None,
+                 n_fleets: Optional[int] = None) -> StreamStats:
     """Fold one window's [O, J] observation into the carry.
 
     Mirrors the trajectory definitions in ``storage/metrics.py``: per-window
@@ -172,6 +221,12 @@ def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
     (infinite) entries.  Row sums accumulate in float64 and round once
     (``numerics.row_sum``), so they can differ from the reference's by an
     ulp; every element-wise field follows the reference op for op.
+
+    ``axis_name``: the ``ost`` axis's process group when the rows are one
+    rank's shard (``launch/mesh.py``, ``Mesh.ost_group``): each fleet's
+    int32 busy-OST count is summed across it before the flag is taken, so
+    the flag is the unsharded run's bit for bit.  None: the rows are the
+    whole fleet.
 
     ``faults_w`` (optional ``faults.FaultPlan`` row, [O] tensors) advances
     the fault counters: windows down, windows up but degraded, observations
@@ -185,8 +240,10 @@ def update_stats(stats: StreamStats, served_w, demand, alloc, cap_w,
     served_o = row_sum(served_w)[:, 0]
     util_o = served_o / torch.clamp_min(cap_w, 1e-12)
     n_f = n_fleets or 1
-    busy = (served_o.view(n_f, -1) > 0).any(dim=1).to(torch.int32).view(
-        stats.busy_windows.shape)
+    busy_osts = (served_o.view(n_f, -1) > 0).sum(dim=1, dtype=torch.int32)
+    if axis_name is not None:
+        busy_osts = all_reduce_sum(busy_osts, axis_name)
+    busy = (busy_osts > 0).to(torch.int32).view(stats.busy_windows.shape)
     window_of_row = stats.windows.reshape(n_f).repeat_interleave(
         n_ost // n_f)[:, None]
     lag = demand - served_w

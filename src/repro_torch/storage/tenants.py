@@ -31,8 +31,14 @@ queues; a ``StreamResult``'s every ``StreamStats`` leaf carries the leading
 ``[F]`` (``windows`` and ``busy_windows`` become ``[F]`` int32), which the
 ``streaming_*`` finalizers of ``storage/metrics.py`` read per fleet.
 
-``partition="fleet_shard"`` (the reference's 2-D device mesh) is not ported
-(ROADMAP.md, queue A, "Sharding").
+``partition="fleet_shard"`` runs the batch on a 2-D ``(fleet, ost)`` grid
+of ``torch.distributed`` ranks (``launch/mesh.fleet_ost_mesh(mesh_shape)``,
+the reference's layout): whole fleets split over the ``fleet`` axis, with
+no communication across it, and each fleet's OST rows over ``ost``, whose
+group sums each fleet's streaming busy-OST count.  Every rank passes the
+same global arguments, moves only its own block of each to its device, and
+receives the whole result in host memory, in one gather at the end,
+bitwise the unsharded batch.
 """
 from __future__ import annotations
 
@@ -42,22 +48,24 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import (
+    check_covers_world,
+    fleet_ost_mesh,
+    rank_device,
+    require_world,
+)
 from repro_torch.storage.faults import FaultPlan
 from repro_torch.storage.simulator import (
     FleetAxis,
     FleetConfig,
     FleetResult,
     StreamResult,
-    _f32,
-    _not_ported,
+    _filled,
     _resolve_policy,
-    _run_windows,
+    _run_on_mesh,
+    _tensor,
+    _WHOLE,
 )
-from repro_torch.storage.telemetry import StreamStats
-
-#: StreamStats fields counted once a fleet ([F]), not once a row
-_PER_FLEET = ("windows", "busy_windows")
-
 
 def _infer_fleets(batched_extents, n_fleets: Optional[int]) -> int:
     """The fleet-axis extent, from the batched arguments' leading axes
@@ -86,17 +94,6 @@ def _code_rows(codes, rows_per_fleet: int, device) -> tuple:
          torch.as_tensor(np.flatnonzero(per_row == c).astype(np.int32),
                          device=device))
         for c in np.unique(per_row))
-
-
-def _split_stats(stats: StreamStats, n_fleets: int) -> StreamStats:
-    """[F*O, ...] row leaves -> [F, O, ...]; the per-fleet counters stay."""
-    def split(x):
-        return x.view(n_fleets, x.shape[0] // n_fleets, *x.shape[1:])
-
-    return stats._replace(
-        **{f: split(getattr(stats, f)) for f in stats._fields
-           if f not in _PER_FLEET + ("comp",)},
-        comp=type(stats.comp)(*map(split, stats.comp)))
 
 
 def simulate_tenants(
@@ -135,20 +132,21 @@ def simulate_tenants(
     it is inferred from the batched leading axes (which must agree).
 
     ``cfg.partition``: "none" runs the batch on one device;
-    "fleet_shard" (the reference's 2-D mesh, ``mesh_shape``) is not ported
-    and raises ``NotImplementedError``; "ost_shard" is the single-fleet
-    engine's layout and raises ``ValueError``, as in the reference.
+    "fleet_shard" on a ``mesh_shape = (fleet ranks, ost ranks)`` grid of
+    every rank of ``torch.distributed``'s default group (default: every
+    rank on the fleet axis), which must divide ``F`` and ``O``; "ost_shard"
+    is the single-fleet engine's layout and raises ``ValueError``, as in
+    the reference.
 
-    ``device``: None (CUDA; raises without a GPU) or "cpu".
+    ``device``: None (CUDA; raises without a GPU; a rank's is
+    ``cuda:(rank % device_count)``) or "cpu".
 
     Returns a ``FleetResult`` with [F, W, O, J] trajectories and [F, O, J]
     queues, or a ``StreamResult`` whose ``StreamStats`` leaves all carry the
     leading [F] (``windows``/``busy_windows`` [F] int32), bitwise the stack
     of the per-fleet ``simulate_fleet`` results.
     """
-    del mesh_shape  # the layout of "fleet_shard" only, which is not ported
-    dev = resolve_device(device)
-    issue_rate = _f32(issue_rate, dev)
+    issue_rate = _tensor(issue_rate)
     if issue_rate.ndim not in (3, 4):
         raise ValueError(
             "simulate_tenants: issue_rate must be [T, O, J] (shared) or "
@@ -169,19 +167,17 @@ def simulate_tenants(
             f"(shared) or {shared_rank + 1} (leading fleet axis); got "
             f"shape {tuple(x.shape)}")
 
-    classify(issue_rate, 3, "issue_rate")
-    nodes = _f32(nodes, dev)
+    rates_batched = classify(issue_rate, 3, "issue_rate")
+    nodes = _tensor(nodes)
     if nodes.ndim == 1:
         nodes = nodes.expand(n_ost, n_jobs)
-    args = {"nodes": nodes, "volume": _f32(volume, dev)}
+    args = {"nodes": nodes, "volume": _tensor(volume)}
     args["capacity_per_tick"] = (
-        torch.full((n_ost,), cfg.capacity_per_tick, dtype=torch.float32,
-                   device=dev)
-        if capacity_per_tick is None else _f32(capacity_per_tick, dev))
+        _filled((n_ost,), cfg.capacity_per_tick)
+        if capacity_per_tick is None else _tensor(capacity_per_tick))
     args["max_backlog"] = (
-        torch.full((n_ost, n_jobs), cfg.max_backlog, dtype=torch.float32,
-                   device=dev)
-        if max_backlog is None else _f32(max_backlog, dev))
+        _filled((n_ost, n_jobs), cfg.max_backlog)
+        if max_backlog is None else _tensor(max_backlog))
     batched = {name: classify(x, 1 if name == "capacity_per_tick" else 2,
                               name)
                for name, x in args.items()}
@@ -197,7 +193,7 @@ def simulate_tenants(
 
     plan_batched = None
     if fault_plan is not None:
-        fault_plan = FaultPlan(*(_f32(x, dev) for x in fault_plan))
+        fault_plan = FaultPlan(*map(_tensor, fault_plan))
         plan_axes = {classify(leaf, 2, f"fault_plan.{name}")
                      for name, leaf in zip(FaultPlan._fields, fault_plan)}
         if len(plan_axes) != 1:
@@ -208,59 +204,69 @@ def simulate_tenants(
 
     n_f = _infer_fleets(batched_extents, n_fleets)
 
+    mesh = _WHOLE
     if cfg.partition == "fleet_shard":
-        raise _not_ported('partition="fleet_shard"', 'queue A, "Sharding"')
-    if cfg.partition != "none":
+        require_world('partition="fleet_shard"')
+        mesh = fleet_ost_mesh(mesh_shape)
+        check_covers_world(mesh, 'partition="fleet_shard"')
+        f_dev, o_dev = mesh.shape["fleet"], mesh.shape["ost"]
+        if n_f % f_dev:
+            raise ValueError(
+                f'partition="fleet_shard" needs n_fleets ({n_f}) divisible '
+                f"by the mesh fleet axis ({f_dev} devices)")
+        if n_ost % o_dev:
+            raise ValueError(
+                f'partition="fleet_shard" needs n_ost ({n_ost}) divisible '
+                f"by the mesh ost axis ({o_dev} devices)")
+        dev = rank_device(device)
+    elif cfg.partition == "none":
+        dev = resolve_device(device)
+    else:
         raise ValueError(
             f"simulate_tenants: unknown partition {cfg.partition!r} "
             '(use "none" or "fleet_shard"; the 1-D "ost_shard" layout is '
             'the single-fleet engine\'s -- fleet_shard with '
             "mesh_shape=(1, n_devices) shards the ost axis only)")
 
-    def rows(x, is_batched: bool) -> torch.Tensor:
-        """[F, O, ...] (or one shared [O, ...]) -> contiguous [F*O, ...]."""
-        if not is_batched:
-            x = x.expand(n_f, *x.shape)
-        return x.reshape(n_f * x.shape[1], *x.shape[2:]).contiguous()
-
     for name, x in args.items():
         if x.shape[int(batched[name]):][:1] != (n_ost,):
             raise ValueError(
                 f"simulate_tenants: {name} of shape {tuple(x.shape)} does not "
                 f"have the rates' {n_ost} OST rows a fleet")
-    r = {name: rows(x, batched[name]) for name, x in args.items()}
     if fault_plan is not None:
         for name, leaf in zip(FaultPlan._fields, fault_plan):
             if leaf.shape[-1] != n_ost:
                 raise ValueError(
                     f"fault_plan.{name} must be [n_windows, n_ost={n_ost}] "
                     f"for each fleet; got {tuple(leaf.shape)}")
-        # [W, F*O] rows: a window's fault row covers every fleet
-        fault_plan = FaultPlan(*(
-            rows(leaf.transpose(-1, -2), plan_batched).T.contiguous()
-            for leaf in fault_plan))
 
+    # this rank's fleets and rows
+    n_fl, n_ol = n_f // mesh.shape["fleet"], n_ost // mesh.shape["ost"]
     code_arg, code_rows = None, ()
     if codes is not None:
+        if codes.ndim == 1:
+            codes = mesh.block(codes, ("fleet",))
         values = codes.reshape(-1).tolist()
         if codes.ndim == 0 or len(set(values)) == 1:
             code_arg = values[0]      # one code for all: one host int
         else:
             code_arg = torch.as_tensor(
-                np.repeat(np.asarray(values, np.int32), n_ost),
+                np.repeat(np.asarray(values, np.int32), n_ol),
                 device=dev)[:, None]
-            code_rows = _code_rows(values, n_ost, dev)
-    fleets = FleetAxis(n_fleets=n_f, rows_per_fleet=n_ost,
+            code_rows = _code_rows(values, n_ol, dev)
+    fleets = FleetAxis(n_fleets=n_fl, rows_per_fleet=n_ol,
                        code_rows=code_rows)
 
-    queue, outs = _run_windows(
-        cfg, policy, r["nodes"], issue_rate, r["volume"],
-        r["capacity_per_tick"], r["max_backlog"], code_arg, n_windows,
-        fault_plan=fault_plan, fleets=fleets)
-    queue = queue.view(n_f, n_ost, n_jobs)
+    queue, outs = _run_on_mesh(
+        mesh, cfg, policy, dev, dict(args, issue_rate=issue_rate), code_arg,
+        n_windows, fault_plan=fault_plan,
+        batched=frozenset(name for name, b in (
+            *batched.items(), ("issue_rate", rates_batched),
+            ("fault_plan", plan_batched)) if b),
+        fleets=fleets)
     window_seconds = cfg.window_ticks * cfg.tick_seconds
     if cfg.telemetry == "streaming":
-        return StreamResult(stats=_split_stats(outs, n_f), queue_final=queue,
+        return StreamResult(stats=outs, queue_final=queue,
                             window_seconds=window_seconds)
     return FleetResult(*outs, queue_final=queue,
                        window_seconds=window_seconds)

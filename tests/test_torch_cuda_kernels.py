@@ -6,7 +6,9 @@ paths of ``simulate_fleet``, and the allocation round and the
 megakernel on rows built to stress the radix select and the excess
 descent; the tenant axis (the fleet kernels over F fleets' rows, the rate
 trace by fleet stride, the megakernel under per-fleet codes, and
-``simulate_tenants`` bitwise the per-fleet loop); and the LM kernels (flash attention, flash decode, the SSD scan)
+``simulate_tenants`` bitwise the per-fleet loop); ``partition=
+"ost_shard"`` on two gloo ranks sharing the card, bitwise the unsharded
+kernel run; and the LM kernels (flash attention, flash decode, the SSD scan)
 over head dims 16-128, GQA groups 1 and 4, ragged lengths, S at the tile
 and chunk edges and S != T, decode lengths around the host plan's split
 length, SSD state dims 16-128, and both element types, with their
@@ -362,6 +364,43 @@ def test_simulate_fleet_kernel_path_matches_plain_path(cuda):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3, equal_nan=True,
                                    msg=f)
+
+
+@pytest.mark.parametrize("serve,alloc", [("fused", "pallas"),
+                                         ("mega", "core")])
+def test_ost_shard_on_the_card_is_bitwise_the_kernel_run(cuda, tmp_path,
+                                                         serve, alloc):
+    """Two gloo ranks sharing the card (``device=None``: ``cuda:0`` for
+    both), each launching its path's kernels once a window on its own 4 of
+    8 OST rows; the gathered result on every rank bitwise the unsharded
+    kernel run, in both telemetry modes."""
+    from test_torch_sharding import Ranks, assert_bitwise
+
+    from repro_torch.kernels import _build
+    _build.build(["fleet_window", "adaptbf_alloc", "window_mega"])
+    scn = random_fleet(3, n_ost=8, n_jobs=300, profile="mixed",
+                       duration_s=1.0)
+    args = (scn.nodes, scn.issue_rate, scn.volume, scn.capacity_per_tick,
+            scn.max_backlog)
+    modes = ("trajectory", "streaming")
+    ranks = Ranks(2, [(tel, "fleet", dict(
+        serve_backend=serve, alloc_backend=alloc, telemetry=tel,
+        partition="ost_shard"), args, {}) for tel in modes], tmp_path,
+        device=None)
+    try:
+        for tel in modes:
+            want = simulate_fleet(FleetConfig(serve_backend=serve,
+                                              alloc_backend=alloc,
+                                              telemetry=tel), *args)
+            assert_bitwise(ranks.result(tel), want, tel)
+            n = scn.issue_rate.shape[0] // 10
+            per_window = ({"fleet_window": n, "adaptbf_alloc": n,
+                           "window_mega": 0} if serve == "fused" else
+                          {"fleet_window": 0, "adaptbf_alloc": 0,
+                           "window_mega": n})
+            assert ranks.launches(tel) == [per_window] * 2, tel
+    finally:
+        ranks.stop()
 
 
 @pytest.mark.parametrize("serve,alloc", [("fused", "pallas"),

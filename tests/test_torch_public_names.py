@@ -17,8 +17,10 @@ from repro_torch.core import no_bw_allocate
 
 # reference name -> the ROADMAP.md queue A item that ports it
 NOT_YET = {
-    "storage.telemetry": {
-        "stats_pspecs": "5, sharding",
+    "launch.mesh": {
+        "make_production_mesh": "9.4, the TPU meshes",
+        "make_mesh": "9.4, the TPU meshes",
+        "data_axis_size": "9.4, the TPU meshes",
     },
     "models": {
         "loss_fn": "9.1, training",
@@ -36,7 +38,7 @@ NOT_YET = {
 
 WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
             "kernels.window_mega", "checkpoint"]
-WITHOUT_ALL = ["launch.steps", "kernels.adaptbf_alloc.ops",
+WITHOUT_ALL = ["launch.steps", "launch.mesh", "kernels.adaptbf_alloc.ops",
                "kernels.attention.ops", "kernels.ssd.ops",
                "storage.telemetry", "storage.metrics", "storage.service",
                "storage.workloads", "checkpoint.manager"]

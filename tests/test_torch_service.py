@@ -322,6 +322,19 @@ def test_guard_rails():
         svc.restore()
 
 
+@pytest.mark.parametrize("partition", ["ost_shard", "fleet_shard"])
+def test_service_refuses_a_partition_with_the_reference_message(partition):
+    """The online loop is one process: ``simulate_fleet`` runs the sharded
+    layouts, and the service names it in the reference's words."""
+    nodes, _, volume, cap, backlog = small_fleet()
+    with pytest.raises(ValueError) as want:
+        JService(JConfig(partition=partition), nodes, volume, cap, backlog)
+    with pytest.raises(ValueError) as got:
+        FleetService(FleetConfig(partition=partition), nodes, volume, cap,
+                     backlog, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 # ------------------------------------- checkpoints across the two packages
 
 

@@ -277,16 +277,18 @@ def test_device_none_needs_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("kw,code,err,match", [
     (dict(telemetry="psychic"), None, ValueError, "telemetry"),
-    (dict(partition="ost_shard"), None, NotImplementedError, "ROADMAP"),
+    (dict(partition="ost_shard"), None, ValueError,
+     "torch.distributed.init_process_group"),
     (dict(control="coded"), None, ValueError, "requires control_code"),
     (dict(), 0, ValueError, 'requires cfg.control == "coded"'),
     (dict(serve_backend="warp"), None, ValueError, "unknown"),
     (dict(partition="mesh"), None, ValueError, "unknown"),
 ])
 def test_unported_and_unknown_options_raise(kw, code, err, match):
-    """Options not ported name their ROADMAP item, unknown ones raise
-    ``ValueError``; coded dispatch follows the reference's rules (a code
-    exactly when ``control="coded"``)."""
+    """Unknown options raise ``ValueError``, and so does ``ost_shard``
+    without a process group (no silent single-device run); coded dispatch
+    follows the reference's rules (a code exactly when
+    ``control="coded"``)."""
     case = _build_case(1, seed=3)
     with pytest.raises(err, match=match):
         simulate_fleet(FleetConfig(window_ticks=WINDOW_TICKS, **kw), *case,

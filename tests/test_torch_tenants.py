@@ -15,8 +15,11 @@ CPU, through the plain versions of its kernels.
   differ by ulps); streaming sums within rtol 1e-5; each OST's backlog
   histogram holding the same count (a value within an ulp of a bin edge
   may land in the next bin: ROADMAP queue C.3).
-* The reference's rank rules and error messages; ``fleet_shard`` is not
-  ported.
+* The reference's rank rules and error messages.
+* ``partition="fleet_shard"`` on a grid of 4 gloo ranks (2x2, 1x4 and the
+  default 4x1): every rank's whole result bitwise the unsharded batch,
+  under per-fleet codes and a batched fault plan and with every argument
+  shared; the reference's divisibility messages; no process group raises.
 * The megakernel's case for a subclass of a built-in policy.
 """
 import jax
@@ -25,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 from _tenant_worker import TENANT_F, tenant_args, tenant_fault_plan
+from test_torch_sharding import BACKENDS as SHARD_BACKENDS
+from test_torch_sharding import Ranks, assert_bitwise
 
 from repro.storage import FleetConfig as JConfig
 from repro.storage import simulate_tenants as jsimulate_tenants
@@ -207,7 +212,8 @@ def test_errors_carry_the_reference_messages():
         with pytest.raises(ValueError) as got:
             simulate_tenants(cfg, *args, **kw, device="cpu")
         assert str(got.value) == str(want.value), label
-    with pytest.raises(NotImplementedError, match="Sharding"):
+    with pytest.raises(ValueError,
+                       match="torch.distributed.init_process_group"):
         simulate_tenants(FleetConfig(partition="fleet_shard"), nodes, rates,
                          volume, device="cpu")
     with pytest.raises(ValueError, match="integer"):
@@ -377,3 +383,107 @@ def test_fleet_kernels_take_rates_by_fleet_stride():
         check_rates(torch.zeros(3, 10, 4, 12)[..., :6], 12, 6)
     with pytest.raises(TypeError, match="float32"):
         check_rates(batched.double(), 12, 6)
+
+
+# ------------------------------------------------- fleet_shard on 4 ranks
+
+#: (mesh_shape, backend, telemetry), each under per-fleet codes and a
+#: batched fault plan
+SHARDED = [(mesh, backend, telemetry) for mesh in ((2, 2), (1, 4))
+           for backend in SHARD_BACKENDS
+           for telemetry in ("trajectory", "streaming")]
+
+
+def _sharded_cfg(backend, telemetry, partition="none"):
+    serve, alloc = SHARD_BACKENDS[backend]
+    return dict(control="coded", coded_policies=ALL_POLICIES,
+                telemetry=telemetry, serve_backend=serve, alloc_backend=alloc,
+                partition=partition)
+
+
+def _sharded_args(fleets, backend, telemetry):
+    nodes, rates, volume, cap = fleets
+    plan = _plan(FleetConfig(**_sharded_cfg(backend, telemetry)), "batched")
+    return (nodes, rates, volume), dict(capacity_per_tick=cap,
+                                        control_code=CODES, fault_plan=plan)
+
+
+def _shared_args(fleets):
+    nodes, rates, volume, cap = fleets
+    return (nodes[0], rates[0], volume[0]), dict(capacity_per_tick=cap[0],
+                                                 n_fleets=4)
+
+
+@pytest.fixture(scope="module")
+def four_ranks(fleets, tmp_path_factory):
+    jobs = []
+    for mesh, backend, telemetry in SHARDED:
+        args, kw = _sharded_args(fleets, backend, telemetry)
+        jobs.append((f"{mesh}/{backend}/{telemetry}", "tenants",
+                     _sharded_cfg(backend, telemetry, "fleet_shard"), args,
+                     dict(kw, mesh_shape=mesh)))
+    args, kw = _shared_args(fleets)
+    jobs.append(("shared", "tenants",
+                 dict(telemetry="streaming", serve_backend="fused",
+                      alloc_backend="pallas", partition="fleet_shard"),
+                 args, dict(kw, mesh_shape=(2, 2))))
+    nodes, rates, volume, cap = fleets
+    shard = dict(partition="fleet_shard")
+    jobs += [
+        ("default mesh", "tenants", dict(shard, telemetry="streaming"),
+         (nodes[:4], rates[:4], volume[:4]), dict(capacity_per_tick=cap[:4])),
+        ("fleets not divisible", "tenants", shard, (nodes, rates, volume),
+         dict(mesh_shape=(4, 1))),
+        ("osts not divisible", "tenants", shard,
+         (nodes[:, :2], rates[:, :, :2], volume[:, :2]),
+         dict(mesh_shape=(1, 4))),
+        ("mesh short of the world", "tenants", shard, (nodes, rates, volume),
+         dict(mesh_shape=(1, 2))),
+    ]
+    ranks = Ranks(4, jobs, tmp_path_factory.mktemp("tenant_ranks"))
+    yield ranks
+    ranks.stop()
+
+
+@pytest.mark.parametrize("mesh,backend,telemetry", SHARDED)
+def test_fleet_shard_is_bitwise_the_unsharded_batch(fleets, four_ranks, mesh,
+                                                    backend, telemetry):
+    args, kw = _sharded_args(fleets, backend, telemetry)
+    want = simulate_tenants(FleetConfig(**_sharded_cfg(backend, telemetry)),
+                            *args, **kw, device="cpu")
+    tag = f"{mesh}/{backend}/{telemetry}"
+    assert_bitwise(four_ranks.result(tag), want, tag)
+
+
+def test_fleet_shard_with_every_argument_shared(fleets, four_ranks):
+    """One shared trace (fleet stride 0 on every rank's block) and
+    ``n_fleets``."""
+    args, kw = _shared_args(fleets)
+    want = simulate_tenants(
+        FleetConfig(telemetry="streaming", serve_backend="fused",
+                    alloc_backend="pallas"), *args, **kw, device="cpu")
+    assert_bitwise(four_ranks.result("shared"), want, "shared")
+
+
+def test_fleet_shard_default_mesh_puts_every_rank_on_fleets(fleets,
+                                                           four_ranks):
+    nodes, rates, volume, cap = fleets
+    want = simulate_tenants(FleetConfig(telemetry="streaming"), nodes[:4],
+                            rates[:4], volume[:4], capacity_per_tick=cap[:4],
+                            device="cpu")
+    assert_bitwise(four_ranks.result("default mesh"), want, "default mesh")
+
+
+@pytest.mark.parametrize("key,message", [
+    ("fleets not divisible", 'partition="fleet_shard" needs n_fleets (6) '
+     "divisible by the mesh fleet axis (4 devices)"),
+    ("osts not divisible", 'partition="fleet_shard" needs n_ost (2) '
+     "divisible by the mesh ost axis (4 devices)"),
+    ("mesh short of the world", 'partition="fleet_shard" runs one shard on '
+     "every rank: the mesh {'fleet': 1, 'ost': 2} covers 2 of the 4 ranks"),
+])
+def test_fleet_shard_refuses_a_mesh_that_does_not_fit(four_ranks, key,
+                                                      message):
+    """The reference's divisibility messages; the port's grid must also
+    cover every rank (each receives the whole result)."""
+    assert four_ranks.results()[key] == ("error", "ValueError", message)
