@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (the run then exits non-zero):
 
-1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+1. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, in parallel, and print ptxas's registers, spills and
    shared memory and the count of tensor-core (HGMMA) instructions in the
    SASS of the flash attention and SSD libraries (``cuobjdump -sass``;
@@ -38,7 +38,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
    N=64) in both types, a ragged S=2000, S of 1, 63, 64, 65 and 129,
    N=128, P=32, 5 heads and a batch of 1; and warm-started from a seeded
    ``initial_state`` at the prefill's shape and at S of 1 and 65, in both
-   types (its launch counter must move).
+   types (its launch counter must move).  The attention backward (B4-bwd)
+   against ``ref._bwd_impl``, dq, dk and dv: the training shape (B=4,
+   S=2048, 32 heads of 80, causal), GQA 32/8, non-causal S != T, S=1000,
+   D of 64 and 128, B=1, float32 within 1e-4 x max(1, max |g|), bfloat16 no
+   farther from the float32 plain gradients than the bfloat16 plain
+   version (mean within 1.25x, max within 2x); two calls bitwise equal.
 3. Drive the main paths, each with every launch counter set to 0 just
    before it and read just after.  The fleet: a seeded 256-OST x 4096-job
    fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
@@ -96,17 +101,31 @@ Phases, each of which raises on failure (the run then exits non-zero):
    run's in every run, trajectory and tenants too (the whole result is
    gathered into host memory); windows/s per group (ranks sharing one card: not a
    scaling figure), the busy-count all_reduce's host time a window and
-   the final gather's time.
+   the final gather's time.  The LM training path (``lm_train_path``,
+   phase 3f): zamba2-2.7b at full width and depth on weights from
+   ``torch.Generator(0)`` and ``TokenPipeline(32000, 2048, 4).batch(0)``;
+   ``loss_fn`` forward and backward in float32, kernel path against the
+   plain path (loss within 1e-4 relative, each gradient leaf within 1e-3 x
+   max(1, max |g|)), and in bfloat16 against the float32 plain gradients,
+   held to the bfloat16 plain path's own error; then five
+   ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
+   place), each launching B4 18 times (9 and 9 recomputed), its
+   backward 9 times and B6 108 times, the plain path launching nothing;
+   every loss, parameter and moment finite; the peak device memory.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
    (trajectory and streaming, median and spread of 5 runs),
    ``FleetService.step`` latency (p50, p99 over 60 windows; the window's
    rates on the card or handed over as numpy), the prefill in tokens per
-   second on both paths and the engine in generated tokens per second.
+   second on both paths and the engine in generated tokens per second;
+   the attention backward beside its bound and SDPA's forward+backward
+   minus its forward; train tokens per second (B x S over the median of
+   the last four steps).
 5. Trace one fused/pallas run, one mega run, one streaming fused/pallas
-   run, 60 telemetry folds at the main shape, one bfloat16 prefill step
-   and one engine run with ``torch.profiler``: device busy time, idle
+   run, 60 telemetry folds at the main shape, one bfloat16 prefill step,
+   one engine run and one bfloat16 train step (with the plain SSD
+   backward's share, its ``record_function`` range) with ``torch.profiler``: device busy time, idle
    share and device time by kernel (the fused/pallas run's beside the
    one from before the allocation kernel ran two blocks an SM,
    ``ONE_BLOCK_FUSED_TRACE``; the fold's device time a window beside the
@@ -119,6 +138,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import re
 import statistics
@@ -139,6 +159,7 @@ BF16_OPS_S = 989e12               # H100 SXM dense bfloat16 tensor-core rate
 LM_ARCH = "zamba2-2.7b"           # the LM serving path's model, full width
 PREFILL_B, PREFILL_S = 4, 2048    # the prefill step's batch
 SERVE = dict(requests=8, prompt=4, max_new=16, slots=4, max_len=128)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5   # the training path's batch
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the fused/pallas run under the profiler when the allocation kernel ran
@@ -684,12 +705,16 @@ def check_main_path(torch, name, res, inputs, cap_w):
         raise AssertionError(f"{name}: served more than a job's volume")
 
 
-def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
+def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=(),
+          ranges=()):
     """One run under ``torch.profiler``: device busy time, idle share and
     device time by kernel (the ``top`` longest, and each kernel whose name
     holds a string of ``focus``: its launches and device time a launch),
-    printed; returns (device busy ms, idle share, {focus: (launches,
-    device ms)}), or None when the profiler saw no device time."""
+    printed; each ``record_function`` range named in ``ranges``: its span
+    on the device timeline and the device time of the kernels that start
+    inside that span.  Returns (device busy ms, idle share, {focus or
+    range: (launches or calls, device ms)}), or None when the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -699,9 +724,10 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): a CPU op's row repeats
     # the device time of the kernels it launched
+    # (a range's own device-side row, its span, is not a kernel)
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and e.key not in ranges]
     device_us = {e.key: e.self_device_time_total for e in device}
     busy = sum(device_us.values()) / 1e6
     if busy == 0:
@@ -723,6 +749,23 @@ def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=()):
         print(f"trace ({label}): {name}: {count} launches, "
               f"{total / 1e3:.3f} ms device time, "
               f"{total / max(count, 1):.2f} us a launch")
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for name in ranges:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == name)
+        starts = [a for a, _ in spans]
+        inside = 0.0
+        for e in events:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if e.name not in ranges and i >= 0 and \
+                    e.time_range.start < spans[i][1]:
+                inside += e.time_range.elapsed_us()
+        span = sum(b - a for a, b in spans)
+        per_focus[name] = (len(spans), inside / 1e3)
+        print(f"trace ({label}): range {name}: {len(spans)} calls spanning "
+              f"{span / 1e3:.3f} ms of the device timeline; the kernels "
+              f"inside them {inside / 1e3:.3f} ms of device time, "
+              f"{inside / 1e6 / busy:.3f} of device busy")
     return busy * 1e3, 1 - busy / wall, per_focus
 
 # -------------------------------------- streaming telemetry, the service
@@ -1963,6 +2006,269 @@ def lm_main_path(torch, dev, counts, zero_counts):
     return out
 
 
+# ---------------------------------------------------- the LM training path
+
+
+def attention_bwd_work(b, s, h, d, elem):
+    """(bytes, operations) of causal attention's backward: q, k, v, o and
+    dO read and dq, dk, dv written once, lse [B,S,H] float32 read once;
+    five products of 2*B*H*S^2*D/2 (S and dP, dV, dK, dQ over the causal
+    half)."""
+    return (elem * 8 * b * s * h * d + 4 * b * s * h,
+            5 * 2 * b * h * s * s * d // 2)
+
+
+def check_attention_bwd_kernel(torch, attn_ops, dev):
+    """B4's backward against its plain version (``ref.gqa_bwd``), dq, dk
+    and dv: the training shape (B=4, S=2048, 32 heads of 80, causal) in
+    both types; GQA 32/8, non-causal, S not a multiple of the 64-row tiles,
+    D of 64 and 128, B=1.  float32 within 1e-4 x max(1, max |g|); bfloat16
+    no farther from the float32 plain gradients than the bfloat16 plain
+    version is (mean within 1.25x, max within 2x).  Each call launches the
+    kernel once; two calls are bitwise equal (no atomics).  Returns the
+    training-shape bfloat16 inputs and the largest float32 error relative
+    (absolute) error."""
+    gen = torch.Generator(device=dev).manual_seed(59)
+    both = ("float32", "bfloat16")
+    cases = [(TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 80, True, dt) for dt in both]
+    cases += [(1, 1024, 1024, 32, 8, 80, True, dt) for dt in both]
+    cases += [(2, 300, 500, 8, 8, 64, False, dt) for dt in both]
+    cases += [(1, 1000, 1000, 8, 2, 80, True, dt) for dt in both]
+    cases += [(2, 200, 200, 8, 2, d, True, dt) for d in (64, 128)
+              for dt in both]
+    worst, timed = 0.0, None
+    for b, s, t, hq, hkv, d, causal, name in cases:
+        dt = getattr(torch, name)
+        q = _randn(torch, gen, (b, s, hq, d), dt)
+        k = _randn(torch, gen, (b, t, hkv, d), dt)
+        v = _randn(torch, gen, (b, t, hkv, d), dt)
+        do = _randn(torch, gen, (b, s, hq, d), dt)
+        o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+        before = attn_ops.launches["flash_attention_bwd"]
+        got = attn_ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = attn_ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        if attn_ops.launches["flash_attention_bwd"] != before + 2 and dev.type == "cuda":
+            raise AssertionError("attention_bwd did not launch its kernel")
+        if not all(bool(torch.equal(x, y)) for x, y in zip(got, again)):
+            raise AssertionError("attention_bwd is not deterministic")
+        want = attn_ops.ref.gqa_bwd(q, k, v, o, lse, do, causal)
+        label = (f"flash_attention_bwd kernel vs plain, B={b} S={s} T={t} "
+                 f"Hq={hq} Hkv={hkv} D={d} causal={causal} {name}")
+        if name == "float32":
+            errs = []
+            for g, w in zip(got, want):
+                if not bool(g.isfinite().all()):
+                    raise AssertionError(f"{label}: non-finite gradient")
+                e = float((g.double() - w.double()).abs().max())
+                worst = max(worst, e)
+                errs.append(e / max(1.0, float(w.abs().max())))
+            if max(errs) > 1e-4:
+                raise AssertionError(f"{label}: off by {errs} x max(1, "
+                                     "max |g|) (bound 1e-4)")
+            print(f"{label}: max |err| / max(1, max |g|) dq {errs[0]:.3g}, "
+                  f"dk {errs[1]:.3g}, dv {errs[2]:.3g} (bound 1e-4)")
+        else:
+            f32 = [x.float() for x in (q, k, v, do)]
+            o32, lse32 = attn_ops.ref.mha_lse(
+                f32[0], attn_ops.ref.broadcast_kv(f32[1], hq),
+                attn_ops.ref.broadcast_kv(f32[2], hq), causal=causal)
+            w32 = attn_ops.ref.gqa_bwd(f32[0], f32[1], f32[2], o32, lse32,
+                                       f32[3], causal)
+            parts = []
+            for n, g, w, r in zip("qkv", got, want, w32):
+                ours, theirs = (g.double() - r).abs(), (w.double() - r).abs()
+                if not bool(g.isfinite().all()) or \
+                        ours.mean() > 1.25 * theirs.mean() or \
+                        ours.max() > 2 * theirs.max():
+                    raise AssertionError(
+                        f"{label}: d{n} farther from the float32 plain "
+                        f"gradient (mean {float(ours.mean())}, max "
+                        f"{float(ours.max())}) than the bfloat16 plain path "
+                        f"(mean {float(theirs.mean())}, max "
+                        f"{float(theirs.max())})")
+                parts.append(f"d{n} {float(ours.mean()):.3g}/"
+                             f"{float(ours.max()):.3g} vs plain "
+                             f"{float(theirs.mean()):.3g}/"
+                             f"{float(theirs.max()):.3g}")
+            print(f"{label}: mean/max |err| against the float32 plain "
+                  f"gradients: " + "; ".join(parts)
+                  + " (bound: mean within 1.25x, max within 2x)")
+            if s == TRAIN_S:
+                timed = (q, k, v, o, lse, do)
+        del q, k, v, do, o, lse, got, again, want
+    return timed, worst
+
+
+def lm_train_path(torch, dev, counts, zero_counts, card):
+    """zamba2-2.7b training at full width and depth on weights from
+    ``torch.Generator(0)`` and the batch of ``TokenPipeline(32000, 2048,
+    4)``: (a) ``loss_fn`` forward and backward in float32, kernel path
+    against plain path; (b) the same in bfloat16 against the float32 plain
+    gradients, held to the bfloat16 plain path's own error; (c) five
+    ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
+    place), each launching B4 forward 18 times, its backward 9
+    times and B6 108 times; then one step under the profiler (phase 5).
+    Returns the numbers for the report."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.ssd.ops import BACKWARD_RANGE
+    from repro_torch.launch import steps
+    from repro_torch.pytree import leaves_with_paths
+    cfg = get_config(LM_ARCH)
+    n_attn = cfg.n_layers // cfg.shared_attn_every
+    want_k = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+              "ssd_scan": 2 * cfg.n_layers}
+    out = {}
+    gib = 2**30
+    print(f"training {LM_ARCH} at B={TRAIN_B} S={TRAIN_S}, remat "
+          f"{cfg.remat!r}; memory reckoned before the run: float32 params "
+          f"{cfg.param_count() * 4 / 1e9:.1f} GB, gradients the same, m and "
+          f"v {cfg.param_count() * 8 / 1e9:.1f} GB, the bfloat16 cast "
+          f"{cfg.param_count() * 2 / 1e9:.1f} GB, activations under remat "
+          f"a few GB: about 45-55 GB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.0f}")
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    pipe = TokenPipeline(cfg.vocab, TRAIN_S, TRAIN_B)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    batch = on_card(pipe.batch(0))
+    paths = [p for p, _ in leaves_with_paths(params)]
+
+    def loss_and_grads(dtype, kernels):
+        """(loss, gradient leaves, seconds) of one loss_fn forward and
+        backward, its launches checked."""
+        zero_counts()
+        t0 = time.perf_counter()
+        loss, grads = steps._value_and_grad(
+            lambda p, b: models.loss_fn(p, cfg, b, dtype=dtype,
+                                        kernels=kernels), params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in counts().items() if v}
+        want = want_k if kernels else {}
+        if got != want:
+            raise AssertionError(f"loss_fn ({dtype}, kernels={kernels}): "
+                                 f"launches {got}, expected {want}")
+        loss = float(loss)
+        if not np.isfinite(loss):
+            raise AssertionError(f"loss_fn ({dtype}, kernels={kernels}): "
+                                 f"loss {loss}")
+        print(f"loss_fn forward and backward, {str(dtype)[6:]}, "
+              f"{'kernel' if kernels else 'plain'} path: loss "
+              f"{loss:.6f}, launches {got}, {secs:.3f} s")
+        return loss, [g for _, g in leaves_with_paths(grads)], secs
+
+    # (a) float32, kernel path against plain path
+    l_k, g_k, _ = loss_and_grads(torch.float32, True)
+    l_32, g_32, _ = loss_and_grads(torch.float32, False)
+    rel = abs(l_k - l_32) / abs(l_32)
+    worst = (0.0, "")
+    for path, a, b in zip(paths, g_k, g_32):
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"float32 gradient {path} not finite")
+        e = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        worst = max(worst, (e, path))
+    del g_k
+    print(f"float32 loss_fn, kernel vs plain path: loss rel err {rel:.3g} "
+          f"(bound 1e-4); worst gradient leaf {worst[1]}: max |err| / max(1, "
+          f"max |g|) {worst[0]:.3g} (bound 1e-3) over {len(paths)} leaves")
+    if rel > 1e-4 or worst[0] > 1e-3:
+        raise AssertionError("float32 loss_fn: kernel path off the plain path")
+    out.update(train_f32_loss_rel=rel, train_f32_grad_err=worst[0],
+               train_f32_grad_leaf=worst[1])
+
+    # (b) bfloat16, held to the bfloat16 plain path's own error
+    def against_f32(grads):
+        total, top, n = 0.0, 0.0, 0
+        for a, b in zip(grads, g_32):
+            if not bool(a.isfinite().all()):
+                raise AssertionError("bfloat16 gradient not finite")
+            d = (a.double() - b.double()).abs()
+            total, top, n = total + float(d.sum()), max(top, float(d.max())), \
+                n + d.numel()
+        return total / n, top
+
+    l_k16, g, _ = loss_and_grads(torch.bfloat16, True)
+    ours = against_f32(g)
+    del g
+    l_p16, g, _ = loss_and_grads(torch.bfloat16, False)
+    theirs = against_f32(g)
+    del g, g_32
+    print(f"bfloat16 loss_fn against the float32 plain path (loss "
+          f"{l_32:.6f}): kernel path loss {l_k16:.6f}, gradients mean/max "
+          f"|err| {ours[0]:.4g}/{ours[1]:.4g}; plain path loss {l_p16:.6f}, "
+          f"{theirs[0]:.4g}/{theirs[1]:.4g} (bound: mean within 1.25x, max "
+          f"within 2x)")
+    if ours[0] > 1.25 * theirs[0] or ours[1] > 2 * theirs[1]:
+        raise AssertionError("bfloat16 loss_fn: the kernel path's gradients "
+                             "are farther from float32 than the plain path's")
+    out.update(train_bf16_err=ours, train_bf16_plain_err=theirs)
+    out["grad_peak_gib"] = torch.cuda.max_memory_allocated() / gib
+
+    # (c) five train steps: bfloat16 compute, float32 masters, AdamW
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.TrainState(params, steps.adamw_init(params))
+    del params
+    step_fn = steps.make_train_step(cfg)
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        b = on_card(pipe.batch(i))
+        zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = {k: v for k, v in counts().items() if v}
+        if got != want_k:
+            raise AssertionError(f"train step {i}: launches {got}, expected "
+                                 f"{want_k}")
+        losses.append(float(metrics["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}")
+    for path, x in leaves_with_paths(state):
+        if x.is_floating_point() and not bool(x.isfinite().all()):
+            raise AssertionError(f"after {TRAIN_STEPS} steps: {path} is not "
+                                 "finite")
+    step_ms = 1e3 * statistics.median(secs[-4:])
+    out.update(train_launches_per_step=want_k,
+               train_launches={k: TRAIN_STEPS * v for k, v in want_k.items()},
+               train_losses=losses, train_step_ms=step_ms,
+               train_tok_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+               train_peak_gib=torch.cuda.max_memory_allocated() / gib)
+    print(f"train steps ({LM_ARCH}, B={TRAIN_B} S={TRAIN_S}, bfloat16 "
+          f"compute, float32 masters, AdamW) on {card}: losses "
+          f"{[round(x, 4) for x in losses]}; launches a step {want_k} in "
+          f"every step; step times {[round(x * 1e3, 1) for x in secs]} ms; "
+          f"median of the last four {step_ms:.1f} ms = "
+          f"{out['train_tok_s']:.1f} train tokens/s; every parameter and "
+          f"moment finite; peak device memory "
+          f"{out['train_peak_gib']:.2f} GiB (loss_fn checks: "
+          f"{out['grad_peak_gib']:.2f} GiB)")
+
+    # phase 5: where a train step's time goes
+    b = on_card(pipe.batch(TRAIN_STEPS))
+    tr = trace(torch, "train step, bfloat16, kernel path",
+               lambda: (step_fn(state, b), torch.cuda.synchronize()),
+               what="one step", top=12,
+               focus=("flash_attention", "flash_bwd", "ssd_scan"),
+               ranges=(BACKWARD_RANGE,))
+    if tr:
+        busy = tr[0]
+        shares = {k: v[1] / busy for k, v in tr[2].items()}
+        print(f"train step device time shares on {card}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+              + f"; idle share {tr[1]:.3f} under the profiler, "
+              f"{1 - busy / step_ms:.3f} of the unprofiled step "
+              f"({busy:.1f} ms of device time in {step_ms:.1f} ms)")
+        out.update(train_trace=tr, train_shares=shares)
+    del state
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # keep lines if cut short
     try:
@@ -1990,7 +2296,8 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     fleet = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
              "window_mega": mega_ops}
-    names = [*fleet, "flash_attention", "flash_decode", "ssd_scan"]
+    names = [*fleet, "flash_attention", "flash_attention_bwd", "flash_decode",
+             "ssd_scan"]
 
     def counts():
         """Every kernel wrapper's launch count."""
@@ -2008,8 +2315,8 @@ def main() -> int:
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build(names)
-    print(f"build: {time.perf_counter() - t0:.1f} s (six kernels, one "
-          "nvcc each, in parallel)")
+    print(f"build: {time.perf_counter() - t0:.1f} s ({len(names)} kernels, "
+          "one nvcc each, in parallel)")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for lib, label, mark in (("flash_attention", "bfloat16", "Li80E"),
                              ("ssd_scan", "bfloat16", "ssd_scan_tc")):
@@ -2074,6 +2381,7 @@ def main() -> int:
     fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
     ssd_err = max(ssd_err, check_ssd_warm_start(torch, ssd_ops, dev))
+    fb_args, fb_err = check_attention_bwd_kernel(torch, attn_ops, dev)
 
     # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
@@ -2205,6 +2513,10 @@ def main() -> int:
     lm = lm_main_path(torch, dev, counts, zero_counts)
     torch.cuda.empty_cache()
 
+    # 3f. the LM training path: zamba2-2.7b loss_fn, gradients, AdamW ----
+    train = lm_train_path(torch, dev, counts, zero_counts, card)
+    torch.cuda.empty_cache()
+
     # 4. times -----------------------------------------------------------
     fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
     fw_plain = cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
@@ -2235,6 +2547,25 @@ def main() -> int:
                      reps=20)
     ssd_plain = cuda_ms(lambda: ssd_ops.ref.ssd_chunked(
         *ssd_args[:5], d_skip=ssd_args[5]), reps=2, groups=3)
+    fb_ms = cuda_ms(lambda: attn_ops.attention_bwd(*fb_args), reps=5,
+                    groups=3)
+    fb_plain = cuda_ms(lambda: attn_ops.ref.gqa_bwd(*fb_args, True), reps=1,
+                       groups=3)
+    fq, fk, fv = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in fb_args[:3])
+    fdo = fb_args[5].transpose(1, 2)
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            fq, fk, fv, is_causal=True)
+
+    fb_lib_fb = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), (fq, fk, fv),
+                                                    fdo), reps=10)
+    fb_lib_f = cuda_ms(sdpa_fwd, reps=10)
+    fb_lib = fb_lib_fb - fb_lib_f
+    fb_b, fb_by = bound_ms(*attention_bwd_work(TRAIN_B, TRAIN_S, 32, 80, 2),
+                           BF16_OPS_S)
+    del fq, fk, fv, fdo
     lens = [int(x) for x in length.tolist()]
     fa_b, fa_by = bound_ms(*attention_work(PREFILL_B, PREFILL_S, 32, 80, 2),
                            BF16_OPS_S)
@@ -2285,6 +2616,15 @@ def main() -> int:
           f"bound {fd_b:.5f} ms by {fd_by}); ssd_scan (B={PREFILL_B} "
           f"S={PREFILL_S} H=80 P=64 N=64 bfloat16) {ssd_ms:.4f} ms (plain "
           f"{ssd_plain:.4f} ms, bound {ssd_b:.4f} ms by {ssd_by})")
+    print(f"LM training kernel times on {card}: flash_attention_bwd "
+          f"(B={TRAIN_B} S={TRAIN_S} H=32 D=80 causal bfloat16) {fb_ms:.4f} "
+          f"ms (plain {fb_plain:.4f} ms; scaled_dot_product_attention "
+          f"forward+backward {fb_lib_fb:.4f} ms minus forward {fb_lib_f:.4f} "
+          f"ms = {fb_lib:.4f} ms; bound {fb_b:.4f} ms by {fb_by})")
+    print(f"{LM_ARCH} training on {card}: B={TRAIN_B} S={TRAIN_S} bfloat16 "
+          f"step {train['train_step_ms']:.1f} ms, "
+          f"{train['train_tok_s']:.1f} train tokens/s; peak device memory "
+          f"{train['train_peak_gib']:.2f} GiB")
     print(f"{LM_ARCH} on {card}: prefill (B={PREFILL_B} S={PREFILL_S}, "
           f"bfloat16) {lm['prefill_tok_s_kernel']:.1f} tokens/s on the "
           f"kernels, {lm['prefill_tok_s_plain']:.1f} on the plain path; "
@@ -2365,7 +2705,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/attention/kernel.py:79",
          "launches": lm["prefill_launches_kernel"]["flash_attention"],
          "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
-         "bound_ms": fa_b, "bound_by": fa_by, "library_ms": fa_lib},
+         "bound_ms": fa_b, "bound_by": fa_by, "library_ms": fa_lib,
+         "train_launches": train["train_launches"]["flash_attention"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/attention/ref.py:76",
+         "launches": train["train_launches"]["flash_attention_bwd"],
+         "launches_per_step":
+             train["train_launches_per_step"]["flash_attention_bwd"],
+         "max_abs_err": fb_err, "ms": fb_ms, "plain_ms": fb_plain,
+         "bound_ms": fb_b, "bound_by": fb_by, "library_ms": fb_lib},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:184",
@@ -2378,7 +2727,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd/kernel.py:78",
          "launches": lm["prefill_launches_kernel"]["ssd_scan"],
          "max_abs_err": ssd_err, "ms": ssd_ms, "plain_ms": ssd_plain,
-         "bound_ms": ssd_b, "bound_by": ssd_by, "library_ms": None},
+         "bound_ms": ssd_b, "bound_by": ssd_by, "library_ms": None,
+         "train_launches": train["train_launches"]["ssd_scan"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Fault-tolerant, AdapTBF-paced checkpointing in the reference's format."""
 from repro_torch.checkpoint.manager import (
     AsyncCheckpointer,
+    checkpoint_leaves,
     checkpoint_meta,
     gc_checkpoints,
     latest_step,
@@ -9,4 +10,5 @@ from repro_torch.checkpoint.manager import (
 )
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "checkpoint_meta", "gc_checkpoints", "AsyncCheckpointer"]
+           "checkpoint_meta", "checkpoint_leaves", "gc_checkpoints",
+           "AsyncCheckpointer"]

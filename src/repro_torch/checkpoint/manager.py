@@ -11,8 +11,8 @@ Leaves are keyed by the reference's pytree path strings, in its flatten
 order (``repro_torch.pytree``: ``.queue``, ``.policy_state.record``,
 ``.stats.comp.served_sum``, ``['a']['b']``).  A restore loads each leaf on
 the host and puts it where the matching leaf of ``like`` lives, in its
-dtype.  The reference's ``shardings`` argument (restore onto another device
-mesh) waits for the training slice, ROADMAP.md queue A, item 9.1.
+dtype, or on the device ``shardings`` names for it (the reference's
+elastic restore onto another mesh; here a tree of ``torch.device``s).
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.pytree import leaves_with_paths, to_numpy, unflatten
+from repro_torch.pytree import (_is_namedtuple, leaves_with_paths, to_numpy,
+                                unflatten)
 
 logger = logging.getLogger(__name__)
 
@@ -98,6 +99,22 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1][0] if steps else None
 
 
+def _checkpoint(directory: str, step: Optional[int]):
+    """(directory, meta.json contents) of a committed checkpoint (latest
+    by default); ``FileNotFoundError`` when there is none."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    d = _step_dir(directory, step)
+    if d is None:
+        raise FileNotFoundError(
+            f"no checkpoint for step {step} under {directory} "
+            f"(have steps {[s for s, _ in _list_steps(directory)]})")
+    with open(os.path.join(d, "meta.json")) as f:
+        return d, json.load(f)
+
+
 def checkpoint_meta(directory: str, step: Optional[int] = None) -> dict:
     """The ``meta.json`` of a committed checkpoint (latest by default):
     ``{"step": n, "leaves": [{"path", "file", "shape", "dtype"}, ...]}``.
@@ -108,25 +125,46 @@ def checkpoint_meta(directory: str, step: Optional[int] = None) -> dict:
     Raises ``FileNotFoundError`` like ``restore_checkpoint`` when no
     (matching) checkpoint exists.
     """
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {directory}")
-    d = _step_dir(directory, step)
-    if d is None:
-        raise FileNotFoundError(
-            f"no checkpoint for step {step} under {directory} "
-            f"(have steps {[s for s, _ in _list_steps(directory)]})")
-    with open(os.path.join(d, "meta.json")) as f:
-        return json.load(f)
+    return _checkpoint(directory, step)[1]
 
 
-def restore_checkpoint(directory: str, like: Any,
-                       step: Optional[int] = None) -> tuple[Any, int]:
+def _devices(shardings, like) -> list:
+    """``shardings``' device for each leaf of ``like``, in flatten order:
+    ``shardings`` is a tree of ``like``'s structure whose leaves are
+    ``torch.device``s (or device strings) or ``None`` (keep ``like``'s
+    device); a device or ``None`` in place of a subtree covers all of it."""
+    if shardings is None or isinstance(shardings, (torch.device, str)):
+        return [shardings] * len(leaves_with_paths(like))
+    if _is_namedtuple(like) or isinstance(like, (tuple, list)):
+        if len(shardings) != len(like):
+            raise ValueError("shardings does not have like's structure")
+        return [d for s, c in zip(shardings, like) for d in _devices(s, c)]
+    if isinstance(like, dict):
+        if set(shardings) != set(like):
+            raise ValueError("shardings does not have like's structure")
+        return [d for k in sorted(like) for d in _devices(shardings[k],
+                                                          like[k])]
+    raise ValueError(f"shardings has a subtree where like has a leaf: "
+                     f"{shardings!r}")
+
+
+def checkpoint_leaves(directory: str, step: Optional[int] = None):
+    """(``{path: numpy array}``, step) of a committed checkpoint (latest by
+    default), whatever tree wrote it: e.g. a reference ``TrainState`` for
+    ``models.train_state_from_numpy``."""
+    d, meta = _checkpoint(directory, step)
+    return ({m["path"]: np.load(os.path.join(d, m["file"]))
+             for m in meta["leaves"]}, meta["step"])
+
+
+def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
+                       shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf is loaded on the
     host and becomes a tensor on the device and in the dtype of ``like``'s
     leaf there (a numpy array or Python scalar of its type where ``like``
-    holds one).
+    holds one).  ``shardings`` (a tree of ``like``'s structure of
+    ``torch.device``s, or ``None``) puts each tensor leaf on another
+    device: the checkpoint is device-agnostic.
 
     Raises ``FileNotFoundError`` when no (matching) checkpoint exists and
     ``ValueError`` on a structure mismatch between the checkpoint and
@@ -134,20 +172,11 @@ def restore_checkpoint(directory: str, like: Any,
     exceptions callers can catch, never ``assert`` (which ``python -O``
     strips, silently turning a corrupt restore into garbage state).
     """
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {directory}")
-    d = _step_dir(directory, step)
-    if d is None:
-        raise FileNotFoundError(
-            f"no checkpoint for step {step} under {directory} "
-            f"(have steps {[s for s, _ in _list_steps(directory)]})")
-    with open(os.path.join(d, "meta.json")) as f:
-        meta = json.load(f)
+    d, meta = _checkpoint(directory, step)
     by_path = {m["path"]: m for m in meta["leaves"]}
     out = []
-    for path, leaf in leaves_with_paths(like):
+    for (path, leaf), dev in zip(leaves_with_paths(like),
+                                 _devices(shardings, like)):
         m = by_path.get(path)
         if m is None:
             raise ValueError(
@@ -160,16 +189,18 @@ def restore_checkpoint(directory: str, like: Any,
             raise ValueError(
                 f"checkpoint leaf {path!r} has shape {list(arr.shape)} but "
                 f"`like` expects {list(host.shape)} (checkpoint {d})")
-        out.append(_like_leaf(arr, leaf, host))
+        out.append(_like_leaf(arr, leaf, host, dev))
     return unflatten(like, out), meta["step"]
 
 
-def _like_leaf(arr: np.ndarray, leaf, host):
-    """``arr`` as the kind of leaf ``leaf`` is: a tensor on its device in
-    its dtype, a numpy array of its dtype, or a Python scalar of its type
-    (``host``: the leaf, or its numpy form)."""
+def _like_leaf(arr: np.ndarray, leaf, host, device=None):
+    """``arr`` as the kind of leaf ``leaf`` is: a tensor on ``device`` (else
+    its device) in its dtype, a numpy array of its dtype, or a Python
+    scalar of its type (``host``: the leaf, or its numpy form)."""
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        return torch.from_numpy(arr).to(
+            device=leaf.device if device is None else device,
+            dtype=leaf.dtype)
     arr = arr.astype(host.dtype)
     if isinstance(leaf, np.ndarray) or arr.ndim:
         return arr

@@ -1,0 +1,4 @@
+"""Data substrate."""
+from repro_torch.data.pipeline import TokenPipeline
+
+__all__ = ["TokenPipeline"]

@@ -1,7 +1,14 @@
 """Dispatching wrappers for the attention kernels: CUDA tensors launch the
-flash-attention forward (``kernels/csrc/flash_attention.cu``) or the
-one-token decode (``kernels/csrc/flash_decode.cu``); CPU tensors take the
-plain versions (``ref.py``); anything else raises.
+flash-attention forward (``kernels/csrc/flash_attention.cu``), its backward
+(``kernels/csrc/flash_attention_bwd.cu``) or the one-token decode
+(``kernels/csrc/flash_decode.cu``); CPU tensors take the plain versions
+(``ref.py``); anything else raises.
+
+``attention`` is differentiable: its forward runs the flash-attention
+kernel and saves q, k, v, o and lse, its backward (``attention_bwd``)
+launches the backward kernel, which sums dK and dV over each KV head's
+query group itself.  ``attention_lse`` and ``decode_attention`` are not
+differentiable.
 
 The kernels take KV with its own head count and map query head h to KV
 head ``h // (Hq // Hkv)``; the plain versions broadcast KV to the query
@@ -27,9 +34,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.dispatch import check_16b, route
 
-#: kernel launches made by ``attention``/``attention_lse`` (flash_attention)
-#: and by ``decode_attention`` (flash_decode), never by the plain versions
-launches = {"flash_attention": 0, "flash_decode": 0}
+#: kernel launches made by ``attention``/``attention_lse`` (flash_attention),
+#: by ``attention``'s backward (flash_attention_bwd) and by
+#: ``decode_attention`` (flash_decode), never by the plain versions
+launches = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_decode": 0}
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +51,21 @@ class _FlashParams(ctypes.Structure):
                 + [(n, ctypes.c_longlong) for n in (
                     "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
                     "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh")]
+                + [(n, ctypes.c_int) for n in (
+                    "B", "S", "T", "Hq", "Hkv", "D", "causal", "dtype")]
+                + [("scale", ctypes.c_float)])
+
+
+class _BwdParams(ctypes.Structure):
+    """``BwdParams`` of ``csrc/flash_attention_bwd.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+                    "q", "k", "v", "o", "dout", "lse", "delta", "dq", "dk",
+                    "dv")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
+                    "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh",
+                    "dout_sb", "dout_ss", "dout_sh")]
                 + [(n, ctypes.c_int) for n in (
                     "B", "S", "T", "Hq", "Hkv", "D", "causal", "dtype")]
                 + [("scale", ctypes.c_float)])
@@ -150,9 +174,67 @@ def attention_lse(q, k, v, *, causal: bool = True):
     return o, lse
 
 
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """dq [B,S,Hq,D], dk and dv [B,T,Hkv,D] (in q's type) of GQA attention
+    from its output o and lse (``attention_lse``) and the incoming gradient
+    do [B,S,Hq,D].  CPU tensors take the plain ``ref.gqa_bwd``; CUDA
+    tensors launch the backward kernel."""
+    if not route(q, k, v, o, lse, do):
+        return ref.gqa_bwd(q, k, v, o, lse, do, causal)
+    _check(q, k, v)
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    for name, x, dtype in (("o", o, q.dtype), ("do", do, q.dtype)):
+        if x.dtype != dtype or tuple(x.shape) != (b, s, hq, d):
+            raise ValueError(f"{name} must be {dtype} of shape "
+                             f"{(b, s, hq, d)}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if o.stride(3) != 1:
+        raise ValueError("o's head dim must be contiguous")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, s, hq) \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, s, hq)} "
+                         "tensor")
+    delta = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
+    p = _BwdParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], b, s, t, hq,
+        hkv, d, int(causal), _DTYPES[q.dtype], d ** -0.5)
+    _build.launch("flash_attention_bwd", [ctypes.POINTER(_BwdParams),
+                                          ctypes.c_void_p], ctypes.byref(p),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """``attention_lse`` forward (o and lse saved), ``attention_bwd``
+    backward: the reference's ``custom_vjp`` with its kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, o, lse, do, causal=ctx.causal), None)
+
+
 def attention(q, k, v, *, causal: bool = True):
-    """GQA attention.  q [B,S,Hq,D]; k/v [B,T,Hkv,D] -> [B,S,Hq,D]."""
-    return attention_lse(q, k, v, causal=causal)[0]
+    """GQA attention.  q [B,S,Hq,D]; k/v [B,T,Hkv,D] -> [B,S,Hq,D].
+    Differentiable in q, k and v."""
+    return _Attention.apply(q, k, v, causal)
 
 
 def decode_attention(q, k_cache, v_cache, length):

@@ -1,8 +1,12 @@
 """Plain PyTorch versions of the attention kernels: the blockwise
-online-softmax forward (``_fwd``, returning o and lse) and one-token
-attention over a KV cache, op for op the reference package's
-``kernels/attention/ref.py``.  The backward waits for training (ROADMAP.md,
-queue A, "LM stack: training").
+online-softmax forward (``_fwd``, returning o and lse), its hand-written
+recompute backward (``_bwd_impl``) and one-token attention over a KV cache,
+op for op the reference package's ``kernels/attention/ref.py``.
+
+``mha`` is differentiable the way the reference's ``custom_vjp`` makes it:
+the backward recomputes each block's probabilities from the saved lse
+instead of letting autograd stack them through the blockwise loop
+(``[n_blocks, B, S, H, block]`` float32 -- gigabytes at 4k).
 
 Head convention, as in the reference: q/k/v all carry H = n_q_heads (the
 wrapper in ``ops.py`` broadcasts KV heads to query heads first):
@@ -57,12 +61,81 @@ def _fwd(q, k, v, causal: bool, block_kv: int):
     return o, lse
 
 
+def _bwd_impl(q, k, v, o, lse, do, causal: bool, block_kv: int):
+    """dq, dk, dv of ``_fwd`` from its saved o and lse: each block's
+    probabilities recomputed from lse, delta = sum(dO * O); p cast to dO's
+    type before dV, dS to q's type before dQ and dK."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    scale = d ** -0.5
+    kb, n = _blocks(k, block_kv)
+    vb, _ = _blocks(v, block_kv)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
+    dq = torch.zeros_like(q)
+    dkb, dvb = [], []
+    for i in range(n):
+        k_i, v_i = kb[:, i], vb[:, i]
+        logits = torch.einsum("bshd,bthd->bsht", q, k_i) * scale
+        kv_pos = i * block_kv + torch.arange(block_kv, device=q.device)[None, :]
+        valid = kv_pos < t
+        if causal:
+            valid = valid & (kv_pos <= q_pos)
+        logits = logits.masked_fill(~valid[None, :, None, :], NEG_INF)
+        p = torch.exp(logits - lse[..., None])           # [B,S,H,Bk] f32
+        dvb.append(torch.einsum("bsht,bshd->bthd", p.to(do.dtype), do))
+        dp = torch.einsum("bshd,bthd->bsht", do, v_i).to(torch.float32)
+        ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+        dq = dq + torch.einsum("bsht,bthd->bshd", ds, k_i)
+        dkb.append(torch.einsum("bsht,bshd->bthd", ds, q))
+    dk = torch.cat(dkb, dim=1)[:, :t]
+    dv = torch.cat(dvb, dim=1)[:, :t]
+    return dq, dk, dv
+
+
+class _Mha(torch.autograd.Function):
+    """The reference's ``custom_vjp`` around ``_fwd``: the forward saves
+    q, k, v, o and lse, the backward is ``_bwd_impl``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_kv):
+        o, lse = _fwd(q, k, v, causal, block_kv)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.causal, ctx.block_kv = causal, block_kv
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_impl(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                               ctx.block_kv)
+        return dq, dk, dv, None, None
+
+
+def gqa_bwd(q, k, v, o, lse, do, causal: bool):
+    """dq [B,S,Hq,D], dk and dv [B,T,Hkv,D] of attention over KV with its
+    own head count: ``_bwd_impl`` on KV broadcast to the query heads (the
+    block size ``mha`` picks), each group's dK and dV then summed in
+    float32 and rounded once to q's type."""
+    hq, hkv = q.shape[2], k.shape[2]
+    dq, dk, dv = _bwd_impl(q, broadcast_kv(k, hq), broadcast_kv(v, hq), o,
+                           lse, do.contiguous(), causal,
+                           min(1024, max(k.shape[1], 128)))
+    if hq != hkv:
+        b, t, _, d = dk.shape
+        dk, dv = (x.float().reshape(b, t, hkv, hq // hkv, d).sum(3)
+                  .to(q.dtype) for x in (dk, dv))
+    return dq, dk, dv
+
+
 def mha_lse(q, k, v, *, causal: bool = True, block_kv: int = 1024):
     """Flash attention (plain) with its log-sum-exp.  q [B,S,H,D]; k/v
-    [B,T,H,D].  Returns (o [B,S,H,D], lse [B,S,H] float32)."""
+    [B,T,H,D].  Returns (o [B,S,H,D], lse [B,S,H] float32); o is
+    differentiable (``_bwd_impl``), lse is not."""
     assert q.shape[2] == k.shape[2], "broadcast KV to query heads first"
     block_kv = min(block_kv, max(k.shape[1], 128))
-    return _fwd(q, k, v, causal, block_kv)
+    return _Mha.apply(q, k, v, causal, block_kv)
 
 
 def mha(q, k, v, *, causal: bool = True, block_kv: int = 1024):

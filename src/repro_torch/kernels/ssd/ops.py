@@ -6,7 +6,14 @@ PyTorch on every device, as in the reference.
 The bfloat16 scan runs on the tensor cores and moves x, B, C and y by TMA,
 which wants each base 16-byte aligned and each stride but the last a
 multiple of 16 bytes (so P a multiple of 8); the float32 scan is the exact
-SIMT kernel."""
+SIMT kernel.
+
+``ssd`` is differentiable.  Its forward always runs the scan above (the
+kernel for CUDA tensors); its backward recomputes the reference's chunked
+scan (``ref.ssd_chunked``) from the saved inputs with autograd and returns
+that graph's gradients.  The reference has no SSD backward kernel either:
+it differentiates its jnp chunked scan by autodiff, and so does the port.
+This is not a fallback: the card runs the scan kernel forward every time."""
 from __future__ import annotations
 
 import ctypes
@@ -19,6 +26,8 @@ from repro_torch.kernels.ssd import ref
 
 #: kernel launches made by ``ssd`` (never by the plain version)
 launches = 0
+#: the profiler range around the backward's plain recompute
+BACKWARD_RANGE = "ssd_backward_plain"
 
 CHUNK = 64          # the kernel's chunk length
 MAX_HEAD_DIM = 64   # P
@@ -69,6 +78,45 @@ def _check(x, dt, a, B, C):
 
 
 def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
+    """Chunked SSD scan (training and prefill), differentiable in every
+    tensor argument; see ``_ssd_fwd`` for the forward."""
+    return _Ssd.apply(x, dt, a, B, C, d_skip, initial_state, chunk)
+
+
+class _Ssd(torch.autograd.Function):
+    """``_ssd_fwd`` forward; the backward recomputes ``ref.ssd_chunked``
+    under autograd from the saved inputs (the reference's own gradient,
+    by autodiff of its chunked scan)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B, C, d_skip, initial_state, chunk):
+        ctx.save_for_backward(x, dt, a, B, C, d_skip, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)   # an unused state brings None
+        return _ssd_fwd(x, dt, a, B, C, d_skip, initial_state, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        saved = ctx.saved_tensors
+        want = [i for i, t in enumerate(saved)
+                if t is not None and ctx.needs_input_grad[i]]
+        with torch.enable_grad(), torch.profiler.record_function(
+                BACKWARD_RANGE):
+            inputs = [None if t is None else t.detach().requires_grad_(i in want)
+                      for i, t in enumerate(saved)]
+            y, state = ref.ssd_chunked(*inputs, chunk=ctx.chunk)
+            pairs = [(o, g.to(o.dtype)) for o, g in ((y, gy), (state, gstate))
+                     if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs],
+                                      [inputs[i] for i in want],
+                                      [g for _, g in pairs], allow_unused=True)
+        out = [None] * 8
+        for i, g in zip(want, got):
+            out[i] = g
+        return tuple(out)
+
+
+def _ssd_fwd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
     """Chunked SSD scan (prefill).  x [B,S,H,P]; dt [B,S,H] float32; a [H]
     float32; B/C [B,S,N] in x's type; d_skip [H] or None; initial_state
     [B,H,P,N] or None (zeros).  Returns (y [B,S,H,P] in x's type, final

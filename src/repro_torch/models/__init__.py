@@ -8,8 +8,10 @@ from repro_torch.models.model import (
     forward_hidden,
     init_cache,
     init_params,
+    loss_fn,
     model_defs,
     params_from_numpy,
+    train_state_from_numpy,
 )
 
 __all__ = [
@@ -17,9 +19,11 @@ __all__ = [
     "model_defs",
     "init_params",
     "params_from_numpy",
+    "train_state_from_numpy",
     "cast_params",
     "forward",
     "forward_hidden",
+    "loss_fn",
     "init_cache",
     "cache_defs",
     "decode_step",

@@ -11,8 +11,16 @@ cache keeps the reference's stacked layout ([n_layers, ...] per leaf) and
 ``decode_step`` updates it in place.
 
 ``kernels=False`` runs the plain versions of the attention and SSD kernels
-on any device: the comparison path.  ``loss_fn`` and remat wait for training
-(ROADMAP.md, queue A, item 9).
+(forward and backward) on any device: the comparison path.
+
+Training: ``loss_fn`` is the reference's chunked cross-entropy, each
+chunk's head product and logsumexp recomputed in the backward
+(``torch.utils.checkpoint``), so [B,S,V] logits are never held.  Under
+autograd ``cfg.remat == "full"`` checkpoints every block and
+``cfg.remat_group`` (attn/moe families) checkpoints groups of G blocks
+around that (sqrt-remat), as the reference's ``jax.checkpoint``s do;
+without a graph (serving) nothing is checkpointed.  Gradients reach the
+float32 masters through ``cast_params``.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
@@ -136,6 +145,38 @@ def params_from_numpy(cfg: ModelConfig, leaves: Mapping[str, np.ndarray],
     return params
 
 
+def train_state_from_numpy(cfg: ModelConfig,
+                           leaves: Mapping[str, np.ndarray], device=None):
+    """The port's ``launch.steps.TrainState`` from the reference's: ``leaves``
+    maps the reference train state's path strings (the keys of its
+    checkpoints: ``.params[...]``, ``.opt.m[...]``, ``.opt.v[...]`` and
+    ``.opt.step``) to numpy arrays; stacked leaves are split into the
+    per-block dictionaries as ``params_from_numpy`` does.  Raises on a
+    missing, extra or misshapen leaf."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim import OptState
+
+    dev = resolve_device(device)
+    parts = {".params": {}, ".opt.m": {}, ".opt.v": {}}
+    step = None
+    for key, arr in leaves.items():
+        if key == ".opt.step":
+            step = arr
+            continue
+        prefix = next((p for p in parts if key.startswith(p + "[")), None)
+        if prefix is None:
+            raise ValueError(f"unexpected train-state leaf {key!r}")
+        parts[prefix][key[len(prefix):]] = arr
+    if step is None:
+        raise ValueError("train-state leaf '.opt.step' missing")
+    if np.shape(step) != ():
+        raise ValueError(f"leaf .opt.step has shape {np.shape(step)}, "
+                         "expected ()")
+    params, m, v = (params_from_numpy(cfg, parts[p], dev) for p in parts)
+    return TrainState(params, OptState(m, v, torch.tensor(
+        int(step), dtype=torch.int32, device=dev)))
+
+
 def cast_params(params, dtype):
     """Float32 weights cast to the compute dtype (others as they are).  A
     step casts once when it is built; the layers' own casts are then
@@ -162,6 +203,22 @@ def _mamba_block(p, x, cfg: ModelConfig, kernels: bool):
     return x + h
 
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    if cfg.remat == "full":
+        return _remat(fn)
+    return fn
+
+
+def _remat(fn):
+    """``fn(p, x)`` recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint``), when autograd records a graph."""
+    def wrapped(p, x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return checkpoint(fn, p, x, use_reentrant=False)
+        return fn(p, x)
+    return wrapped
+
+
 # ---------------------------------------------------------------- forward
 
 
@@ -179,18 +236,33 @@ def forward_hidden(params, cfg: ModelConfig, batch, dtype=torch.bfloat16, *,
     """Full-sequence forward up to the final norm -> hidden [B,S,D]."""
     params = cast_params(params, dtype)
     x = _embed_inputs(params, cfg, batch, dtype)
+    afn = _maybe_remat(lambda lp, h: _attn_block(lp, h, cfg, kernels), cfg)
+    mfn = _maybe_remat(lambda lp, h: _mamba_block(lp, h, cfg, kernels), cfg)
     if cfg.block in ("attn", "moe"):
-        for lp in params["layers"]:
-            x = _attn_block(lp, x, cfg, kernels)
+        g = cfg.remat_group
+        if g and cfg.scan_layers and cfg.n_layers % g == 0:
+            # sqrt-remat: only the L/G group inputs are kept; each group
+            # recomputes its G block inputs during its backward
+            def group_fn(gp, h):
+                for lp in gp:
+                    h = afn(lp, h)
+                return h
+
+            group_fn = _remat(group_fn)
+            for i in range(0, cfg.n_layers, g):
+                x = group_fn(params["layers"][i:i + g], x)
+        else:
+            for lp in params["layers"]:
+                x = afn(lp, x)
     elif cfg.block == "mamba":
         for lp in params["layers"]:
-            x = _mamba_block(lp, x, cfg, kernels)
+            x = mfn(lp, x)
     elif cfg.block == "zamba":
         k = cfg.shared_attn_every
         for g in range(cfg.n_layers // k):
             for lp in params["layers"][g * k:(g + 1) * k]:
-                x = _mamba_block(lp, x, cfg, kernels)
-            x = _attn_block(params["shared"], x, cfg, kernels)  # weight-tied
+                x = mfn(lp, x)
+            x = afn(params["shared"], x)  # weight-tied
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -202,6 +274,39 @@ def forward(params, cfg: ModelConfig, batch, dtype=torch.bfloat16,
     if last_only:
         x = x[:, -1:]
     return torch.matmul(x, params["head"].to(dtype))
+
+
+def loss_fn(params, cfg: ModelConfig, batch, dtype=torch.bfloat16,
+            ce_chunk: int = 512, *, kernels: bool = True):
+    """Mean next-token (decoder) or masked-unit (encoder) cross-entropy.
+
+    The head product and logsumexp run in sequence chunks, each recomputed
+    in the backward, so the [B,S,V] logits tensor is never materialized."""
+    x = forward_hidden(params, cfg, batch, dtype, kernels=kernels)  # [B,S,D]
+    labels = batch["labels"].long()
+    b, s, d = x.shape
+    chunk = min(ce_chunk, s)
+    n = s // chunk
+    head = params["head"].to(dtype)
+
+    def one(xc, yc, w):                                    # [B,C,D], [B,C]
+        logits = torch.matmul(xc, w).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    def part(xc, yc):
+        if torch.is_grad_enabled() and (xc.requires_grad or head.requires_grad):
+            return checkpoint(one, xc, yc, head, use_reentrant=False)
+        return one(xc, yc, head)
+
+    if n * chunk == s and n > 1:
+        total = torch.sum(torch.stack([
+            part(x[:, i * chunk:(i + 1) * chunk],
+                 labels[:, i * chunk:(i + 1) * chunk]) for i in range(n)]))
+    else:
+        total = part(x, labels)
+    return total / (b * s)
 
 
 # ------------------------------------------------------------ decode state

@@ -1,0 +1,4 @@
+"""Optimizer substrate."""
+from repro_torch.optim.adamw import OptState, adamw_init, adamw_update, global_norm
+
+__all__ = ["OptState", "adamw_init", "adamw_update", "global_norm"]

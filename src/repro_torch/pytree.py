@@ -57,6 +57,14 @@ def to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def map_leaves(fn, tree, *rest):
+    """``fn`` over the leaves of trees of one structure, leaf by leaf in
+    flatten order; a tree of ``tree``'s structure."""
+    others = [[x for _, x in leaves_with_paths(t)] for t in rest]
+    return unflatten(tree, [fn(x, *(o[i] for o in others)) for i, (_, x)
+                            in enumerate(leaves_with_paths(tree))])
+
+
 def unflatten(like, leaves: Iterable):
     """A tree of ``like``'s structure holding ``leaves`` (in flatten order)."""
     it = iter(leaves)

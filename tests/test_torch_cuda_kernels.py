@@ -949,3 +949,134 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
         wide = _rand(gen, (1, 64, 2, 80), torch.float32)
         ssd_ops.ssd(wide, dt, a, bc, bc)
     assert (dict(attn_ops.launches), ssd_ops.launches) == before
+
+
+# ------------------------------------------------------ training on the card
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal", [
+    (2, 200, 200, 8, 2, 64, True),        # GQA, S ragged against 64
+    (1, 100, 300, 8, 2, 80, False),       # S != T, non-causal
+    (2, 65, 65, 4, 4, 128, True),         # D = 128, one row past a tile
+    (1, 129, 129, 4, 4, 16, False),
+    (1, 1, 1, 2, 2, 96, True),
+    (1, 256, 256, 32, 8, 80, True),       # GQA 32/8 at zamba2's head dim
+])
+def test_flash_attention_bwd_matches_plain(cuda, b, s, t, hq, hkv, d, causal,
+                                           dtype):
+    """The backward kernel against ``ref.gqa_bwd``: float32 within 1e-4 x
+    max(1, max |g|); bfloat16 no farther from the float32 plain gradients
+    than the bfloat16 plain path (mean within 1.25x, max within 2x).  Two
+    calls are bitwise equal (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = _rand(gen, (b, s, hq, d), dtype)
+    k = _rand(gen, (b, t, hkv, d), dtype)
+    v = _rand(gen, (b, t, hkv, d), dtype)
+    do = _rand(gen, (b, s, hq, d), dtype)
+    o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+    before = attn_ops.launches["flash_attention_bwd"]
+    got = attn_ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert attn_ops.launches["flash_attention_bwd"] == before + 1
+    again = attn_ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    assert all(g.dtype == dtype for g in got)
+    want = attn_ops.ref.gqa_bwd(q, k, v, o, lse, do, causal)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            bound = 1e-4 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= bound
+        return
+    f = [x.float() for x in (q, k, v, do)]
+    o32, lse32 = attn_ops.ref.mha_lse(
+        f[0], attn_ops.ref.broadcast_kv(f[1], hq),
+        attn_ops.ref.broadcast_kv(f[2], hq), causal=causal)
+    w32 = attn_ops.ref.gqa_bwd(f[0], f[1], f[2], o32, lse32, f[3], causal)
+    for g, w, ref32 in zip(got, want, w32):
+        ours = (g.double() - ref32.double()).abs()
+        theirs = (w.double() - ref32.double()).abs()
+        assert float(ours.mean()) <= 1.25 * float(theirs.mean())
+        assert float(ours.max()) <= 2 * float(theirs.max())
+
+
+def test_flash_attention_bwd_finite_differences(cuda):
+    """The float32 kernel's gradient against central differences of the
+    forward kernel along random directions (gradcheck's test, in float32:
+    the kernels take no float64)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, s, hq, hkv, d = 1, 37, 4, 2, 16
+    q = _rand(gen, (b, s, hq, d), torch.float32).requires_grad_()
+    k = _rand(gen, (b, s, hkv, d), torch.float32).requires_grad_()
+    v = _rand(gen, (b, s, hkv, d), torch.float32).requires_grad_()
+    w = _rand(gen, (b, s, hq, d), torch.float32)
+
+    def loss(q, k, v):
+        return (attn_ops.attention(q, k, v, causal=True) * w).sum()
+
+    before = attn_ops.launches["flash_attention_bwd"]
+    grads = torch.autograd.grad(loss(q, k, v), (q, k, v))
+    assert attn_ops.launches["flash_attention_bwd"] == before + 1
+    eps = 1e-2
+    with torch.no_grad():
+        for i, g in enumerate(grads):
+            for _ in range(3):
+                u = _rand(gen, g.shape, torch.float32)
+                args = [q, k, v]
+                plus = list(args)
+                minus = list(args)
+                plus[i] = args[i] + eps * u
+                minus[i] = args[i] - eps * u
+                fd = (loss(*plus) - loss(*minus)) / (2 * eps)
+                an = (g * u).sum()
+                assert abs(float(fd - an)) <= 1e-2 * max(1.0, abs(float(an)))
+
+
+def test_flash_attention_bwd_rejects_what_it_cannot_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _rand(gen, (1, 16, 4, 64), torch.float32)
+    k = _rand(gen, (1, 16, 2, 64), torch.float32)
+    o, lse = attn_ops.attention_lse(q, k, k)
+    before = attn_ops.launches["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="do must be"):
+        attn_ops.attention_bwd(q, k, k, o, lse, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="lse must be"):
+        attn_ops.attention_bwd(q, k, k, o, lse[:, :8], q)
+    with pytest.raises(ValueError, match="several devices"):
+        attn_ops.attention_bwd(q, k, k, o, lse.cpu(), q)
+    assert attn_ops.launches["flash_attention_bwd"] == before
+
+
+def test_trainer_restore_is_bitwise_on_the_card(cuda, tmp_path):
+    """Crash, restore and continue reproduces the uninterrupted run bit for
+    bit on the card with the kernels (phi3-mini-3.8b's smoke config): the
+    attention backward runs no atomics."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.pytree import leaves_with_paths
+    from repro_torch.training import Trainer
+
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    kw = dict(global_batch=4, seq_len=32, ckpt_every=1000, lr=1e-3,
+              device=cuda)
+    ref = Trainer(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    before = dict(attn_ops.launches)
+    ref_hist = ref.run(6)
+    ref.close()
+    n_attn = cfg.n_layers * 6
+    assert attn_ops.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + n_attn
+    assert attn_ops.launches["flash_attention"] >= \
+        before["flash_attention"] + n_attn
+    tr1 = Trainer(cfg, ckpt_dir=str(tmp_path / "b"), **kw)
+    tr1.run(3)
+    tr1.save_now()
+    tr1.close()
+    del tr1
+    tr2 = Trainer(cfg, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert tr2.step == 3
+    hist2 = tr2.run(3)
+    tr2.close()
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in ref_hist[3:]]
+    for (pa, a), (pb, b) in zip(leaves_with_paths(ref.state),
+                                leaves_with_paths(tr2.state)):
+        assert pa == pb and a.device.type == "cuda"
+        assert torch.equal(a, b), pa

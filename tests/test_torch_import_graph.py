@@ -20,7 +20,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 if bad:
     raise SystemExit("repro_torch pulled in: " + ", ".join(bad))
-print("clean", len(names))
+print("clean", len(names), " ".join(names))
 """
 
 
@@ -35,6 +35,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("clean")
     assert int(proc.stdout.split()[1]) >= 20   # every module was walked
+    walked = set(proc.stdout.split()[2:])
+    assert {"repro_torch.data.pipeline", "repro_torch.optim.adamw",
+            "repro_torch.training.trainer", "repro_torch.launch.train",
+            "repro_torch.launch.steps"} <= walked
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

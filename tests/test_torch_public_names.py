@@ -23,25 +23,20 @@ NOT_YET = {
         "data_axis_size": "9.4, the TPU meshes",
     },
     "models": {
-        "loss_fn": "9.1, training",
         "param_shapes": "9.4, specs and shape helpers",
         "cache_shapes": "9.4, specs and shape helpers",
         "param_specs": "9.4, specs and shape helpers",
         "cache_specs": "9.4, specs and shape helpers",
     },
-    "launch.steps": {
-        "TrainState": "9.1, training",
-        "init_train_state": "9.1, training",
-        "make_train_step": "9.1, training",
-    },
 }
 
 WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
-            "kernels.window_mega", "checkpoint"]
-WITHOUT_ALL = ["launch.steps", "launch.mesh", "kernels.adaptbf_alloc.ops",
-               "kernels.attention.ops", "kernels.ssd.ops",
-               "storage.telemetry", "storage.metrics", "storage.service",
-               "storage.workloads", "checkpoint.manager"]
+            "kernels.window_mega", "checkpoint", "data", "optim", "training"]
+WITHOUT_ALL = ["launch.steps", "launch.mesh", "launch.train",
+               "kernels.adaptbf_alloc.ops", "kernels.attention.ops",
+               "kernels.ssd.ops", "storage.telemetry", "storage.metrics",
+               "storage.service", "storage.workloads", "checkpoint.manager",
+               "data.pipeline", "optim.adamw", "training.trainer"]
 
 
 def _public_definitions(module):
