@@ -5,11 +5,11 @@
 
 Phases, each of which raises on failure (the run then exits non-zero):
 
-1. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+1. Build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, in parallel, and print ptxas's registers, spills and
    shared memory and the count of tensor-core (HGMMA) instructions in the
-   SASS of the flash attention and SSD libraries (``cuobjdump -sass``;
-   none in either fails the run); for the three fleet kernels at J=4096,
+   SASS of the flash attention forward and backward and SSD libraries
+   (``cuobjdump -sass``; none in any fails the run); for the three fleet kernels at J=4096,
    a summary of registers, spills, static and dynamic shared memory and
    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
 2. Hold each kernel against its plain PyTorch version on the card, on
@@ -41,9 +41,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
    types (its launch counter must move).  The attention backward (B4-bwd)
    against ``ref._bwd_impl``, dq, dk and dv: the training shape (B=4,
    S=2048, 32 heads of 80, causal), GQA 32/8, non-causal S != T, S=1000,
-   D of 64 and 128, B=1, float32 within 1e-4 x max(1, max |g|), bfloat16 no
-   farther from the float32 plain gradients than the bfloat16 plain
-   version (mean within 1.25x, max within 2x); two calls bitwise equal.
+   D of 64 and 128, B=1, float32 (SIMT) within 1e-4 x max(1, max |g|),
+   bfloat16 (tensor cores) no farther from the float32 plain gradients
+   than the bfloat16 plain version (mean within 1.25x, max within 2x); two
+   calls bitwise equal.  The SSD backward (B6-bwd) against autograd of
+   ``ref.ssd_chunked``, every gradient: the training shape (B=4, S=2048,
+   80 heads of P=64, N=64) in both types, S of 1000 and 1, a warm start,
+   no ``d_skip``, gy only, gstate only, P=16 with N=128, at the same two
+   rules; two calls bitwise equal.
 3. Drive the main paths, each with every launch counter set to 0 just
    before it and read just after.  The fleet: a seeded 256-OST x 4096-job
    fleet (``random_fleet(0, profile="mixed")``, 20 windows of trace tiled
@@ -72,7 +77,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    full width and depth on weights from ``torch.Generator(0)``; the
    prefill step (``make_prefill_step``, bfloat16, B=4 x S=2048; 9 flash
    attention and 54 SSD launches) against the plain path on the card,
-   with float32 runs of both as the yardstick; then the serving
+   with float32 runs of both as the yardstick (the float32 kernel-vs-plain
+   gate on the same draws at each block leaf's own fan-in, as for the
+   training gradients); then the serving
    launcher's workload through ``ServingEngine`` and
    ``AdapTBFController`` (8 requests, 16 new tokens, 4 slots, float32; 9
    flash decode launches a step), the plain path teacher-forced on the
@@ -106,11 +113,16 @@ Phases, each of which raises on failure (the run then exits non-zero):
    ``torch.Generator(0)`` and ``TokenPipeline(32000, 2048, 4).batch(0)``;
    ``loss_fn`` forward and backward in float32, kernel path against the
    plain path (loss within 1e-4 relative, each gradient leaf within 1e-3 x
-   max(1, max |g|)), and in bfloat16 against the float32 plain gradients,
-   held to the bfloat16 plain path's own error; then five
+   max(1, max |g|), on the same draws with each block leaf at its own
+   fan-in, ``fan_in_params``; at ``init_params``' weights the loss is
+   gated and the gradients printed beside the plain path's own spread
+   when its weights move by one ulp, which alone exceeds 1e-3), and in
+   bfloat16 against the float32 plain gradients, held to the bfloat16
+   plain path's own error; then five
    ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
    place), each launching B4 18 times (9 and 9 recomputed), its
-   backward 9 times and B6 108 times, the plain path launching nothing;
+   backward 9 times, B6 108 times and B6's backward 54 times, the plain
+   path launching nothing;
    every loss, parameter and moment finite; the peak device memory.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
@@ -120,12 +132,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
    rates on the card or handed over as numpy), the prefill in tokens per
    second on both paths and the engine in generated tokens per second;
    the attention backward beside its bound and SDPA's forward+backward
-   minus its forward; train tokens per second (B x S over the median of
+   minus its forward; the SSD backward beside its bound and its plain
+   reverse scan; train tokens per second (B x S over the median of
    the last four steps).
 5. Trace one fused/pallas run, one mega run, one streaming fused/pallas
    run, 60 telemetry folds at the main shape, one bfloat16 prefill step,
-   one engine run and one bfloat16 train step (with the plain SSD
-   backward's share, its ``record_function`` range) with ``torch.profiler``: device busy time, idle
+   one engine run and one bfloat16 train step (with the SSD backward
+   kernel's share, its ``record_function`` range, and no plain SSD
+   backward range) with ``torch.profiler``: device busy time, idle
    share and device time by kernel (the fused/pallas run's beside the
    one from before the allocation kernel ran two blocks an SM,
    ``ONE_BLOCK_FUSED_TRACE``; the fold's device time a window beside the
@@ -1822,6 +1836,31 @@ def ssd_work(b, s, h, p, n, elem, q=64):
     return n_bytes, b * h * nc * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
 
 
+def fan_in_params(torch, models, cfg, params):
+    """``params`` with every block leaf that is drawn at the reference's
+    stacked fan-in (``n_layers ** -0.5``, ``models.model._stacked_scale``)
+    rescaled to its own fan-in, ``shape[0] ** -0.5``: the same draws at the
+    scale the cells had before the port matched the reference's (ROADMAP
+    C.1).  The float32 kernel-vs-plain gates run on these weights: at the
+    stacked scale zamba2-2.7b's float32 logits and gradients move by more
+    than the gates' 1e-3 when the weights move by one ulp (printed beside
+    each gate), so no two float32 implementations could meet them there."""
+    def walk(defs, w):
+        if isinstance(defs, dict):
+            return {k: walk(defs[k], w[k]) for k in w}
+        if defs.init == "normal" and defs.scale is None:
+            return w * (cfg.n_layers ** 0.5 * defs.shape[0] ** -0.5)
+        return w
+    block = models.model._block_defs(cfg)
+    return {**params, "layers": [walk(block, w) for w in params["layers"]]}
+
+
+def one_ulp(torch, models, params):
+    """Every weight moved one ulp up (the plain path's own spread)."""
+    return models.common.map_tree(
+        lambda w: torch.nextafter(w, torch.full_like(w, float("inf"))), params)
+
+
 def lm_main_path(torch, dev, counts, zero_counts):
     """zamba2-2.7b at full width on seeded weights: the prefill step (bf16)
     on the kernels and on the plain path, and in float32 both ways as the
@@ -1897,9 +1936,33 @@ def lm_main_path(torch, dev, counts, zero_counts):
     ref32 = logits[("float32", False)]
     scale = float(ref32.abs().max())
     e32 = float((logits[("float32", True)] - ref32).abs().max())
-    if e32 > 1e-3 * max(1.0, scale):
-        raise AssertionError(f"float32 prefill: kernel path off the plain "
-                             f"path by {e32} (max |logit| {scale})")
+    # the plain path's own spread at these weights: moved by one ulp
+    bumped = one_ulp(torch, models, params)
+    lg = make_prefill_step(cfg, compute_dtype=torch.float32,
+                           kernels=False)(bumped, batch)
+    spread = float((lg[:, -1].double() - ref32).abs().max())
+    del bumped, lg
+    # the gate: float32 kernel path against the plain path on the same
+    # draws at each leaf's own fan-in
+    cond = fan_in_params(torch, models, cfg, params)
+    c_lg = [make_prefill_step(cfg, compute_dtype=torch.float32,
+                              kernels=k)(cond, batch)[:, -1].double()
+            for k in (True, False)]
+    del cond
+    c_scale = float(c_lg[1].abs().max())
+    c_e32 = float((c_lg[0] - c_lg[1]).abs().max())
+    print(f"prefill float32 at init_params' weights (max |logit| "
+          f"{scale:.3f}): kernel vs plain max |err| {e32}; the plain path "
+          f"moved by its weights' one ulp: {spread} (not gated: above 1e-3 x "
+          f"max(1, max |logit|) = {1e-3 * max(1.0, scale):.4g} by itself)")
+    if c_e32 > 1e-3 * max(1.0, c_scale):
+        raise AssertionError(f"float32 prefill at each leaf's fan-in: kernel "
+                             f"path off the plain path by {c_e32} (max "
+                             f"|logit| {c_scale})")
+    print(f"prefill float32 at each block leaf's own fan-in (max |logit| "
+          f"{c_scale:.3f}): kernel vs plain max |err| {c_e32} (bound 1e-3 x "
+          f"max(1, max |logit|))")
+    out.update(prefill_err_f32_fan_in=c_e32, prefill_spread_f32=spread)
     k16, p16 = logits[("bfloat16", True)], logits[("bfloat16", False)]
     e16 = float((k16 - p16).abs().max())
     ours, theirs = (k16 - ref32).abs(), (p16 - ref32).abs()
@@ -1911,8 +1974,8 @@ def lm_main_path(torch, dev, counts, zero_counts):
             f"{float(theirs.max())})")
     agree16 = float((k16.argmax(-1) == p16.argmax(-1)).double().mean())
     print(f"prefill last-token logits (max |logit| {scale:.3f}): float32 "
-          f"kernel vs plain max |err| {e32} (bound 1e-3 x max(1, max "
-          f"|logit|)); bfloat16 kernel vs plain max |err| {e16}, argmax "
+          f"kernel vs plain max |err| {e32} (gated at each leaf's fan-in, "
+          f"above); bfloat16 kernel vs plain max |err| {e16}, argmax "
           f"agreement {agree16}; against the float32 plain logits, "
           f"bfloat16 kernel path mean/max |err| {float(ours.mean()):.5f}/"
           f"{float(ours.max()):.5f}, bfloat16 plain path "
@@ -2099,6 +2162,140 @@ def check_attention_bwd_kernel(torch, attn_ops, dev):
     return timed, worst
 
 
+def ssd_bwd_work(b, s, h, p, n, elem, q=64):
+    """(bytes, operations) of the SSD backward: x, gy, B, C read and dx, dB,
+    dC written once in the compute type, dt read and ddt written once in
+    float32; per chunk of a (sequence, head) the needed products: the
+    states again (2 Q N P), the scores and dw (2 Q^2 N, 2 Q^2 P), d(xw),
+    dC and dB of the quadratic form (2 Q^2 P, 4 Q^2 N), and four state
+    products (8 Q N P): 6 Q^2 N + 4 Q^2 P + 10 Q N P, about 2.5 times the
+    forward's."""
+    nc = -(-s // q)
+    n_bytes = elem * (3 * b * s * h * p + 4 * b * s * n) + 4 * 2 * b * s * h
+    return n_bytes, b * h * nc * (6 * q * q * n + 4 * q * q * p
+                                  + 10 * q * n * p)
+
+
+def ssd_autograd(torch, ssd_ops, args, gy, gs):
+    """The gradients of ``ref.ssd_chunked`` by autograd (the oracle), one
+    for each input (None where the input is None; zeros where it is
+    unused)."""
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in args]
+    y, st = ssd_ops.ref.ssd_chunked(*leaves[:5], d_skip=leaves[5],
+                                    initial_state=leaves[6])
+    outs = [(o, g.to(o.dtype)) for o, g in ((y, gy), (st, gs))
+            if g is not None]
+    idx = [i for i, t in enumerate(leaves) if t is not None]
+    got = torch.autograd.grad([o for o, _ in outs], [leaves[i] for i in idx],
+                              [g for _, g in outs], allow_unused=True)
+    out = [None] * 7
+    for i, g in zip(idx, got):
+        out[i] = torch.zeros_like(leaves[i]) if g is None else g
+    return out
+
+
+def check_ssd_bwd_kernel(torch, ssd_ops, dev):
+    """B6-bwd against autograd of ``ref.ssd_chunked`` on the card, every
+    gradient (dx, ddt, da, dB, dC, d(d_skip), d(initial_state)): the
+    training shape (B=4, S=2048, 80 heads of P=64, N=64) in both types,
+    S=1000 and S=1, a warm start, ``d_skip=None``, gy only, gstate only,
+    P=16 with N=128.  float32 within 1e-4 x max(1, max |g|) a gradient;
+    bfloat16 no farther from the float32 autograd gradients than the
+    bfloat16 plain path's autograd (mean within 1.25x, max within 2x).
+    Each call launches the kernel once (two launches: the scan and the
+    reduction); two calls are bitwise equal.  Returns the training-shape
+    bfloat16 inputs and the largest float32 absolute error."""
+    gen = torch.Generator(device=dev).manual_seed(61)
+    names = ("dx", "ddt", "da", "dB", "dC", "dD", "dh0")
+    both = ("float32", "bfloat16")
+    # (b, s, h, p, n, warm start, d_skip, gy, gstate)
+    cases = [(TRAIN_B, TRAIN_S, 80, 64, 64, False, True, True, False, dt)
+             for dt in both]
+    cases += [(2, 1000, 8, 64, 64, True, True, True, True, dt) for dt in both]
+    cases += [(2, 1, 8, 64, 64, True, True, True, True, dt) for dt in both]
+    cases += [(2, 300, 8, 64, 64, False, False, True, True, dt)
+              for dt in both]
+    cases += [(2, 300, 8, 64, 64, True, True, True, False, dt) for dt in both]
+    cases += [(2, 300, 8, 64, 64, True, True, False, True, dt) for dt in both]
+    cases += [(2, 300, 8, 16, 128, True, True, True, True, dt) for dt in both]
+    worst, timed = 0.0, None
+    for b, s, h, p, n, warm, skip, use_gy, use_gs, name in cases:
+        dt = getattr(torch, name)
+        x, dtt, a, B, C, d = ssd_inputs(torch, gen, b, s, h, p, n, dt)
+        h0 = _randn(torch, gen, (b, h, p, n), torch.float32) if warm else None
+        gy = _randn(torch, gen, (b, s, h, p), dt) if use_gy else None
+        gs = (_randn(torch, gen, (b, h, p, n), torch.float32) if use_gs
+              else None)
+        args = [x, dtt, a, B, C, d if skip else None, h0]
+        before = ssd_ops.launches_bwd
+        got = ssd_ops.ssd_bwd(*args, gy=gy, gstate=gs)
+        again = ssd_ops.ssd_bwd(*args, gy=gy, gstate=gs)
+        if ssd_ops.launches_bwd != before + 2:
+            raise AssertionError("ssd_bwd did not launch its kernel")
+        for nm, g, g2, t in zip(names, got, again, args):
+            if (g is None) != (t is None):
+                raise AssertionError(f"ssd_bwd: {nm} given for a None input "
+                                     "or missing")
+            if g is not None and not bool(torch.equal(g, g2)):
+                raise AssertionError(f"ssd_bwd is not deterministic ({nm})")
+        want = ssd_autograd(torch, ssd_ops, args, gy, gs)
+        label = (f"ssd_scan_bwd kernel vs autograd of the plain scan, B={b} "
+                 f"S={s} H={h} P={p} N={n} warm={warm} d_skip={skip} "
+                 f"gy={use_gy} gstate={use_gs} {name}")
+        if name == "float32":
+            errs = {}
+            for nm, g, w in zip(names, got, want):
+                if g is None:
+                    continue
+                if not bool(g.isfinite().all()):
+                    raise AssertionError(f"{label}: non-finite {nm}")
+                e = float((g.double() - w.double()).abs().max())
+                worst = max(worst, e)
+                errs[nm] = e / max(1.0, float(w.abs().max()))
+            if max(errs.values()) > 1e-4:
+                raise AssertionError(f"{label}: off by {errs} x max(1, "
+                                     "max |g|) (bound 1e-4)")
+            print(f"{label}: max |err| / max(1, max |g|) "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + " (bound 1e-4)")
+        else:
+            # the float32 yardstick of the bfloat16 function: its inputs
+            # as float32, the warm start rounded to x's type as the scan
+            # casts it
+            f32 = [None if t is None else t.float() for t in args]
+            if h0 is not None:
+                f32[6] = h0.to(dt).float()
+            w32 = ssd_autograd(torch, ssd_ops, f32,
+                               None if gy is None else gy.float(), gs)
+            parts = []
+            for nm, g, w, r in zip(names, got, want, w32):
+                if g is None:
+                    continue
+                ours, theirs = (g.double() - r.double()).abs(), \
+                    (w.double() - r.double()).abs()
+                if not bool(g.isfinite().all()) or \
+                        float(ours.mean()) > 1.25 * float(theirs.mean()) \
+                        + 1e-12 or \
+                        float(ours.max()) > 2 * float(theirs.max()) + 1e-12:
+                    raise AssertionError(
+                        f"{label}: {nm} farther from the float32 gradient "
+                        f"(mean {float(ours.mean())}, max {float(ours.max())})"
+                        f" than the bfloat16 plain path (mean "
+                        f"{float(theirs.mean())}, max {float(theirs.max())})")
+                parts.append(f"{nm} {float(ours.mean()):.3g}/"
+                             f"{float(ours.max()):.3g} vs plain "
+                             f"{float(theirs.mean()):.3g}/"
+                             f"{float(theirs.max()):.3g}")
+            print(f"{label}: mean/max |err| against the float32 autograd "
+                  "gradients: " + "; ".join(parts)
+                  + " (bound: mean within 1.25x, max within 2x)")
+            if s == TRAIN_S:
+                timed = (args, gy)
+        del x, dtt, a, B, C, d, h0, gy, gs, args, got, again, want
+    return timed, worst
+
+
 def lm_train_path(torch, dev, counts, zero_counts, card):
     """zamba2-2.7b training at full width and depth on weights from
     ``torch.Generator(0)`` and the batch of ``TokenPipeline(32000, 2048,
@@ -2107,18 +2304,19 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     gradients, held to the bfloat16 plain path's own error; (c) five
     ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
     place), each launching B4 forward 18 times, its backward 9
-    times and B6 108 times; then one step under the profiler (phase 5).
-    Returns the numbers for the report."""
+    times, B6 108 times and B6's backward 54 times; then one step under the
+    profiler (phase 5).  Returns the numbers for the report."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels.ssd.ops import BACKWARD_RANGE
+    from repro_torch.kernels.ssd.ops import (BACKWARD_RANGE,
+                                             KERNEL_BACKWARD_RANGE)
     from repro_torch.launch import steps
     from repro_torch.pytree import leaves_with_paths
     cfg = get_config(LM_ARCH)
     n_attn = cfg.n_layers // cfg.shared_attn_every
     want_k = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-              "ssd_scan": 2 * cfg.n_layers}
+              "ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
     out = {}
     gib = 2**30
     print(f"training {LM_ARCH} at B={TRAIN_B} S={TRAIN_S}, remat "
@@ -2138,14 +2336,16 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     batch = on_card(pipe.batch(0))
     paths = [p for p, _ in leaves_with_paths(params)]
 
-    def loss_and_grads(dtype, kernels):
+    def loss_and_grads(dtype, kernels, weights=None):
         """(loss, gradient leaves, seconds) of one loss_fn forward and
-        backward, its launches checked."""
+        backward at ``weights`` (default ``params``), its launches
+        checked."""
         zero_counts()
         t0 = time.perf_counter()
         loss, grads = steps._value_and_grad(
             lambda p, b: models.loss_fn(p, cfg, b, dtype=dtype,
-                                        kernels=kernels), params, batch)
+                                        kernels=kernels),
+            params if weights is None else weights, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = {k: v for k, v in counts().items() if v}
@@ -2162,24 +2362,54 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
               f"{loss:.6f}, launches {got}, {secs:.3f} s")
         return loss, [g for _, g in leaves_with_paths(grads)], secs
 
-    # (a) float32, kernel path against plain path
-    l_k, g_k, _ = loss_and_grads(torch.float32, True)
-    l_32, g_32, _ = loss_and_grads(torch.float32, False)
-    rel = abs(l_k - l_32) / abs(l_32)
-    worst = (0.0, "")
-    for path, a, b in zip(paths, g_k, g_32):
-        if not bool(a.isfinite().all()):
-            raise AssertionError(f"float32 gradient {path} not finite")
-        e = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-        worst = max(worst, (e, path))
-    del g_k
-    print(f"float32 loss_fn, kernel vs plain path: loss rel err {rel:.3g} "
-          f"(bound 1e-4); worst gradient leaf {worst[1]}: max |err| / max(1, "
-          f"max |g|) {worst[0]:.3g} (bound 1e-3) over {len(paths)} leaves")
+    def worst_leaf(got, want):
+        worst = (0.0, "")
+        for path, a, b in zip(paths, got, want):
+            if not bool(a.isfinite().all()):
+                raise AssertionError(f"float32 gradient {path} not finite")
+            e = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            worst = max(worst, (e, path))
+        return worst
+
+    # (a) float32, kernel path against plain path: gated on the same draws
+    # at each block leaf's own fan-in (``fan_in_params``) ...
+    cond = fan_in_params(torch, models, cfg, params)
+    l_k, g_k, _ = loss_and_grads(torch.float32, True, cond)
+    l_c, g_c, _ = loss_and_grads(torch.float32, False, cond)
+    del cond
+    rel = abs(l_k - l_c) / abs(l_c)
+    worst = worst_leaf(g_k, g_c)
+    del g_k, g_c
+    print(f"float32 loss_fn at each block leaf's own fan-in, kernel vs plain "
+          f"path: loss rel err {rel:.3g} (bound 1e-4); worst gradient leaf "
+          f"{worst[1]}: max |err| / max(1, max |g|) {worst[0]:.3g} (bound "
+          f"1e-3) over {len(paths)} leaves")
     if rel > 1e-4 or worst[0] > 1e-3:
         raise AssertionError("float32 loss_fn: kernel path off the plain path")
+    # ... and at init_params' own weights: the loss gated, the gradients
+    # printed beside the plain path's spread when its weights move one ulp
+    l_k, g_k, _ = loss_and_grads(torch.float32, True)
+    l_32, g_32, _ = loss_and_grads(torch.float32, False)
+    rel_s = abs(l_k - l_32) / abs(l_32)
+    worst_s = worst_leaf(g_k, g_32)
+    del g_k
+    bumped = one_ulp(torch, models, params)
+    _, g_b, _ = loss_and_grads(torch.float32, False, bumped)
+    del bumped
+    spread = worst_leaf(g_b, g_32)
+    del g_b
+    print(f"float32 loss_fn at init_params' weights, kernel vs plain path: "
+          f"loss rel err {rel_s:.3g} (bound 1e-4); worst gradient leaf "
+          f"{worst_s[1]}: {worst_s[0]:.3g} x max(1, max |g|); the plain path "
+          f"moved by its weights' one ulp: worst leaf {spread[1]} "
+          f"{spread[0]:.3g} (not gated: above 1e-3 by itself)")
+    if rel_s > 1e-4:
+        raise AssertionError("float32 loss_fn: kernel path's loss off the "
+                             "plain path's")
     out.update(train_f32_loss_rel=rel, train_f32_grad_err=worst[0],
-               train_f32_grad_leaf=worst[1])
+               train_f32_grad_leaf=worst[1], train_f32_stacked=(rel_s,
+                                                                *worst_s),
+               train_f32_spread=spread)
 
     # (b) bfloat16, held to the bfloat16 plain path's own error
     def against_f32(grads):
@@ -2254,10 +2484,16 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     tr = trace(torch, "train step, bfloat16, kernel path",
                lambda: (step_fn(state, b), torch.cuda.synchronize()),
                what="one step", top=12,
-               focus=("flash_attention", "flash_bwd", "ssd_scan"),
-               ranges=(BACKWARD_RANGE,))
+               focus=("flash_attention", "flash_bwd", "ssd_scan", "ssd_bwd"),
+               ranges=(KERNEL_BACKWARD_RANGE, BACKWARD_RANGE))
     if tr:
         busy = tr[0]
+        if tr[2][BACKWARD_RANGE][0] or \
+                tr[2][KERNEL_BACKWARD_RANGE][0] != cfg.n_layers:
+            raise AssertionError(
+                f"train step: {tr[2][BACKWARD_RANGE][0]} plain SSD backward "
+                f"ranges and {tr[2][KERNEL_BACKWARD_RANGE][0]} kernel ranges, "
+                f"expected 0 and {cfg.n_layers}")
         shares = {k: v[1] / busy for k, v in tr[2].items()}
         print(f"train step device time shares on {card}: "
               + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
@@ -2297,12 +2533,13 @@ def main() -> int:
     fleet = {"fleet_window": fw_ops, "adaptbf_alloc": alloc_ops,
              "window_mega": mega_ops}
     names = [*fleet, "flash_attention", "flash_attention_bwd", "flash_decode",
-             "ssd_scan"]
+             "ssd_scan", "ssd_scan_bwd"]
 
     def counts():
         """Every kernel wrapper's launch count."""
         got = {name: mod.launches for name, mod in fleet.items()}
-        got.update(attn_ops.launches, ssd_scan=ssd_ops.launches)
+        got.update(attn_ops.launches, ssd_scan=ssd_ops.launches,
+                   ssd_scan_bwd=ssd_ops.launches_bwd)
         return got
 
     def zero_counts():
@@ -2311,6 +2548,7 @@ def main() -> int:
         for name in attn_ops.launches:
             attn_ops.launches[name] = 0
         ssd_ops.launches = 0
+        ssd_ops.launches_bwd = 0
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2319,6 +2557,7 @@ def main() -> int:
           "one nvcc each, in parallel)")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for lib, label, mark in (("flash_attention", "bfloat16", "Li80E"),
+                             ("flash_attention_bwd", "bfloat16", "Li80E"),
                              ("ssd_scan", "bfloat16", "ssd_scan_tc")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
                               capture_output=True, text=True,
@@ -2382,6 +2621,7 @@ def main() -> int:
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
     ssd_err = max(ssd_err, check_ssd_warm_start(torch, ssd_ops, dev))
     fb_args, fb_err = check_attention_bwd_kernel(torch, attn_ops, dev)
+    sb_args, sb_err = check_ssd_bwd_kernel(torch, ssd_ops, dev)
 
     # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
@@ -2566,6 +2806,15 @@ def main() -> int:
     fb_b, fb_by = bound_ms(*attention_bwd_work(TRAIN_B, TRAIN_S, 32, 80, 2),
                            BF16_OPS_S)
     del fq, fk, fv, fdo
+    sb_in, sb_gy = sb_args
+    before = ssd_ops.launches_bwd
+    sb_ms = cuda_ms(lambda: ssd_ops.ssd_bwd(*sb_in, gy=sb_gy), reps=5,
+                    groups=3)
+    sb_calls = ssd_ops.launches_bwd - before
+    sb_plain = cuda_ms(lambda: ssd_ops.ref.ssd_chunked_bwd(*sb_in, gy=sb_gy),
+                       reps=1, groups=3)
+    sb_b, sb_by = bound_ms(*ssd_bwd_work(TRAIN_B, TRAIN_S, 80, 64, 64, 2),
+                           BF16_OPS_S)
     lens = [int(x) for x in length.tolist()]
     fa_b, fa_by = bound_ms(*attention_work(PREFILL_B, PREFILL_S, 32, 80, 2),
                            BF16_OPS_S)
@@ -2620,7 +2869,11 @@ def main() -> int:
           f"(B={TRAIN_B} S={TRAIN_S} H=32 D=80 causal bfloat16) {fb_ms:.4f} "
           f"ms (plain {fb_plain:.4f} ms; scaled_dot_product_attention "
           f"forward+backward {fb_lib_fb:.4f} ms minus forward {fb_lib_f:.4f} "
-          f"ms = {fb_lib:.4f} ms; bound {fb_b:.4f} ms by {fb_by})")
+          f"ms = {fb_lib:.4f} ms; bound {fb_b:.4f} ms by {fb_by}); "
+          f"ssd_scan_bwd (B={TRAIN_B} S={TRAIN_S} H=80 P=64 N=64 bfloat16, "
+          f"gy only) {sb_ms:.4f} ms (one launch a call, {sb_calls} calls "
+          f"timed; plain reverse scan {sb_plain:.4f} ms; bound {sb_b:.4f} "
+          f"ms by {sb_by}; no single PyTorch call computes it)")
     print(f"{LM_ARCH} training on {card}: B={TRAIN_B} S={TRAIN_S} bfloat16 "
           f"step {train['train_step_ms']:.1f} ms, "
           f"{train['train_tok_s']:.1f} train tokens/s; peak device memory "
@@ -2715,6 +2968,14 @@ def main() -> int:
              train["train_launches_per_step"]["flash_attention_bwd"],
          "max_abs_err": fb_err, "ms": fb_ms, "plain_ms": fb_plain,
          "bound_ms": fb_b, "bound_by": fb_by, "library_ms": fb_lib},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd/ref.py:26",
+         "launches": train["train_launches"]["ssd_scan_bwd"],
+         "launches_per_step":
+             train["train_launches_per_step"]["ssd_scan_bwd"],
+         "max_abs_err": sb_err, "ms": sb_ms, "plain_ms": sb_plain,
+         "bound_ms": sb_b, "bound_by": sb_by, "library_ms": None},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:184",

@@ -58,7 +58,7 @@ def topk_mask(key: torch.Tensor, k) -> torch.Tensor:
 
 
 def integerize(raw: torch.Tensor, remainder: torch.Tensor, budget,
-               mask: torch.Tensor):
+               mask: torch.Tensor, *, specialize: bool = False):
     """Floor ``raw + remainder`` over ``mask``-ed jobs and correct so that the
     masked total equals ``budget`` exactly.
 
@@ -67,6 +67,9 @@ def integerize(raw: torch.Tensor, remainder: torch.Tensor, budget,
       remainder: [..., J] carried remainders rho (updated only where masked).
       budget:    integral total per row ([..., 1]-broadcastable).
       mask:      [..., J] bool, jobs participating in this step.
+      specialize: accepted for the reference's signature and ignored.  In
+                 the reference it only skips the excess correction when no
+                 row needs it, and the result is bitwise the same.
 
     Returns:
       (alloc, new_remainder): integer-valued float allocations summing to

@@ -23,11 +23,13 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
 
 
 def fleet_alloc(demand, nodes, record, remainder, alloc_prev, capacity,
-                *, u_max: float = 64.0):
+                *, u_max: float = 64.0, interpret: bool = None):
     """[O, J] tensors + [O] capacity -> (alloc, new_record, new_remainder).
 
     Integer tokens only, like the reference kernel.  On the card every input
-    must be a contiguous float32 CUDA tensor and J <= ``MAX_JOBS``."""
+    must be a contiguous float32 CUDA tensor and J <= ``MAX_JOBS``.
+    ``interpret`` is accepted for the reference's signature and ignored:
+    the tensors' device picks the kernel or the plain version."""
     global launches
     ins = (demand, nodes, record, remainder, alloc_prev)
     if not route(*ins, capacity):

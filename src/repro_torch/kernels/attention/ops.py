@@ -6,18 +6,18 @@ flash-attention forward (``kernels/csrc/flash_attention.cu``), its backward
 
 ``attention`` is differentiable: its forward runs the flash-attention
 kernel and saves q, k, v, o and lse, its backward (``attention_bwd``)
-launches the backward kernel, which sums dK and dV over each KV head's
-query group itself.  ``attention_lse`` and ``decode_attention`` are not
+launches the backward kernels, which sum dK and dV over each KV head's
+query group themselves.  ``attention_lse`` and ``decode_attention`` are not
 differentiable.
 
 The kernels take KV with its own head count and map query head h to KV
 head ``h // (Hq // Hkv)``; the plain versions broadcast KV to the query
 heads first, as the reference's model does before its call.
 
-The bfloat16 forward runs on the tensor cores and reads q, k and v by TMA,
-which wants each tensor's base 16-byte aligned and its batch, position and
-head strides multiples of 16 bytes; the float32 forward is the exact SIMT
-kernel.  The decode copies cache rows 16 bytes at a time, so it wants the
+The bfloat16 forward and backward run on the tensor cores and read q, k, v
+(and dO; the backward also checks o) by TMA, which wants each tensor's
+base 16-byte aligned and its batch, position and head strides multiples of
+16 bytes; the float32 forward and backward are the exact SIMT kernels.  The decode copies cache rows 16 bytes at a time, so it wants the
 same of k and v (and a row of D elements a multiple of 16 bytes).  The
 wrappers raise ``ValueError`` naming the rule otherwise.  The decode splits
 each sequence's keys over blocks by ``decode_split_plan``, which reads only
@@ -178,7 +178,9 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """dq [B,S,Hq,D], dk and dv [B,T,Hkv,D] (in q's type) of GQA attention
     from its output o and lse (``attention_lse``) and the incoming gradient
     do [B,S,Hq,D].  CPU tensors take the plain ``ref.gqa_bwd``; CUDA
-    tensors launch the backward kernel."""
+    tensors launch the backward kernels: delta, then dK/dV and dQ, on the
+    tensor cores for bfloat16 (``ValueError`` unless q, k, v, o and do are
+    what TMA reads), SIMT for float32."""
     if not route(q, k, v, o, lse, do):
         return ref.gqa_bwd(q, k, v, o, lse, do, causal)
     _check(q, k, v)
@@ -197,6 +199,9 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(b, s, hq)} "
                          "tensor")
+    if q.dtype == torch.bfloat16:
+        check_16b("the bfloat16 attention backward's TMA", q=q, k=k, v=v,
+                  o=o, do=do)
     delta = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)

@@ -15,10 +15,41 @@
 // twice (once in each kernel below), dV, dK and dQ once -- against the
 // bytes of q, k, v, o, dO, dq, dk and dv once.
 //
-// Design, in the shape of FlashAttention-2, SIMT and exact in float32
-// (tensor cores, TMA and a persistent schedule are later work):
-//  * flash_bwd_delta: delta = sum_d dO * O per (row, head), one warp a row,
-//    into float32 scratch the wrapper allocates;
+// Three kernels in the shape of FlashAttention-2/3, the heavy two in two
+// versions chosen by the element type, never by a failure; none has an
+// atomic, so two calls give the same bits (the trainer's restore is
+// bitwise):
+//  * flash_bwd_delta: delta = sum_d dO * O per (row, head), one warp a
+//    row, into float32 scratch the wrapper allocates.  Both kernels below
+//    read it.
+//
+// bfloat16 -- the tensor cores, in the forward's pattern
+// (flash_attention.cu, flash_attention_tc; hopper.cuh): persistent blocks
+// of three warpgroups, one an SM; warpgroup 0 the producer (TMA into
+// mbarrier rings, its registers given to the consumers by setmaxnreg),
+// warpgroups 1 and 2 the consumers, 64 rows each.  Tiles are bf16 slabs
+// (64 columns with the 128-byte swizzle where 64 divides the head dim,
+// else 16 with the 32-byte one), read by 4-d tensor maps {D, H, S, B} by
+// stride; rows past S or T arrive as zeros and are masked.
+//  * flash_bwd_dkdv_tc: a work item is 128 keys of one KV head and
+//    sequence (64 a consumer).  K and V stay resident, loaded once by TMA;
+//    the producer streams the Q and dO tiles of 64 rows of every query head
+//    of the group, from the diagonal on when causal, through a two-stage
+//    ring, with their lse (times log2 e) and delta by ordinary loads.  Per
+//    tile: S^T = K Q^T and dP^T = V dO^T by wgmma (A = K or V, B = the Q or
+//    dO tile, both K-major); P^T = exp2(S^T scale log2e - lse log2e), the
+//    causal and ragged masks only where a tile crosses the diagonal or an
+//    end; dS^T = P^T (dP^T - delta) scale; then dV += P^T dO and dK +=
+//    dS^T Q with P^T and dS^T packed to bf16 in registers as the A operand
+//    and the dO or Q tile as the MN-major B operand.  dK and dV stay in
+//    float32 registers across the group and every tile, in one order.
+//  * flash_bwd_dq_tc: a work item is 128 query rows of one query head and
+//    sequence, heaviest causal items first.  Q and dO stay resident (their
+//    lse and delta in registers); K and V tiles of 64 keys stream through
+//    a three-stage ring.  Per tile: S = Q K^T and dP = dO V^T, dS, then dQ
+//    += dS K (dS the register A operand, K the MN-major B operand).
+//
+// float32 -- the exact SIMT kernels (TF32 would miss float32's tolerance):
 //  * flash_bwd_dkdv: one block of 256 threads per (64 keys, KV head,
 //    batch).  Its K and V tiles stay in shared memory while it walks the
 //    group's query heads and, for each, the 64-row query blocks that see
@@ -29,17 +60,18 @@
 //    - delta) scale; P and dS go to shared memory and each thread adds
 //    its 4 keys x D/16 columns of dV += P^T dO and dK += dS^T Q in
 //    registers.  Each key's dK and dV are summed by one thread in one
-//    order: no atomics, the result is the same on every run;
+//    order;
 //  * flash_bwd_dq: one block per (64 query rows, query head, batch), the
 //    heaviest causal blocks first.  Its Q and dO tiles stay in shared
 //    memory while it walks the key blocks the rows see: S, dP and dS as
 //    above, dS^T to shared memory, dQ += dS K in registers.
-// Rounding: inputs are read in their type (float32 or bfloat16) and every
-// product and sum runs in float32; P is rounded to dO's type before dV and
-// dS to q's type before dQ and dK, where the reference casts.  Each output
-// is rounded to q's type once (the reference's bfloat16 path rounds dq
-// after each 1024-key block; its float32 path is the same as this one up
-// to the order of the sums).
+// Rounding: every product and sum runs in float32 (bf16 x bf16 products
+// into float32 on the tensor cores); P is rounded to dO's type before dV
+// and dS to q's type before dQ and dK, where the reference casts.  Each
+// output is rounded to q's type once (the reference's bfloat16 path
+// rounds dq after each 1024-key block; its float32 path is the same as
+// this one up to the order of the sums).
+#include "hopper.cuh"
 #include "lm.cuh"
 
 namespace repro {
@@ -89,6 +121,479 @@ flash_bwd_delta(const BwdParams p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[row] = acc;
+}
+
+// ------------------------------------------------- bfloat16: tensor cores
+
+constexpr int TB_THREADS = 384;   // producer warpgroup + two consumers
+constexpr int KV_BK = 128;        // keys a dK/dV item (64 a consumer)
+constexpr int KV_BQ = 64;         // query rows a streamed Q/dO tile
+constexpr int KV_STAGES = 2;
+constexpr int DQ_BQ = 128;        // query rows a dQ item (64 a consumer)
+constexpr int DQ_BK = 64;         // keys a streamed K/V tile
+constexpr int DQ_STAGES = 3;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// bf16 columns a slab: 64 (128-byte swizzle) where they divide the head
+// dim, else 16 (32-byte swizzle)
+template <int DM>
+__host__ __device__ constexpr int bw_slab() {
+  return DM % 64 == 0 ? 64 : 16;
+}
+
+template <int DM>
+constexpr int dkdv_tc_smem() {
+  // K, V [128 x DM]; Q and dO stages [64 x DM]; lse and delta [64] a
+  // stage; barriers; 1 KB to align the tiles to the swizzle pattern
+  return 2 * KV_BK * DM * 2 + 2 * KV_STAGES * KV_BQ * DM * 2 +
+         2 * KV_STAGES * KV_BQ * 4 + 8 * (2 * KV_STAGES + 2) + 1024;
+}
+
+template <int DM>
+constexpr int dq_tc_smem() {
+  // Q, dO [128 x DM]; K and V stages [64 x DM]; barriers; alignment
+  return 2 * DQ_BQ * DM * 2 + 2 * DQ_STAGES * DQ_BK * DM * 2 +
+         8 * (2 * DQ_STAGES + 2) + 1024;
+}
+
+// Pack the float32 fragment x[4c + e] (row e & 2 ? r1 : r0, column 8c + 2t
+// + (e & 1)) of a 64 x 64 accumulator into the bf16 A fragments of its four
+// 16-column k-steps (the forward's P packing).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    a[c / 2][(c & 1) * 2 + 0] = sm90::pack_bf16(x[4 * c + 0], x[4 * c + 1]);
+    a[c / 2][(c & 1) * 2 + 1] = sm90::pack_bf16(x[4 * c + 2], x[4 * c + 3]);
+  }
+}
+
+// Store a consumer's float32 accumulator (rows r0, r1; columns 8c + 2t,
+// + 1) as bf16 rows of a contiguous [.., D] tensor at `base` (row pitch
+// `pitch` elements); rows at or past `n_rows` are skipped.
+template <int DM>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long pitch,
+                                           const float (&acc)[DM / 2], int r0,
+                                           int r1, int n_rows, int D, int t) {
+  const bool pairs = D % 2 == 0;
+#pragma unroll
+  for (int c = 0; c < DM / 8; ++c) {
+    const int d = 8 * c + 2 * t;
+    if (d >= D) continue;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rr ? r1 : r0;
+      if (r >= n_rows) continue;
+      __nv_bfloat16* dst = base + r * pitch + d;
+      const float x0 = acc[4 * c + 2 * rr], x1 = acc[4 * c + 2 * rr + 1];
+      if (pairs)
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      else {
+        dst[0] = __float2bfloat16_rn(x0);
+        if (d + 1 < D) dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// DM: the head dim rounded up to a multiple of 16 (<= 128).
+template <int DM>
+__global__ void __launch_bounds__(TB_THREADS, 1)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const BwdParams p) {
+  using namespace sm90;
+  constexpr int SLAB = bw_slab<DM>();
+  constexpr int RB = SLAB * 2;                // bytes a slab row
+  constexpr int LT = SLAB == 64 ? 1 : 3;      // descriptor layout: B128, B32
+  constexpr int NS = DM / SLAB;               // slabs a row
+  constexpr int KV_SLAB = KV_BK * RB;         // bytes of a K (V) slab
+  constexpr int KV_TILE = NS * KV_SLAB;
+  constexpr int Q_SLAB = KV_BQ * RB;          // bytes of a Q (dO) slab
+  constexpr int Q_TILE = NS * Q_SLAB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023u) & ~1023u;
+  const uint32_t sv = sk + KV_TILE;
+  const uint32_t sq = sv + KV_TILE;                 // Q stage s at sq + s*Q_TILE
+  const uint32_t sdo = sq + KV_STAGES * Q_TILE;
+  const uint32_t sl = sdo + KV_STAGES * Q_TILE;     // lse [STAGES][64] floats
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (sl - raw));
+  float* delta_s = lse_s + KV_STAGES * KV_BQ;
+  const uint32_t bar = sl + 2 * KV_STAGES * KV_BQ * 4;
+  // full[s] at bar + 8s, empty[s] at bar + 8 (STAGES + s), then K/V's
+  const uint32_t kv_full = bar + 16 * KV_STAGES, kv_empty = kv_full + 8;
+  const int group = p.Hq / p.Hkv;
+  const int nkb = (p.T + KV_BK - 1) / KV_BK;
+  const int items = nkb * p.Hkv * p.B;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(bar + 8 * s, 1 + 128);                  // TMA + lse/delta loads
+      mbar_init(bar + 8 * (KV_STAGES + s), 256);        // every consumer
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 256);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // item w: key block kb (lightest causal last), KV head hk, sequence b
+  auto item = [&](int w, int& k0, int& hk, int& b, int& q_first, int& n_q) {
+    const int kb = w % nkb, hb = w / nkb;
+    hk = hb % p.Hkv;
+    b = hb / p.Hkv;
+    k0 = kb * KV_BK;
+    q_first = p.causal ? k0 : 0;
+    n_q = q_first < p.S ? (p.S - q_first + KV_BQ - 1) / KV_BQ : 0;
+  };
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: thread 0 issues the copies, every thread
+    // loads a share of lse and delta
+    reg_dealloc<24>();
+    const int tid = threadIdx.x;
+    int tile = 0, n = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+      int k0, hk, b, q_first, n_q;
+      item(w, k0, hk, b, q_first, n_q);
+      if (tid == 0) {
+        mbar_wait(kv_empty, (n & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * KV_TILE);
+        for (int j = 0; j < NS; ++j) {
+          tma_load_4d(sk + j * KV_SLAB, &tm_k, kv_full, j * SLAB, hk, k0, b);
+          tma_load_4d(sv + j * KV_SLAB, &tm_v, kv_full, j * SLAB, hk, k0, b);
+        }
+      }
+      for (int g = 0; g < group; ++g) {
+        const int h = hk * group + g;
+        for (int qi = 0; qi < n_q; ++qi, ++tile) {
+          const int s = tile % KV_STAGES;
+          const int q0 = q_first + qi * KV_BQ;
+          const uint32_t full = bar + 8 * s;
+          mbar_wait(bar + 8 * (KV_STAGES + s), ((tile / KV_STAGES) & 1) ^ 1);
+          if (tid == 0) {
+            mbar_expect_tx(full, 2 * Q_TILE);
+            for (int j = 0; j < NS; ++j) {
+              tma_load_4d(sq + s * Q_TILE + j * Q_SLAB, &tm_q, full, j * SLAB,
+                          h, q0, b);
+              tma_load_4d(sdo + s * Q_TILE + j * Q_SLAB, &tm_do, full,
+                          j * SLAB, h, q0, b);
+            }
+          }
+          const int r = q0 + (tid & 63);
+          const long long at = (static_cast<long long>(b) * p.S + r) * p.Hq + h;
+          if (tid < 64)
+            lse_s[s * KV_BQ + tid] = r < p.S ? p.lse[at] * LOG2E : 0.0f;
+          else
+            delta_s[s * KV_BQ + tid - 64] = r < p.S ? p.delta[at] : 0.0f;
+          mbar_arrive(full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    reg_alloc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int t = lane & 3;
+    const float sl2 = p.scale * LOG2E;
+    int tile = 0, n = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+      int k0, hk, b, q_first, n_q;
+      item(w, k0, hk, b, q_first, n_q);
+      const int kw0 = k0 + wg * 64;                       // this warpgroup's first key
+      const int j0 = kw0 + warp * 16 + (lane >> 2), j1 = j0 + 8;  // this thread's keys
+      float dk[DM / 2], dv[DM / 2];
+#pragma unroll
+      for (int i = 0; i < DM / 2; ++i) dk[i] = dv[i] = 0.0f;
+      mbar_wait(kv_full, n & 1);
+      const uint32_t ka = sk + wg * 64 * RB, va = sv + wg * 64 * RB;
+      for (int g = 0; g < group; ++g) {
+        for (int qi = 0; qi < n_q; ++qi, ++tile) {
+          const int s = tile % KV_STAGES;
+          const int q0 = q_first + qi * KV_BQ;
+          const uint32_t qt = sq + s * Q_TILE, dot = sdo + s * Q_TILE;
+          mbar_wait(bar + 8 * s, (tile / KV_STAGES) & 1);
+          float st[32], dpt[32];
+          fence_regs(st);
+          fence_regs(dpt);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DM / 16; ++kk) {
+            const uint32_t off = (kk * 16 / SLAB) * KV_SLAB + (kk * 16 % SLAB) * 2;
+            const uint32_t offq = (kk * 16 / SLAB) * Q_SLAB + (kk * 16 % SLAB) * 2;
+            wgmma_ss<64>(st, slab_desc(ka + off, 16, 8 * RB, LT),
+                         slab_desc(qt + offq, 16, 8 * RB, LT), kk);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DM / 16; ++kk) {
+            const uint32_t off = (kk * 16 / SLAB) * KV_SLAB + (kk * 16 % SLAB) * 2;
+            const uint32_t offq = (kk * 16 / SLAB) * Q_SLAB + (kk * 16 % SLAB) * 2;
+            wgmma_ss<64>(dpt, slab_desc(va + off, 16, 8 * RB, LT),
+                         slab_desc(dot + offq, 16, 8 * RB, LT), kk);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+          // P^T and dS^T: row = key j, column = query q0 + 8c + 2t + (e & 1)
+          const bool edge = q0 + KV_BQ > p.S || kw0 + 64 > p.T ||
+                            (p.causal && q0 < kw0 + 63);
+          const float* ls = lse_s + s * KV_BQ;
+          const float* dl = delta_s + s * KV_BQ;
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * c + 2 * t + (e & 1);
+              float pr = ex2(fmaf(st[4 * c + e], sl2, -ls[col]));
+              if (edge) {
+                const int i = q0 + col, j = (e & 2) ? j1 : j0;
+                if (i >= p.S || j >= p.T || (p.causal && j > i)) pr = 0.0f;
+              }
+              st[4 * c + e] = pr;
+              dpt[4 * c + e] = pr * (dpt[4 * c + e] - dl[col]) * p.scale;
+            }
+          uint32_t pa[4][4], da[4][4];
+          pack_a(pa, st);
+          pack_a(da, dpt);
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KV_BQ / 16; ++kk)
+            wgmma_rs<DM>(dv, pa[kk], slab_desc(dot + kk * 16 * RB, Q_SLAB, 8 * RB, LT));
+#pragma unroll
+          for (int kk = 0; kk < KV_BQ / 16; ++kk)
+            wgmma_rs<DM>(dk, da[kk], slab_desc(qt + kk * 16 * RB, Q_SLAB, 8 * RB, LT));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+          mbar_arrive(bar + 8 * (KV_STAGES + s));
+        }
+      }
+      mbar_arrive(kv_empty);  // K and V are read for good
+      const long long pitch = static_cast<long long>(p.Hkv) * p.D;
+      const long long base = (static_cast<long long>(b) * p.T * p.Hkv + hk) * p.D;
+      store_rows<DM>(static_cast<__nv_bfloat16*>(p.dk) + base, pitch, dk, j0, j1,
+                     p.T, p.D, t);
+      store_rows<DM>(static_cast<__nv_bfloat16*>(p.dv) + base, pitch, dv, j0, j1,
+                     p.T, p.D, t);
+    }
+  }
+}
+
+template <int DM>
+__global__ void __launch_bounds__(TB_THREADS, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const BwdParams p) {
+  using namespace sm90;
+  constexpr int SLAB = bw_slab<DM>();
+  constexpr int RB = SLAB * 2;
+  constexpr int LT = SLAB == 64 ? 1 : 3;
+  constexpr int NS = DM / SLAB;
+  constexpr int Q_SLAB = DQ_BQ * RB;          // bytes of a Q (dO) slab
+  constexpr int Q_TILE = NS * Q_SLAB;
+  constexpr int K_SLAB = DQ_BK * RB;          // bytes of a K (V) slab
+  constexpr int K_TILE = NS * K_SLAB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;
+  const uint32_t sdo = sq + Q_TILE;
+  const uint32_t sk = sdo + Q_TILE;                 // K stage s at sk + s*K_TILE
+  const uint32_t sv = sk + DQ_STAGES * K_TILE;
+  const uint32_t bar = sv + DQ_STAGES * K_TILE;
+  const uint32_t q_full = bar + 16 * DQ_STAGES, q_empty = q_full + 8;
+  const int n_qb = (p.S + DQ_BQ - 1) / DQ_BQ;
+  const int items = n_qb * p.Hq * p.B;
+  const int group = p.Hq / p.Hkv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(bar + 8 * s, 1);
+      mbar_init(bar + 8 * (DQ_STAGES + s), 256);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // item w: query block (heaviest causal first), head h, sequence b
+  auto item = [&](int w, int& q0, int& h, int& b, int& n_tiles) {
+    const int hb = w / n_qb;
+    q0 = (n_qb - 1 - w % n_qb) * DQ_BQ;
+    h = hb % p.Hq;
+    b = hb / p.Hq;
+    const int kv_end = p.causal ? min(p.T, q0 + DQ_BQ) : p.T;
+    n_tiles = (kv_end + DQ_BK - 1) / DQ_BK;
+  };
+
+  if (threadIdx.x < 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int tile = 0, n = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+        int q0, h, b, n_tiles;
+        item(w, q0, h, b, n_tiles);
+        const int hk = h / group;
+        mbar_wait(q_empty, (n & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * Q_TILE);
+        for (int j = 0; j < NS; ++j) {
+          tma_load_4d(sq + j * Q_SLAB, &tm_q, q_full, j * SLAB, h, q0, b);
+          tma_load_4d(sdo + j * Q_SLAB, &tm_do, q_full, j * SLAB, h, q0, b);
+        }
+        for (int i = 0; i < n_tiles; ++i, ++tile) {
+          const int s = tile % DQ_STAGES;
+          mbar_wait(bar + 8 * (DQ_STAGES + s), ((tile / DQ_STAGES) & 1) ^ 1);
+          const uint32_t full = bar + 8 * s;
+          mbar_expect_tx(full, 2 * K_TILE);
+          for (int j = 0; j < NS; ++j) {
+            tma_load_4d(sk + s * K_TILE + j * K_SLAB, &tm_k, full, j * SLAB, hk,
+                        i * DQ_BK, b);
+            tma_load_4d(sv + s * K_TILE + j * K_SLAB, &tm_v, full, j * SLAB, hk,
+                        i * DQ_BK, b);
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int t = lane & 3;
+    const float sl2 = p.scale * LOG2E;
+    const uint32_t qa = sq + wg * 64 * RB, doa = sdo + wg * 64 * RB;
+    int tile = 0, n = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+      int q0, h, b, n_tiles;
+      item(w, q0, h, b, n_tiles);
+      const int row_lo = q0 + wg * 64;
+      const int r0 = row_lo + warp * 16 + (lane >> 2), r1 = r0 + 8;
+      const long long at0 = (static_cast<long long>(b) * p.S + r0) * p.Hq + h;
+      const long long at1 = at0 + 8LL * p.Hq;
+      const float l0 = r0 < p.S ? p.lse[at0] * LOG2E : 0.0f;
+      const float l1 = r1 < p.S ? p.lse[at1] * LOG2E : 0.0f;
+      const float e0 = r0 < p.S ? p.delta[at0] : 0.0f;
+      const float e1 = r1 < p.S ? p.delta[at1] : 0.0f;
+      float dq[DM / 2];
+#pragma unroll
+      for (int i = 0; i < DM / 2; ++i) dq[i] = 0.0f;
+      mbar_wait(q_full, n & 1);
+      for (int i = 0; i < n_tiles; ++i, ++tile) {
+        const int s = tile % DQ_STAGES;
+        const int k0 = i * DQ_BK;
+        const uint32_t kt = sk + s * K_TILE, vt = sv + s * K_TILE;
+        mbar_wait(bar + 8 * s, (tile / DQ_STAGES) & 1);
+        float sc[32], dp[32];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DM / 16; ++kk) {
+          const uint32_t offq = (kk * 16 / SLAB) * Q_SLAB + (kk * 16 % SLAB) * 2;
+          const uint32_t offk = (kk * 16 / SLAB) * K_SLAB + (kk * 16 % SLAB) * 2;
+          wgmma_ss<64>(sc, slab_desc(qa + offq, 16, 8 * RB, LT),
+                       slab_desc(kt + offk, 16, 8 * RB, LT), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DM / 16; ++kk) {
+          const uint32_t offq = (kk * 16 / SLAB) * Q_SLAB + (kk * 16 % SLAB) * 2;
+          const uint32_t offk = (kk * 16 / SLAB) * K_SLAB + (kk * 16 % SLAB) * 2;
+          wgmma_ss<64>(dp, slab_desc(doa + offq, 16, 8 * RB, LT),
+                       slab_desc(vt + offk, 16, 8 * RB, LT), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        if (i == n_tiles - 1) mbar_arrive(q_empty);  // Q and dO are read for good
+        const bool edge = k0 + DQ_BK > p.T || (p.causal && k0 + DQ_BK - 1 > row_lo);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e & 2;
+            float pr = ex2(fmaf(sc[4 * c + e], sl2, hi ? -l1 : -l0));
+            if (edge) {
+              const int j = k0 + 8 * c + 2 * t + (e & 1);
+              if (j >= p.T || (p.causal && j > (hi ? r1 : r0))) pr = 0.0f;
+            }
+            dp[4 * c + e] = pr * (dp[4 * c + e] - (hi ? e1 : e0)) * p.scale;
+          }
+        uint32_t da[4][4];
+        pack_a(da, dp);
+        fence_regs(dq);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk)
+          wgmma_rs<DM>(dq, da[kk], slab_desc(kt + kk * 16 * RB, K_SLAB, 8 * RB, LT));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(da);
+        mbar_arrive(bar + 8 * (DQ_STAGES + s));
+      }
+      const long long pitch = static_cast<long long>(p.Hq) * p.D;
+      const long long base = (static_cast<long long>(b) * p.S * p.Hq + h) * p.D;
+      store_rows<DM>(static_cast<__nv_bfloat16*>(p.dq) + base, pitch, dq, r0, r1,
+                     p.S, p.D, t);
+    }
+  }
+}
+
+template <int DM>
+cudaError_t launch_bwd_tc(const BwdParams& p, cudaStream_t s) {
+  using sm90::sm_count;
+  using sm90::tensor_map;
+  constexpr int slab = bw_slab<DM>();
+  CUtensorMap k128, v128, q64, do64, q128, do128, k64, v64;
+  if (!tensor_map(&k128, p.k, p.B, p.T, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, KV_BK, slab) ||
+      !tensor_map(&v128, p.v, p.B, p.T, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, KV_BK, slab) ||
+      !tensor_map(&q64, p.q, p.B, p.S, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, KV_BQ, slab) ||
+      !tensor_map(&do64, p.dout, p.B, p.S, p.Hq, p.D, p.dout_sb, p.dout_ss, p.dout_sh,
+                  KV_BQ, slab) ||
+      !tensor_map(&q128, p.q, p.B, p.S, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, DQ_BQ, slab) ||
+      !tensor_map(&do128, p.dout, p.B, p.S, p.Hq, p.D, p.dout_sb, p.dout_ss, p.dout_sh,
+                  DQ_BQ, slab) ||
+      !tensor_map(&k64, p.k, p.B, p.T, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, DQ_BK, slab) ||
+      !tensor_map(&v64, p.v, p.B, p.T, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, DQ_BK, slab))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+
+  constexpr int kv_bytes = dkdv_tc_smem<DM>();
+  auto dkdv = flash_bwd_dkdv_tc<DM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const long long kv_items =
+      static_cast<long long>((p.T + KV_BK - 1) / KV_BK) * p.Hkv * p.B;
+  dkdv<<<static_cast<int>(kv_items < sms ? kv_items : sms), TB_THREADS, kv_bytes,
+         s>>>(k128, v128, q64, do64, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int q_bytes = dq_tc_smem<DM>();
+  auto dq = flash_bwd_dq_tc<DM>;
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q_bytes);
+  if (err != cudaSuccess) return err;
+  const long long q_items =
+      static_cast<long long>((p.S + DQ_BQ - 1) / DQ_BQ) * p.Hq * p.B;
+  dq<<<static_cast<int>(q_items < sms ? q_items : sms), TB_THREADS, q_bytes, s>>>(
+      q128, do128, k64, v64, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- shared code
@@ -347,13 +852,18 @@ flash_bwd_dq(const BwdParams p) {
   }
 }
 
-template <typename T, int DM>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_delta(const BwdParams& p, cudaStream_t s) {
   const long long rows = static_cast<long long>(p.B) * p.S * p.Hq;
   const int per_block = BW_THREADS / 32;
   flash_bwd_delta<T><<<static_cast<unsigned>((rows + per_block - 1) / per_block),
                        BW_THREADS, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, int DM>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t s) {
+  cudaError_t err = launch_delta<T>(p, s);
   if (err != cudaSuccess) return err;
 
   constexpr int kv_bytes = dkdv_smem_floats<DM>() * 4;
@@ -374,17 +884,31 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_dm(const BwdParams& p, cudaStream_t s) {
+cudaError_t launch_bwd_f32(const BwdParams& p, cudaStream_t s) {
   switch ((p.D + 15) / 16 * 16) {
-    case 16: return launch_bwd<T, 16>(p, s);
-    case 32: return launch_bwd<T, 32>(p, s);
-    case 48: return launch_bwd<T, 48>(p, s);
-    case 64: return launch_bwd<T, 64>(p, s);
-    case 80: return launch_bwd<T, 80>(p, s);
-    case 96: return launch_bwd<T, 96>(p, s);
-    case 112: return launch_bwd<T, 112>(p, s);
-    default: return launch_bwd<T, 128>(p, s);
+    case 16: return launch_bwd<float, 16>(p, s);
+    case 32: return launch_bwd<float, 32>(p, s);
+    case 48: return launch_bwd<float, 48>(p, s);
+    case 64: return launch_bwd<float, 64>(p, s);
+    case 80: return launch_bwd<float, 80>(p, s);
+    case 96: return launch_bwd<float, 96>(p, s);
+    case 112: return launch_bwd<float, 112>(p, s);
+    default: return launch_bwd<float, 128>(p, s);
+  }
+}
+
+cudaError_t launch_bwd_bf16(const BwdParams& p, cudaStream_t s) {
+  cudaError_t err = launch_delta<__nv_bfloat16>(p, s);
+  if (err != cudaSuccess) return err;
+  switch ((p.D + 15) / 16 * 16) {
+    case 16: return launch_bwd_tc<16>(p, s);
+    case 32: return launch_bwd_tc<32>(p, s);
+    case 48: return launch_bwd_tc<48>(p, s);
+    case 64: return launch_bwd_tc<64>(p, s);
+    case 80: return launch_bwd_tc<80>(p, s);
+    case 96: return launch_bwd_tc<96>(p, s);
+    case 112: return launch_bwd_tc<112>(p, s);
+    default: return launch_bwd_tc<128>(p, s);
   }
 }
 
@@ -401,9 +925,9 @@ extern "C" int flash_attention_bwd(const BwdParams* params, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (p.dtype == 1)
-    err = repro::launch_bwd_dm<__nv_bfloat16>(p, s);
-  else
-    err = repro::launch_bwd_dm<float>(p, s);
+  if (p.dtype == 1)  // bfloat16: the tensor cores
+    err = repro::launch_bwd_bf16(p, s);
+  else               // float32: the exact SIMT kernels
+    err = repro::launch_bwd_f32(p, s);
   return static_cast<int>(err);
 }

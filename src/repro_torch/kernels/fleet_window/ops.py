@@ -17,7 +17,8 @@ launches = 0
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def fleet_window_serve(queue, vol_left, budget, rates, backlog_cap, cap_tick):
+def fleet_window_serve(queue, vol_left, budget, rates, backlog_cap, cap_tick,
+                       *, interpret: bool = None):
     """One observation window of two-phase NRS-TBF service, fused.
 
     queue/vol_left/budget/backlog_cap: [R, J]; cap_tick: [R]; rates:
@@ -25,7 +26,8 @@ def fleet_window_serve(queue, vol_left, budget, rates, backlog_cap, cap_tick):
     fleet axis of any stride (0 for one trace shared by every fleet).
     Returns (queue, vol_left, served_window).  On the card every input but
     the rates must be a contiguous float32 CUDA tensor (the rates as
-    ``dispatch.check_rates`` says) and J <= ``MAX_JOBS``."""
+    ``dispatch.check_rates`` says) and J <= ``MAX_JOBS``.  ``interpret`` is
+    accepted for the reference's signature and ignored."""
     global launches
     if not route(queue, vol_left, budget, rates, backlog_cap, cap_tick):
         return ref.fleet_window_ref(queue, vol_left, budget, rates,

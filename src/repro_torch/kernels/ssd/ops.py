@@ -1,19 +1,19 @@
 """Dispatching wrappers for the Mamba-2 SSD: CUDA tensors launch the chunked
-scan kernel (``kernels/csrc/ssd_scan.cu``), CPU tensors take the plain
-version (``ref.py``), anything else raises.  The one-token update is plain
-PyTorch on every device, as in the reference.
+scan kernel (``kernels/csrc/ssd_scan.cu``) or its backward
+(``kernels/csrc/ssd_scan_bwd.cu``), CPU tensors take the plain versions
+(``ref.py``), anything else raises.  The one-token update is plain PyTorch
+on every device, as in the reference.
 
 The bfloat16 scan runs on the tensor cores and moves x, B, C and y by TMA,
 which wants each base 16-byte aligned and each stride but the last a
 multiple of 16 bytes (so P a multiple of 8); the float32 scan is the exact
 SIMT kernel.
 
-``ssd`` is differentiable.  Its forward always runs the scan above (the
-kernel for CUDA tensors); its backward recomputes the reference's chunked
-scan (``ref.ssd_chunked``) from the saved inputs with autograd and returns
-that graph's gradients.  The reference has no SSD backward kernel either:
-it differentiates its jnp chunked scan by autodiff, and so does the port.
-This is not a fallback: the card runs the scan kernel forward every time."""
+``ssd`` is differentiable.  Its forward runs the scan above; its backward
+(``ssd_bwd``) is the chunked reverse scan of ``ref.ssd_chunked``'s
+gradient: the backward kernel for CUDA tensors, ``ref.ssd_chunked_bwd``
+for CPU tensors.  The reference has no SSD backward kernel: it
+differentiates its jnp chunked scan by autodiff."""
 from __future__ import annotations
 
 import ctypes
@@ -24,10 +24,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check_16b, route
 from repro_torch.kernels.ssd import ref
 
-#: kernel launches made by ``ssd`` (never by the plain version)
+#: kernel launches made by ``ssd``'s forward (never by the plain version)
 launches = 0
-#: the profiler range around the backward's plain recompute
+#: launches of the backward kernel (``ssd_bwd`` on CUDA tensors)
+launches_bwd = 0
+#: the profiler range around the backward's plain version (CPU tensors)
 BACKWARD_RANGE = "ssd_backward_plain"
+#: the profiler range around the backward kernel (CUDA tensors)
+KERNEL_BACKWARD_RANGE = "ssd_backward_kernel"
 
 CHUNK = 64          # the kernel's chunk length
 MAX_HEAD_DIM = 64   # P
@@ -48,7 +52,7 @@ class _SsdParams(ctypes.Structure):
                                                "dtype")])
 
 
-def _check(x, dt, a, B, C):
+def _check(x, dt, a, B, C, tma=True):
     if x.dtype not in _DTYPES:
         raise TypeError(f"the SSD kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
@@ -70,7 +74,7 @@ def _check(x, dt, a, B, C):
     if p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(f"the SSD kernel takes P <= {MAX_HEAD_DIM} and "
                          f"N <= {MAX_STATE}, got P={p}, N={n}")
-    if x.dtype == torch.bfloat16:
+    if tma and x.dtype == torch.bfloat16:
         check_16b("the bfloat16 SSD kernel's TMA", x=x, B=B, C=C)
         if p % 8:   # y [B,S,H,P] leaves by TMA too: a 16-byte head stride
             raise ValueError(f"the bfloat16 SSD kernel's TMA needs P to be "
@@ -83,10 +87,22 @@ def ssd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):
     return _Ssd.apply(x, dt, a, B, C, d_skip, initial_state, chunk)
 
 
+class _SsdBwdParams(ctypes.Structure):
+    """``SsdBwdParams`` of ``csrc/ssd_scan_bwd.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+                    "x", "dt", "a", "bm", "cm", "d_skip", "h0", "gy",
+                    "gstate", "states", "dx", "ddt", "db_part", "dc_part",
+                    "da_part", "dd_part", "dh0", "db", "dc", "da", "dd")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "x_sb", "x_ss", "x_sh", "dt_sb", "dt_ss", "b_sb", "b_ss",
+                    "c_sb", "c_ss")]
+                + [(n, ctypes.c_int) for n in ("B", "S", "H", "P", "N",
+                                               "dtype")])
+
+
 class _Ssd(torch.autograd.Function):
-    """``_ssd_fwd`` forward; the backward recomputes ``ref.ssd_chunked``
-    under autograd from the saved inputs (the reference's own gradient,
-    by autodiff of its chunked scan)."""
+    """``_ssd_fwd`` forward; ``ssd_bwd`` backward from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, a, B, C, d_skip, initial_state, chunk):
@@ -97,23 +113,79 @@ class _Ssd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
-        saved = ctx.saved_tensors
-        want = [i for i, t in enumerate(saved)
-                if t is not None and ctx.needs_input_grad[i]]
-        with torch.enable_grad(), torch.profiler.record_function(
-                BACKWARD_RANGE):
-            inputs = [None if t is None else t.detach().requires_grad_(i in want)
-                      for i, t in enumerate(saved)]
-            y, state = ref.ssd_chunked(*inputs, chunk=ctx.chunk)
-            pairs = [(o, g.to(o.dtype)) for o, g in ((y, gy), (state, gstate))
-                     if g is not None]
-            got = torch.autograd.grad([o for o, _ in pairs],
-                                      [inputs[i] for i in want],
-                                      [g for _, g in pairs], allow_unused=True)
-        out = [None] * 8
-        for i, g in zip(want, got):
-            out[i] = g
-        return tuple(out)
+        x, dt, a, B, C, d_skip, h0 = ctx.saved_tensors
+        got = ssd_bwd(x, dt, a, B, C, d_skip, h0, gy, gstate, chunk=ctx.chunk)
+        return tuple(g if ctx.needs_input_grad[i] else None
+                     for i, g in enumerate(got)) + (None,)
+
+
+def ssd_bwd(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
+            gstate=None, chunk: int = 64):
+    """The gradient of ``ssd`` (``ref.ssd_chunked``) from the incoming
+    gradients gy [B,S,H,P] and gstate [B,H,P,N] (either may be None):
+    (dx, ddt, da, dB, dC, d_skip's gradient or None, initial_state's or
+    None), each in its input's dtype.  CPU tensors take
+    ``ref.ssd_chunked_bwd`` (range ``BACKWARD_RANGE``); CUDA tensors launch
+    the backward kernel (range ``KERNEL_BACKWARD_RANGE``), which takes the
+    forward kernel's shapes and chunks of ``CHUNK``; anything else
+    raises."""
+    global launches_bwd
+    given = [t for t in (d_skip, initial_state, gy, gstate) if t is not None]
+    if not route(x, dt, a, B, C, *given):
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            return ref.ssd_chunked_bwd(x, dt, a, B, C, d_skip=d_skip,
+                                       initial_state=initial_state, gy=gy,
+                                       gstate=gstate, chunk=chunk)
+    if chunk != CHUNK:
+        raise ValueError(f"the SSD backward kernel runs chunks of {CHUNK}, "
+                         f"got chunk={chunk}")
+    _check(x, dt, a, B, C, tma=False)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dev, f32 = x.device, torch.float32
+    for name, t, shape in (("initial_state", initial_state, (b, h, p, n)),
+                           ("gstate", gstate, (b, h, p, n)),
+                           ("gy", gy, (b, s, h, p)), ("d_skip", d_skip, (h,))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    with torch.profiler.record_function(KERNEL_BACKWARD_RANGE):
+        h0 = None if initial_state is None else \
+            initial_state.to(f32).contiguous()
+        gs = None if gstate is None else gstate.to(f32).contiguous()
+        g = None if gy is None else gy.to(x.dtype).contiguous()
+        skip = None if d_skip is None else d_skip.to(f32).contiguous()
+        nc = -(-s // CHUNK)
+        states = torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
+        parts = torch.empty((2, b, h, s, n), dtype=f32, device=dev)
+        small = torch.empty((2, b, h), dtype=f32, device=dev)
+        dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+        ddt = torch.empty((b, s, h), dtype=f32, device=dev)
+        dB = torch.empty((b, s, n), dtype=B.dtype, device=dev)
+        dC = torch.empty((b, s, n), dtype=C.dtype, device=dev)
+        da = torch.empty((h,), dtype=f32, device=dev)
+        dd = torch.empty((h,), dtype=f32, device=dev)
+        dh0 = None if h0 is None else torch.empty_like(h0)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        prm = _SsdBwdParams(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
+            C.data_ptr(), ptr(skip), ptr(h0), ptr(g), ptr(gs),
+            states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            parts[0].data_ptr(), parts[1].data_ptr(), small[0].data_ptr(),
+            small[1].data_ptr(), ptr(dh0), dB.data_ptr(), dC.data_ptr(),
+            da.data_ptr(), dd.data_ptr(), *x.stride()[:3], *dt.stride()[:2],
+            *B.stride()[:2], *C.stride()[:2], b, s, h, p, n,
+            _DTYPES[x.dtype])
+        _build.launch("ssd_scan_bwd", [ctypes.POINTER(_SsdBwdParams),
+                                       ctypes.c_void_p], ctypes.byref(prm),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        launches_bwd += 1
+    return (dx, ddt.to(dt.dtype), da.to(a.dtype), dB, dC,
+            None if d_skip is None else dd.to(d_skip.dtype),
+            None if dh0 is None else dh0.to(initial_state.dtype))
 
 
 def _ssd_fwd(x, dt, a, B, C, d_skip=None, initial_state=None, chunk: int = 64):

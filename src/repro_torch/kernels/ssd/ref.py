@@ -93,6 +93,131 @@ def ssd_chunked(
     return y.to(x.dtype), h_prev
 
 
+def ssd_chunked_bwd(x, dt, a, B, C, d_skip=None, initial_state=None,
+                    gy=None, gstate=None, chunk: int = 64):
+    """The gradient of ``ssd_chunked`` by a chunked reverse scan, in float32:
+    op for op what ``csrc/ssd_scan_bwd.cu`` computes.  ``gy`` [B,S,H,P] and
+    ``gstate`` [B,H,P,N] are the incoming gradients of y and the final
+    state; either may be None (zeros).  Returns (dx, ddt, da, dB, dC,
+    d_skip's gradient or None, initial_state's gradient or None), each in
+    its input's dtype.
+
+    1. The states entering each chunk by a forward walk (``h_prev`` of chunk
+       0 is the warm start rounded to x's type, as ``ssd_chunked`` casts
+       it).
+    2. Intra-chunk, per chunk: dw_ij = <gy_i, xw_j> (j <= i) gives
+       d(xw)_j += sum_i w_ij gy_i, dscores = dw * decay (into dC and dB,
+       summed over the heads that share B and C) and, where the clamp of
+       ``cum_i - cum_j`` at 0 passes its gradient (below the diagonal, where
+       the two terms of a diagonal entry cancel), dw * w into dcum_i and
+       -dcum_j.
+    3. Inter-chunk, walking the chunks in reverse with dh (the gradient of
+       the state leaving the chunk, from ``gstate``): y_inter gives
+       dC_i += exp(cum_i) h_prev^T gy_i and dcum_i += exp(cum_i) <C_i
+       h_prev, gy_i>; the state update h = h_prev gamma + h_chunk gives
+       dseg += <dh, h_prev> gamma and, through h_chunk = sum_j B_j
+       exp(seg - cum_j) xw_j, dB_j, d(xw)_j and dcum_j (seg's share added
+       to the chunk's last position); then dh_prev = dh gamma + sum_i
+       exp(cum_i) gy_i C_i^T.
+    4. dA = the reverse cumsum of dcum; ddt = dA a + <d(xw), x>; da = sum
+       dA dt; dx = d(xw) dt + D gy; dD = sum <x, gy>.
+    Padded rows (S not a multiple of ``chunk``) carry dt = 0 and gy = 0, as
+    in the forward."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    pad = (-s) % chunk
+    if gy is None:
+        gy = torch.zeros((b, s, h, p), dtype=f32, device=x.device)
+    if pad:
+        x, dt, B, C, gy = (_pad_seq(t, pad) for t in (x, dt, B, C, gy))
+    nc = (s + pad) // chunk
+    q = chunk
+    xc = x.reshape(b, nc, q, h, p).to(f32)
+    dtc = dt.reshape(b, nc, q, h).to(f32)
+    Bc = B.reshape(b, nc, q, n).to(f32)
+    Cc = C.reshape(b, nc, q, n).to(f32)
+    gyc = gy.reshape(b, nc, q, h, p).to(f32)
+    a32 = a.to(f32)
+    skip = None if d_skip is None else d_skip.to(f32)
+
+    cum = torch.cumsum(dtc * a32, dim=2)                   # [b,nc,q,h]
+    seg = cum[:, :, -1, :]                                 # [b,nc,h]
+    xw = xc * dtc[..., None]
+    e = torch.exp(cum)                                     # exp(cum_i)
+    sd = torch.exp(seg[:, :, None, :] - cum)               # exp(seg - cum_j)
+    gamma = torch.exp(seg)
+
+    # 1. the states entering each chunk
+    h_chunk = torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bc, sd, xw)
+    hs = []
+    h_prev = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+              if initial_state is None
+              else initial_state.to(x.dtype).to(f32))
+    for c in range(nc):
+        hs.append(h_prev)
+        h_prev = h_prev * gamma[:, c, :, None, None] + h_chunk[:, c]
+    hp = torch.stack(hs, dim=1)                            # [b,nc,h,p,n]
+
+    # 2. intra-chunk
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    below = torch.tril(tri, -1)
+    u = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b,nc,i,j,h]
+    decay = torch.exp(torch.clamp_max(u, 0.0))
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    w = torch.where(tri[..., None], scores[..., None] * decay, zero)
+    dw = torch.where(tri[..., None],
+                     torch.einsum("bcihp,bcjhp->bcijh", gyc, xw), zero)
+    dxw = torch.einsum("bcijh,bcihp->bcjhp", w, gyc)
+    dscores = (dw * decay).sum(-1)                         # [b,nc,i,j]
+    dC = torch.einsum("bcij,bcjn->bcin", dscores, Bc)
+    dB = torch.einsum("bcij,bcin->bcjn", dscores, Cc)
+    g = torch.where(below[..., None] & (u <= 0.0), dw * w, zero)
+    dcum = g.sum(3) - g.sum(2)                             # [b,nc,q,h]
+
+    # 3. inter-chunk, in reverse
+    t1 = torch.einsum("bcihp,bchpn->bcihn", gyc, hp)       # h_prev^T gy_i
+    dC = dC + torch.einsum("bcih,bcihn->bcin", e, t1)
+    dcum = dcum + e * torch.einsum("bcihn,bcin->bcih", t1, Cc)
+    dh = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+          if gstate is None else gstate.to(f32))
+    after = [None] * nc
+    for c in reversed(range(nc)):
+        after[c] = dh
+        dh = dh * gamma[:, c, :, None, None] + torch.einsum(
+            "bih,bihp,bin->bhpn", e[:, c], gyc[:, c], Cc[:, c])
+    dh_after = torch.stack(after, dim=1)                   # [b,nc,h,p,n]
+    dseg = torch.einsum("bchpn,bchpn->bch", dh_after, hp) * gamma
+    t2 = torch.einsum("bchpn,bcjhp->bcjhn", dh_after, xw)  # dh^T xw_j
+    dB = dB + torch.einsum("bcjh,bcjhn->bcjn", sd, t2)
+    dxw = dxw + sd[..., None] * torch.einsum("bchpn,bcjn->bcjhp", dh_after,
+                                             Bc)
+    dsd = torch.einsum("bcjhn,bcjn->bcjh", t2, Bc) * sd
+    dseg = dseg + dsd.sum(2)
+    dcum = dcum - dsd
+    dcum[:, :, -1, :] += dseg
+
+    # 4. through the cumsum, dt weighting and the skip
+    dA = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = dA * a32 + (dxw * xc).sum(-1)
+    da = (dA * dtc).sum((0, 1, 2))
+    dx = dxw * dtc[..., None]
+    dskip = None
+    if skip is not None:
+        dx = dx + skip[:, None] * gyc
+        dskip = (xc * gyc).sum((0, 1, 2, 4)).to(d_skip.dtype)
+    dh0 = None if initial_state is None else dh.to(initial_state.dtype)
+    rows = nc * q
+
+    def cut(t, shape):
+        return t.reshape((b, rows) + shape)[:, :s]
+
+    return (cut(dx, (h, p)).to(x.dtype), cut(ddt, (h,)).to(dt.dtype),
+            da.to(a.dtype), cut(dB, (n,)).to(B.dtype),
+            cut(dC, (n,)).to(C.dtype), dskip, dh0)
+
+
 def ssd_scan_model(x, dt, a, B, C, d_skip=None, initial_state=None,
                    chunk: int = 64):
     """Test-only plain model of ``csrc/ssd_scan.cu`` (the bfloat16

@@ -29,7 +29,7 @@ from repro_torch.kernels.window_mega import ref
 #: kernel launches made by ``mega_window_round`` (never by the plain version)
 launches = 0
 
-_ROADMAP = "ROADMAP.md, queue A, \"Megakernel coverage\""
+_ROADMAP = "ROADMAP.md, queue B, item 9, \"Megakernel coverage\""
 
 _IN = ("queue", "vol", "alloc", "held_served", "held_demand", "held_alloc",
        "state0", "state1", "state2", "nodes", "backlog", "rates", "cap_tick",
@@ -145,7 +145,7 @@ def _selected(policy, code):
 
 def mega_window_round(policy, ctx, cap_tick, backlog_cap, queue, vol_left,
                       alloc, held, pstate, rates_w, telem_ok=None, up=None,
-                      code_rows=None):
+                      code_rows=None, *, interpret: bool = None):
     """One fused control round: gate -> serve all ticks -> observation
     select -> policy step.
 
@@ -158,7 +158,8 @@ def mega_window_round(policy, ctx, cap_tick, backlog_cap, queue, vol_left,
     fault columns.  ``ctx.control_code`` may be an [R, 1] int32 column of
     per-row codes (a coded policy over a batch of fleets); the card then
     needs ``code_rows`` (``storage.simulator.FleetAxis.code_rows``) and
-    launches once for each distinct code.
+    launches once for each distinct code.  ``interpret`` is accepted for
+    the reference's signature and ignored.
 
     Returns (queue, vol_left, served_w, demand, obs_served, obs_demand,
     obs_alloc, pstate, alloc_next): the obs triple is the next held state;

@@ -33,7 +33,7 @@ host seconds.
 
 The reference's LM meshes (``make_production_mesh``, ``make_mesh``,
 ``data_axis_size``) are TPU-mesh code and wait for ROADMAP.md queue A,
-item 9.4.
+item A.5.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ checkpoints, on one CUDA device (``--device cpu`` for the CPU).
 
 ``--mesh`` takes ``1x1`` (one device, the default here); the reference's
 TPU meshes (``production``, ``multipod``, larger grids) are not ported
-(ROADMAP.md, queue A, item 9.4, "the TPU meshes").
+(ROADMAP.md, queue A, item A.5, "the TPU meshes").
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"mesh {args.mesh!r}: the port trains on one device (--mesh 1x1); "
             "the reference's TPU meshes are not ported (ROADMAP.md, queue A, "
-            "item 9.4, \"the TPU meshes\")")
+            "item A.5, \"the TPU meshes\")")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     controller = AdapTBFController(n_targets=4, capacity_rpc_per_s=4000,

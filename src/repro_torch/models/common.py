@@ -4,7 +4,7 @@ Plain-dictionary module system, as in the reference package: every layer
 is a ``*_defs(cfg)`` function returning a tree of ``ParamDef`` plus an
 ``*_apply(p, x, ...)`` function on tensors.  The reference's logical
 sharding axes and its ``shard`` constraints are TPU-mesh code and wait
-for ROADMAP.md queue A, item 9.4; a ``ParamDef`` here is a shape and an
+for ROADMAP.md queue A, item A.5; a ``ParamDef`` here is a shape and an
 initializer.
 """
 from __future__ import annotations

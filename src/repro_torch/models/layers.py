@@ -172,7 +172,7 @@ def moe_defs(cfg: ModelConfig):
 def moe_apply(p, x, cfg: ModelConfig):
     raise NotImplementedError(
         "the MoE block is not ported to PyTorch yet (ROADMAP.md, queue A, "
-        "item 9, \"the MoE block\")")
+        "item A.3, \"the MoE block\")")
 
 
 # ---------------------------------------------------------------- Mamba-2

@@ -60,8 +60,19 @@ def _block_defs(cfg: ModelConfig):
     raise ValueError(cfg.block)
 
 
+def _stacked_scale(defs, n_layers: int):
+    """A block's defs drawn at the reference's scale.  The reference stacks
+    them on a leading ``[n_layers]`` axis, and its ``materialize`` takes
+    that axis as the fan-in of every leaf, so a ``"normal"`` leaf without
+    an explicit scale is drawn at ``n_layers ** -0.5``.  The port keeps the
+    blocks as a list, so the scale is set here, leaf by leaf."""
+    return map_tree(
+        lambda d: ParamDef(d.shape, scale=n_layers ** -0.5)
+        if d.init == "normal" and d.scale is None else d, defs)
+
+
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    block = _block_defs(cfg)
+    block = _stacked_scale(_block_defs(cfg), cfg.n_layers)
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.vocab, cfg.d_model), scale=1.0),
         "final_norm": L.rmsnorm_defs(cfg.d_model),
@@ -226,7 +237,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend} frontend is not ported to PyTorch yet "
-            "(ROADMAP.md, queue A, item 9, \"the audio and vision "
+            "(ROADMAP.md, queue A, item A.4, \"the audio and vision "
             "frontends\")")
     return params["embed"].to(dtype)[batch["tokens"].long()]
 

@@ -13,7 +13,12 @@ over head dims 16-128, GQA groups 1 and 4, ragged lengths, S at the tile
 and chunk edges and S != T, decode lengths around the host plan's split
 length, SSD state dims 16-128, and both element types, with their
 wrappers' input checks (the bfloat16 attention's and SSD scan's TMA and
-the decode's 16-byte copies want 16-byte aligned bases and strides).
+the decode's 16-byte copies want 16-byte aligned bases and strides); and
+the training kernels: the attention backward (bfloat16 on the tensor
+cores, float32 SIMT) over GQA, S != T, ragged S and head dims 16-128, the
+SSD backward against autograd of the plain scan (warm start, no skip, gy
+only, gstate only, S = 1, P = 16 with N = 128), both bitwise across two
+calls, and a trainer's crash and restore bitwise on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -961,6 +966,10 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     (1, 129, 129, 4, 4, 16, False),
     (1, 1, 1, 2, 2, 96, True),
     (1, 256, 256, 32, 8, 80, True),       # GQA 32/8 at zamba2's head dim
+    (1, 1000, 1000, 8, 2, 80, True),      # S = 1000: ragged against 128
+    (2, 300, 500, 8, 8, 128, False),      # S < T, D = 128
+    (1, 500, 300, 8, 2, 64, True),        # S > T, causal
+    (1, 130, 130, 4, 1, 48, True),        # D = 48: three 16-column slabs
 ])
 def test_flash_attention_bwd_matches_plain(cuda, b, s, t, hq, hkv, d, causal,
                                            dtype):
@@ -1031,6 +1040,26 @@ def test_flash_attention_bwd_finite_differences(cuda):
                 assert abs(float(fd - an)) <= 1e-2 * max(1.0, abs(float(an)))
 
 
+def test_flash_attention_bwd_bf16_rejects_what_tma_cannot_read(cuda):
+    """The bfloat16 backward reads q, k, v and dO by TMA: an o or dO
+    (and q) off a 16-byte base or with a row pitch that is not a multiple
+    of 16 bytes raises ``ValueError`` before any launch."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dt = torch.bfloat16
+    q = _rand(gen, (1, 64, 4, 64), dt)
+    k = _rand(gen, (1, 64, 2, 64), dt)
+    o, lse = attn_ops.attention_lse(q, k, k)
+    do = _rand(gen, (1, 64, 4, 64), dt)
+    before = attn_ops.launches["flash_attention_bwd"]
+    odd = _rand(gen, (1, 64 * 4 * 64 + 1), dt)[:, 1:].view(1, 64, 4, 64)
+    for kw in ({"o": odd}, {"do": odd}, {"q": odd}):
+        args = dict(q=q, k=k, v=k, o=o, lse=lse, do=do)
+        args.update(kw)
+        with pytest.raises(ValueError, match="TMA"):
+            attn_ops.attention_bwd(**args)
+    assert attn_ops.launches["flash_attention_bwd"] == before
+
+
 def test_flash_attention_bwd_rejects_what_it_cannot_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = _rand(gen, (1, 16, 4, 64), torch.float32)
@@ -1046,22 +1075,133 @@ def test_flash_attention_bwd_rejects_what_it_cannot_take(cuda):
     assert attn_ops.launches["flash_attention_bwd"] == before
 
 
-def test_trainer_restore_is_bitwise_on_the_card(cuda, tmp_path):
+SSD_BWD_NAMES = ("x", "dt", "a", "B", "C", "d_skip", "initial_state")
+
+
+def _ssd_autograd(args, gy, gs):
+    """Autograd of ``ref.ssd_chunked`` (the oracle): the gradients of every
+    given input (None where an input is None), gy and gs as given."""
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in args]
+    y, st = ssd_ops.ref.ssd_chunked(*leaves[:5], d_skip=leaves[5],
+                                    initial_state=leaves[6])
+    outs = [(o, g.to(o.dtype)) for o, g in ((y, gy), (st, gs))
+            if g is not None]
+    idx = [i for i, t in enumerate(leaves) if t is not None]
+    got = torch.autograd.grad([o for o, _ in outs], [leaves[i] for i in idx],
+                              [g for _, g in outs], allow_unused=True)
+    out = [None] * 7
+    for i, g in zip(idx, got):
+        out[i] = torch.zeros_like(leaves[i]) if g is None else g
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,warm,skip,use_gy,use_gs", [
+    (2, 200, 3, 64, 64, False, True, True, True),
+    (2, 1, 5, 64, 64, True, True, True, True),       # S = 1
+    (1, 1000, 4, 64, 64, True, True, True, True),    # ragged, warm start
+    (2, 130, 3, 16, 128, True, False, True, True),   # P = 16, N = 128
+    (1, 64, 2, 32, 96, False, True, False, True),    # gstate only
+    (1, 65, 2, 64, 64, False, True, True, False),    # gy only
+])
+def test_ssd_bwd_matches_autograd(cuda, b, s, h, p, n, warm, skip, use_gy,
+                                  use_gs, dtype):
+    """The SSD backward kernel against autograd of ``ref.ssd_chunked``:
+    float32 within 1e-4 x max(1, max |g|) a gradient; bfloat16 no farther
+    from the float32 autograd gradients than the bfloat16 plain path's
+    autograd (mean within 1.25x, max within 2x).  One launch a call; two
+    calls bitwise equal (no atomics)."""
+    x, dt, a, B, C, d = _ssd_case(cuda, b, s, h, p, n, dtype, s + p + n)
+    gen = torch.Generator(device=cuda).manual_seed(s + 3 * n)
+    h0 = _rand(gen, (b, h, p, n), torch.float32) if warm else None
+    gy = _rand(gen, (b, s, h, p), dtype) if use_gy else None
+    gs = _rand(gen, (b, h, p, n), torch.float32) if use_gs else None
+    args = [x, dt, a, B, C, d if skip else None, h0]
+    before = ssd_ops.launches_bwd
+    got = ssd_ops.ssd_bwd(*args, gy=gy, gstate=gs)
+    again = ssd_ops.ssd_bwd(*args, gy=gy, gstate=gs)
+    assert ssd_ops.launches_bwd == before + 2
+    for name, g, g2, t in zip(SSD_BWD_NAMES, got, again, args):
+        assert (g is None) == (t is None), name
+        if g is not None:
+            assert g.dtype == t.dtype and g.shape == t.shape, name
+            assert torch.equal(g, g2), name
+    want = _ssd_autograd(args, gy, gs)
+    if dtype == torch.float32:
+        for name, g, w in zip(SSD_BWD_NAMES, got, want):
+            if g is not None:
+                bound = 1e-4 * max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) <= bound, name
+        return
+    f32 = [None if t is None else t.float() for t in args]
+    if h0 is not None:   # the bfloat16 scan rounds its warm start to bf16
+        f32[6] = h0.to(dtype).float()
+    w32 = _ssd_autograd(f32, None if gy is None else gy.float(), gs)
+    for name, g, w, r in zip(SSD_BWD_NAMES, got, want, w32):
+        if g is None:
+            continue
+        ours = (g.double() - r.double()).abs()
+        theirs = (w.double() - r.double()).abs()
+        assert float(ours.mean()) <= 1.25 * float(theirs.mean()) + 1e-12, name
+        assert float(ours.max()) <= 2 * float(theirs.max()) + 1e-12, name
+
+
+def test_ssd_backward_launches_the_kernel(cuda):
+    """``ssd``'s backward on the card launches the backward kernel once and
+    matches ``ssd_bwd``; no plain recompute."""
+    x, dt, a, B, C, d = _ssd_case(cuda, 1, 130, 3, 64, 64, torch.float32, 5)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, B, C, d)]
+    y, st = ssd_ops.ssd(*leaves)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    gy = _rand(gen, y.shape, torch.float32)
+    before = (ssd_ops.launches, ssd_ops.launches_bwd)
+    got = torch.autograd.grad(y, leaves, gy)
+    assert (ssd_ops.launches, ssd_ops.launches_bwd) == (before[0],
+                                                        before[1] + 1)
+    want = ssd_ops.ssd_bwd(x, dt, a, B, C, d, gy=gy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_ssd_bwd_rejects_what_it_cannot_take(cuda):
+    x, dt, a, B, C, d = _ssd_case(cuda, 1, 64, 2, 64, 64, torch.float32, 1)
+    before = ssd_ops.launches_bwd
+    with pytest.raises(ValueError, match="P <= 64"):
+        wide = torch.zeros((1, 64, 2, 80), device=cuda)
+        ssd_ops.ssd_bwd(wide, dt, a, B, C, gy=wide)
+    with pytest.raises(ValueError, match="chunks of 64"):
+        ssd_ops.ssd_bwd(x, dt, a, B, C, gy=x, chunk=32)
+    with pytest.raises(ValueError, match="gstate must have shape"):
+        ssd_ops.ssd_bwd(x, dt, a, B, C, gstate=torch.zeros((1, 2, 64, 8),
+                                                             device=cuda))
+    with pytest.raises(ValueError, match="several devices"):
+        ssd_ops.ssd_bwd(x, dt, a, B, C, gy=x.cpu())
+    assert ssd_ops.launches_bwd == before
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b"])
+def test_trainer_restore_is_bitwise_on_the_card(cuda, tmp_path, arch):
     """Crash, restore and continue reproduces the uninterrupted run bit for
-    bit on the card with the kernels (phi3-mini-3.8b's smoke config): the
-    attention backward runs no atomics."""
+    bit on the card with the kernels (phi3-mini-3.8b's and zamba2-2.7b's
+    smoke configs): the attention and SSD backwards run no atomics."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.pytree import leaves_with_paths
     from repro_torch.training import Trainer
 
-    cfg = get_smoke_config("phi3-mini-3.8b")
+    cfg = get_smoke_config(arch)
     kw = dict(global_batch=4, seq_len=32, ckpt_every=1000, lr=1e-3,
               device=cuda)
     ref = Trainer(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
     before = dict(attn_ops.launches)
+    before_ssd = ssd_ops.launches_bwd
     ref_hist = ref.run(6)
     ref.close()
-    n_attn = cfg.n_layers * 6
+    if cfg.block == "zamba":
+        n_attn = cfg.n_layers // cfg.shared_attn_every * 6
+        assert ssd_ops.launches_bwd == before_ssd + cfg.n_layers * 6
+    else:
+        n_attn = cfg.n_layers * 6
     assert attn_ops.launches["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + n_attn
     assert attn_ops.launches["flash_attention"] >= \

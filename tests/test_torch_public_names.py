@@ -18,15 +18,15 @@ from repro_torch.core import no_bw_allocate
 # reference name -> the ROADMAP.md queue A item that ports it
 NOT_YET = {
     "launch.mesh": {
-        "make_production_mesh": "9.4, the TPU meshes",
-        "make_mesh": "9.4, the TPU meshes",
-        "data_axis_size": "9.4, the TPU meshes",
+        "make_production_mesh": "A.5, the TPU meshes",
+        "make_mesh": "A.5, the TPU meshes",
+        "data_axis_size": "A.5, the TPU meshes",
     },
     "models": {
-        "param_shapes": "9.4, specs and shape helpers",
-        "cache_shapes": "9.4, specs and shape helpers",
-        "param_specs": "9.4, specs and shape helpers",
-        "cache_specs": "9.4, specs and shape helpers",
+        "param_shapes": "A.5, specs and shape helpers",
+        "cache_shapes": "A.5, specs and shape helpers",
+        "param_specs": "A.5, specs and shape helpers",
+        "cache_specs": "A.5, specs and shape helpers",
     },
 }
 
@@ -37,6 +37,10 @@ WITHOUT_ALL = ["launch.steps", "launch.mesh", "launch.train",
                "kernels.ssd.ops", "storage.telemetry", "storage.metrics",
                "storage.service", "storage.workloads", "checkpoint.manager",
                "data.pipeline", "optim.adamw", "training.trainer"]
+
+
+# reference parameter -> the port's, where the port renames it on purpose
+RENAMED = {"key": "generator"}   # jax.random keys become torch.Generators
 
 
 def _public_definitions(module):
@@ -92,3 +96,51 @@ def test_no_bw_allocate_matches_reference(shape, cap):
     np.testing.assert_array_equal(got.numpy(), want)
     got = no_bw_allocate(torch.from_numpy(demand), cap)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", WITH_ALL + WITHOUT_ALL + ["core.remainder"])
+def test_port_functions_take_the_reference_parameters(name):
+    """Every parameter of a reference public function exists in the port's
+    counterpart (``RENAMED`` aside), so a reference caller's keywords are
+    accepted: ``integerize(..., specialize=)`` and the kernel wrappers'
+    ``interpret=`` among them."""
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    names = getattr(ref, "__all__", None) or _public_definitions(ref)
+    missing = {}
+    for n in names:
+        a, b = getattr(ref, n, None), getattr(port, n, None)
+        if not (inspect.isfunction(a) and inspect.isfunction(b)):
+            continue
+        have = set(inspect.signature(b).parameters)
+        lost = [p for p in inspect.signature(a).parameters
+                if p not in have and RENAMED.get(p) not in have]
+        if lost:
+            missing[n] = lost
+    assert not missing, f"repro_torch.{name}: {missing}"
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("core.remainder.integerize", "specialize"),
+    ("kernels.adaptbf_alloc.ops.fleet_alloc", "interpret"),
+    ("kernels.fleet_window.ops.fleet_window_serve", "interpret"),
+    ("kernels.window_mega.ops.mega_window_round", "interpret")])
+def test_reference_keywords_accepted(name, kw):
+    mod, fn = name.rsplit(".", 1)
+    params = inspect.signature(
+        getattr(importlib.import_module(f"repro_torch.{mod}"), fn)).parameters
+    assert params[kw].kind == inspect.Parameter.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("specialize", [False, True])
+def test_integerize_specialize_is_bitwise_the_default(specialize):
+    from repro_torch.core.remainder import integerize
+    rng = np.random.default_rng(7)
+    raw = torch.from_numpy(rng.uniform(0, 9, (6, 33)).astype(np.float32))
+    rem = torch.from_numpy(rng.uniform(-0.5, 1, (6, 33)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((6, 33)) < 0.7)
+    budget = torch.tensor([[0.], [5.], [40.], [120.], [300.], [7.]])
+    want = integerize(raw, rem, budget, mask)
+    got = integerize(raw, rem, budget, mask, specialize=specialize)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
