@@ -2484,10 +2484,16 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     tr = trace(torch, "train step, bfloat16, kernel path",
                lambda: (step_fn(state, b), torch.cuda.synchronize()),
                what="one step", top=12,
-               focus=("flash_attention", "flash_bwd", "ssd_scan", "ssd_bwd"),
+               focus=("flash_attention", "flash_bwd", "flash_bwd_dkdv_tc",
+                      "flash_bwd_dq_tc", "ssd_scan", "ssd_bwd"),
                ranges=(KERNEL_BACKWARD_RANGE, BACKWARD_RANGE))
     if tr:
         busy = tr[0]
+        tc = {k: tr[2][k][0] for k in ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")}
+        if tc != {k: n_attn for k in tc}:
+            raise AssertionError(f"train step: the bfloat16 attention "
+                                 f"backward's tensor-core kernels launched "
+                                 f"{tc}, expected {n_attn} each")
         if tr[2][BACKWARD_RANGE][0] or \
                 tr[2][KERNEL_BACKWARD_RANGE][0] != cfg.n_layers:
             raise AssertionError(
