@@ -77,9 +77,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    full width and depth on weights from ``torch.Generator(0)``; the
    prefill step (``make_prefill_step``, bfloat16, B=4 x S=2048; 9 flash
    attention and 54 SSD launches) against the plain path on the card,
-   with float32 runs of both as the yardstick (the float32 kernel-vs-plain
-   gate on the same draws at each block leaf's own fan-in, as for the
-   training gradients); then the serving
+   with float32 runs of both as the yardstick (kernel vs plain within 1e-3
+   x max(1, max |logit|), and each against a float64 plain run: the
+   kernel path's error within 1.25x (mean) and 2x (max) the plain
+   path's); then the serving
    launcher's workload through ``ServingEngine`` and
    ``AdapTBFController`` (8 requests, 16 new tokens, 4 slots, float32; 9
    flash decode launches a step), the plain path teacher-forced on the
@@ -112,11 +113,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    phase 3f): zamba2-2.7b at full width and depth on weights from
    ``torch.Generator(0)`` and ``TokenPipeline(32000, 2048, 4).batch(0)``;
    ``loss_fn`` forward and backward in float32, kernel path against the
-   plain path (loss within 1e-4 relative, each gradient leaf within 1e-3 x
-   max(1, max |g|), on the same draws with each block leaf at its own
-   fan-in, ``fan_in_params``; at ``init_params``' weights the loss is
-   gated and the gradients printed beside the plain path's own spread
-   when its weights move by one ulp, which alone exceeds 1e-3), and in
+   plain path (loss within 1e-4 relative) and each against a float64
+   plain run (the kernel path's gradients within 1.25x the plain path's
+   mean error and 2x its worst leaf's max |err| / max(1, max |g|)), and in
    bfloat16 against the float32 plain gradients, held to the bfloat16
    plain path's own error; then five
    ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
@@ -1836,37 +1835,13 @@ def ssd_work(b, s, h, p, n, elem, q=64):
     return n_bytes, b * h * nc * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
 
 
-def fan_in_params(torch, models, cfg, params):
-    """``params`` with every block leaf that is drawn at the reference's
-    stacked fan-in (``n_layers ** -0.5``, ``models.model._stacked_scale``)
-    rescaled to its own fan-in, ``shape[0] ** -0.5``: the same draws at the
-    scale the cells had before the port matched the reference's (ROADMAP
-    C.1).  The float32 kernel-vs-plain gates run on these weights: at the
-    stacked scale zamba2-2.7b's float32 logits and gradients move by more
-    than the gates' 1e-3 when the weights move by one ulp (printed beside
-    each gate), so no two float32 implementations could meet them there."""
-    def walk(defs, w):
-        if isinstance(defs, dict):
-            return {k: walk(defs[k], w[k]) for k in w}
-        if defs.init == "normal" and defs.scale is None:
-            return w * (cfg.n_layers ** 0.5 * defs.shape[0] ** -0.5)
-        return w
-    block = models.model._block_defs(cfg)
-    return {**params, "layers": [walk(block, w) for w in params["layers"]]}
-
-
-def one_ulp(torch, models, params):
-    """Every weight moved one ulp up (the plain path's own spread)."""
-    return models.common.map_tree(
-        lambda w: torch.nextafter(w, torch.full_like(w, float("inf"))), params)
-
-
 def lm_main_path(torch, dev, counts, zero_counts):
     """zamba2-2.7b at full width on seeded weights: the prefill step (bf16)
-    on the kernels and on the plain path, and in float32 both ways as the
-    yardstick; then the launcher's serving workload through ServingEngine
-    and AdapTBFController (float32), the plain path teacher-forced on the
-    kernel run's inputs.  Returns the numbers for the report."""
+    on the kernels and on the plain path, and in float32 both ways and a
+    float64 plain run as the yardsticks; then the launcher's serving
+    workload through ServingEngine and AdapTBFController (float32), the
+    plain path teacher-forced on the kernel run's inputs.  Returns the
+    numbers for the report."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels.window_mega.ops import _leaves
@@ -1936,33 +1911,29 @@ def lm_main_path(torch, dev, counts, zero_counts):
     ref32 = logits[("float32", False)]
     scale = float(ref32.abs().max())
     e32 = float((logits[("float32", True)] - ref32).abs().max())
-    # the plain path's own spread at these weights: moved by one ulp
-    bumped = one_ulp(torch, models, params)
-    lg = make_prefill_step(cfg, compute_dtype=torch.float32,
-                           kernels=False)(bumped, batch)
-    spread = float((lg[:, -1].double() - ref32).abs().max())
-    del bumped, lg
-    # the gate: float32 kernel path against the plain path on the same
-    # draws at each leaf's own fan-in
-    cond = fan_in_params(torch, models, cfg, params)
-    c_lg = [make_prefill_step(cfg, compute_dtype=torch.float32,
-                              kernels=k)(cond, batch)[:, -1].double()
-            for k in (True, False)]
-    del cond
-    c_scale = float(c_lg[1].abs().max())
-    c_e32 = float((c_lg[0] - c_lg[1]).abs().max())
-    print(f"prefill float32 at init_params' weights (max |logit| "
-          f"{scale:.3f}): kernel vs plain max |err| {e32}; the plain path "
-          f"moved by its weights' one ulp: {spread} (not gated: above 1e-3 x "
-          f"max(1, max |logit|) = {1e-3 * max(1.0, scale):.4g} by itself)")
-    if c_e32 > 1e-3 * max(1.0, c_scale):
-        raise AssertionError(f"float32 prefill at each leaf's fan-in: kernel "
-                             f"path off the plain path by {c_e32} (max "
-                             f"|logit| {c_scale})")
-    print(f"prefill float32 at each block leaf's own fan-in (max |logit| "
-          f"{c_scale:.3f}): kernel vs plain max |err| {c_e32} (bound 1e-3 x "
-          f"max(1, max |logit|))")
-    out.update(prefill_err_f32_fan_in=c_e32, prefill_spread_f32=spread)
+    if e32 > 1e-3 * max(1.0, scale):
+        raise AssertionError(f"float32 prefill: kernel path off the plain "
+                             f"path by {e32} (max |logit| {scale})")
+    # the float64 plain path as the witness: the float32 kernel path's error
+    # against it within 1.25x (mean) and 2x (max) the float32 plain path's
+    w = models.cast_params(params, torch.float64)
+    ref64 = make_prefill_step(cfg, compute_dtype=torch.float64,
+                              kernels=False)(w, batch)[:, -1].double()
+    del w
+    ours64 = (logits[("float32", True)] - ref64).abs()
+    theirs64 = (ref32 - ref64).abs()
+    w64 = tuple(float(v) for v in (ours64.mean(), ours64.max(),
+                                   theirs64.mean(), theirs64.max()))
+    print(f"prefill float32 (max |logit| {scale:.3f}): kernel vs plain max "
+          f"|err| {e32} (bound 1e-3 x max(1, max |logit|) = "
+          f"{1e-3 * max(1.0, scale):.4g}); against the float64 plain path, "
+          f"kernel path mean/max |err| {w64[0]:.4g}/{w64[1]:.4g}, plain path "
+          f"{w64[2]:.4g}/{w64[3]:.4g} (bound: mean within 1.25x, max within "
+          f"2x)")
+    if w64[0] > 1.25 * w64[2] or w64[1] > 2 * w64[3]:
+        raise AssertionError("float32 prefill: the kernel path is farther "
+                             "from the float64 logits than the plain path")
+    out.update(prefill_err_f32_vs_f64=w64)
     k16, p16 = logits[("bfloat16", True)], logits[("bfloat16", False)]
     e16 = float((k16 - p16).abs().max())
     ours, theirs = (k16 - ref32).abs(), (p16 - ref32).abs()
@@ -1974,11 +1945,11 @@ def lm_main_path(torch, dev, counts, zero_counts):
             f"{float(theirs.max())})")
     agree16 = float((k16.argmax(-1) == p16.argmax(-1)).double().mean())
     print(f"prefill last-token logits (max |logit| {scale:.3f}): float32 "
-          f"kernel vs plain max |err| {e32} (gated at each leaf's fan-in, "
-          f"above); bfloat16 kernel vs plain max |err| {e16}, argmax "
-          f"agreement {agree16}; against the float32 plain logits, "
-          f"bfloat16 kernel path mean/max |err| {float(ours.mean()):.5f}/"
-          f"{float(ours.max()):.5f}, bfloat16 plain path "
+          f"kernel vs plain max |err| {e32}; bfloat16 kernel vs plain max "
+          f"|err| {e16}, argmax agreement {agree16}; against the float32 "
+          f"plain logits, bfloat16 kernel path mean/max |err| "
+          f"{float(ours.mean()):.5f}/{float(ours.max()):.5f}, bfloat16 "
+          f"plain path "
           f"{float(theirs.mean()):.5f}/{float(theirs.max()):.5f} (bound: "
           f"mean within 1.25x, max within 2x)")
     out.update(prefill_err_bf16=e16, prefill_err_f32=e32,
@@ -2300,8 +2271,9 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     """zamba2-2.7b training at full width and depth on weights from
     ``torch.Generator(0)`` and the batch of ``TokenPipeline(32000, 2048,
     4)``: (a) ``loss_fn`` forward and backward in float32, kernel path
-    against plain path; (b) the same in bfloat16 against the float32 plain
-    gradients, held to the bfloat16 plain path's own error; (c) five
+    against plain path and each against a float64 plain run; (b) the same
+    in bfloat16 against the float32 plain gradients, held to the bfloat16
+    plain path's own error; (c) five
     ``make_train_step`` steps (bfloat16 compute, float32 masters, AdamW in
     place), each launching B4 forward 18 times, its backward 9
     times, B6 108 times and B6's backward 54 times; then one step under the
@@ -2362,65 +2334,56 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
               f"{loss:.6f}, launches {got}, {secs:.3f} s")
         return loss, [g for _, g in leaves_with_paths(grads)], secs
 
-    def worst_leaf(got, want):
-        worst = (0.0, "")
-        for path, a, b in zip(paths, got, want):
+    def against(grads, want):
+        """(mean |err| over every element, max |err|, and the worst leaf's
+        max |err| / max(1, max |want|) with its path) of ``grads`` against
+        ``want``."""
+        total, top, n, worst = 0.0, 0.0, 0, (0.0, "")
+        for path, a, b in zip(paths, grads, want):
             if not bool(a.isfinite().all()):
-                raise AssertionError(f"float32 gradient {path} not finite")
-            e = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-            worst = max(worst, (e, path))
-        return worst
-
-    # (a) float32, kernel path against plain path: gated on the same draws
-    # at each block leaf's own fan-in (``fan_in_params``) ...
-    cond = fan_in_params(torch, models, cfg, params)
-    l_k, g_k, _ = loss_and_grads(torch.float32, True, cond)
-    l_c, g_c, _ = loss_and_grads(torch.float32, False, cond)
-    del cond
-    rel = abs(l_k - l_c) / abs(l_c)
-    worst = worst_leaf(g_k, g_c)
-    del g_k, g_c
-    print(f"float32 loss_fn at each block leaf's own fan-in, kernel vs plain "
-          f"path: loss rel err {rel:.3g} (bound 1e-4); worst gradient leaf "
-          f"{worst[1]}: max |err| / max(1, max |g|) {worst[0]:.3g} (bound "
-          f"1e-3) over {len(paths)} leaves")
-    if rel > 1e-4 or worst[0] > 1e-3:
-        raise AssertionError("float32 loss_fn: kernel path off the plain path")
-    # ... and at init_params' own weights: the loss gated, the gradients
-    # printed beside the plain path's spread when its weights move one ulp
-    l_k, g_k, _ = loss_and_grads(torch.float32, True)
-    l_32, g_32, _ = loss_and_grads(torch.float32, False)
-    rel_s = abs(l_k - l_32) / abs(l_32)
-    worst_s = worst_leaf(g_k, g_32)
-    del g_k
-    bumped = one_ulp(torch, models, params)
-    _, g_b, _ = loss_and_grads(torch.float32, False, bumped)
-    del bumped
-    spread = worst_leaf(g_b, g_32)
-    del g_b
-    print(f"float32 loss_fn at init_params' weights, kernel vs plain path: "
-          f"loss rel err {rel_s:.3g} (bound 1e-4); worst gradient leaf "
-          f"{worst_s[1]}: {worst_s[0]:.3g} x max(1, max |g|); the plain path "
-          f"moved by its weights' one ulp: worst leaf {spread[1]} "
-          f"{spread[0]:.3g} (not gated: above 1e-3 by itself)")
-    if rel_s > 1e-4:
-        raise AssertionError("float32 loss_fn: kernel path's loss off the "
-                             "plain path's")
-    out.update(train_f32_loss_rel=rel, train_f32_grad_err=worst[0],
-               train_f32_grad_leaf=worst[1], train_f32_stacked=(rel_s,
-                                                                *worst_s),
-               train_f32_spread=spread)
-
-    # (b) bfloat16, held to the bfloat16 plain path's own error
-    def against_f32(grads):
-        total, top, n = 0.0, 0.0, 0
-        for a, b in zip(grads, g_32):
-            if not bool(a.isfinite().all()):
-                raise AssertionError("bfloat16 gradient not finite")
+                raise AssertionError(f"gradient {path} not finite")
             d = (a.double() - b.double()).abs()
             total, top, n = total + float(d.sum()), max(top, float(d.max())), \
                 n + d.numel()
-        return total / n, top
+            top_b = max(1.0, float(b.abs().max()))
+            worst = max(worst, (float(d.max()) / top_b, path))
+        return total / n, top, worst
+
+    # (a) float32 at init_params' weights, kernel path against plain path,
+    # and each against the float64 plain path (the witness): the kernel
+    # path's gradients within 1.25x (mean) and 2x (worst leaf) the float32
+    # plain path's own error
+    w = models.common.map_tree(lambda t: t.double(), params)
+    l_64, g_64, _ = loss_and_grads(torch.float64, False, w)
+    del w
+    l_32, g_32, _ = loss_and_grads(torch.float32, False)
+    theirs64 = against(g_32, g_64)
+    l_k, g_k, _ = loss_and_grads(torch.float32, True)
+    ours64 = against(g_k, g_64)
+    worst = against(g_k, g_32)[2]
+    del g_k, g_64
+    rel = abs(l_k - l_32) / abs(l_32)
+    print(f"float32 loss_fn, kernel vs plain path: loss rel err {rel:.3g} "
+          f"(bound 1e-4); worst gradient leaf {worst[1]}: max |err| / max(1, "
+          f"max |g|) {worst[0]:.3g} over {len(paths)} leaves.  Against the "
+          f"float64 plain path (loss {l_64:.6f}): kernel path gradients mean "
+          f"|err| {ours64[0]:.4g}, worst leaf {ours64[2][1]} "
+          f"{ours64[2][0]:.4g}; plain path {theirs64[0]:.4g}, worst leaf "
+          f"{theirs64[2][1]} {theirs64[2][0]:.4g} (bound: mean within "
+          f"1.25x, worst leaf within 2x)")
+    if rel > 1e-4:
+        raise AssertionError("float32 loss_fn: kernel path's loss off the "
+                             "plain path's")
+    if ours64[0] > 1.25 * theirs64[0] or ours64[2][0] > 2 * theirs64[2][0]:
+        raise AssertionError("float32 loss_fn: the kernel path's gradients "
+                             "are farther from float64 than the plain path's")
+    out.update(train_f32_loss_rel=rel, train_f32_grad_err=worst,
+               train_f32_vs_f64=(ours64[0], ours64[2], theirs64[0],
+                                 theirs64[2]))
+
+    # (b) bfloat16, held to the bfloat16 plain path's own error
+    def against_f32(grads):
+        return against(grads, g_32)[:2]
 
     l_k16, g, _ = loss_and_grads(torch.bfloat16, True)
     ours = against_f32(g)

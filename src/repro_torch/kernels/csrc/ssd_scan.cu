@@ -60,7 +60,9 @@
 // float32 -- ssd_scan_kernel: the exact SIMT path (TF32 tensor cores would
 // miss float32's tolerance): one block of 256 threads per (sequence, head),
 // the state in float32 shared memory, the four products from float32 tiles
-// in shared memory, a 4 x 4 register tile a thread (fmaf).
+// in shared memory, a 4 x 4 register tile a thread (fmaf).  Its cum is the
+// reference's running sum, added in order (the bfloat16 kernel's warp scan
+// rounds cum otherwise, by far less than bfloat16's own rounding).
 //
 // Layout: x [B,S,H,P], dt [B,S,H] and B/C [B,S,N] read by stride (last
 // axis contiguous); positions past S load as zeros with dt = 0 (no-op
@@ -102,8 +104,8 @@ struct SsdParams {
 template <int NM>
 constexpr int ssd_smem_floats() {
   // ct [NM][LD], bt [NM][LD], bn [Q][NM+4], xw [Q][LD], wt [Q][LD],
-  // hs [NM][LD], cum [Q], warp total
-  return 3 * NM * SSD_LD + SSD_Q * (NM + 4) + 2 * SSD_Q * SSD_LD + SSD_Q + 4;
+  // hs [NM][LD], cum [Q]
+  return 3 * NM * SSD_LD + SSD_Q * (NM + 4) + 2 * SSD_Q * SSD_LD + SSD_Q;
 }
 
 // out[4][4] += sum_k At[k][r0 + i] * Bk[k][c0 + j]  (At, Bk: float rows of
@@ -131,7 +133,6 @@ ssd_scan_kernel(const SsdParams p) {
   float* xw = bn + SSD_Q * (NM + 4);            // x dt [j][p]
   float* wt = xw + SSD_Q * SSD_LD;              // w^T [j][i]
   float* cum = wt + SSD_Q * SSD_LD;             // [Q]
-  float* wtot = cum + SSD_Q;                    // warp 0's scan total
   constexpr int LDN = NM + 4;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -157,20 +158,18 @@ ssd_scan_kernel(const SsdParams p) {
     const int c0 = ch * SSD_Q;
     __syncthreads();  // the previous chunk is done with every tile
 
-    // dt and the within-chunk prefix sum of dt * a (warps 0 and 1)
-    if (tid < SSD_Q) {
-      float v = c0 + tid < p.S ? DT[(c0 + tid) * p.dt_ss] * a : 0.0f;
-      const int lane = tid & 31;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += o;
-      }
-      if (tid == 31) *wtot = v;
-      cum[tid] = v;
-    }
+    // dt * a, then its within-chunk running sum, added in order by one
+    // thread as the reference's cumsum adds it.  The decays exp(cum_i -
+    // cum_j) rest on differences of nearby running sums, which at large
+    // |cum| (thousands at the model's initial weights) carry the sums'
+    // rounding: a tree scan rounds them otherwise and moved y by ~1e-4
+    // relative from the reference's float32 sums (PERF.md).
+    if (tid < SSD_Q) cum[tid] = c0 + tid < p.S ? DT[(c0 + tid) * p.dt_ss] * a : 0.0f;
     __syncthreads();
-    if (tid >= 32 && tid < SSD_Q) cum[tid] += *wtot;
+    if (tid == 0) {
+      float run = 0.0f;
+      for (int j = 0; j < SSD_Q; ++j) cum[j] = run += cum[j];
+    }
 
     // x dt (x's type), B and C tiles
     for (int i = tid; i < SSD_Q * SSD_PM; i += SSD_THREADS) {

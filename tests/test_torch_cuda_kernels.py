@@ -890,6 +890,35 @@ def test_ssd_scan_warm_start(cuda, b, s, h, p, n, dtype):
     torch.testing.assert_close(st, wst.float(), atol=tol, rtol=tol)
 
 
+def test_ssd_scan_float32_rounds_cum_as_the_reference(cuda):
+    """dt up to ~25 and a down to -16 (the spread zamba2-2.7b's initial
+    weights give) put the running sums cum in the thousands, where the
+    decays exp(cum_i - cum_j) carry cum's rounding.  The float32 kernel's y
+    and state stay as close to a float64 plain run as the float32 plain
+    path does: mean error within 1.25x, max within 2x."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, s, h, p, n = 2, 256, 4, 64, 64
+    x = _rand(gen, (b, s, h, p), torch.float32) * 10.0
+    dt = torch.nn.functional.softplus(
+        _rand(gen, (b, s, h), torch.float32) * 6.0)
+    a = -torch.exp(torch.rand(h, generator=gen, device=cuda) * 2.77)
+    B = _rand(gen, (b, s, n), torch.float32) * 8.0
+    C = _rand(gen, (b, s, n), torch.float32) * 8.0
+    skip = torch.linspace(0.5, 1.5, h, device=cuda)
+    cum = torch.cumsum((dt * a).reshape(b, s // 64, 64, h), dim=2)
+    assert float(cum.abs().max()) > 1000.0
+    got = ssd_ops.ssd(x, dt, a, B, C, d_skip=skip)
+    plain = ssd_ops.ref.ssd_chunked(x, dt, a, B, C, d_skip=skip)
+    wide = ssd_ops.ref.ssd_chunked(x.double(), dt.double(), a.double(),
+                                   B.double(), C.double(),
+                                   d_skip=skip.double())
+    for ours, theirs, want in zip(got, plain, wide):
+        e_k = (ours.double() - want).abs()
+        e_p = (theirs.double() - want).abs()
+        assert float(e_k.mean()) <= 1.25 * float(e_p.mean())
+        assert float(e_k.max()) <= 2.0 * float(e_p.max())
+
+
 def test_ssd_bf16_rejects_what_tma_cannot_read(cuda):
     """The bfloat16 scan moves x, B, C and y by TMA: a B or C row of 100
     elements (200-byte stride), an x base off 16 bytes and P=4 (an 8-byte
