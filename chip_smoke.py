@@ -8,9 +8,11 @@ Phases, each of which raises on failure (the run then exits non-zero):
 1. Build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, in parallel, and print ptxas's registers, spills and
    shared memory and the count of tensor-core (HGMMA) instructions in the
-   SASS of the flash attention forward and backward and SSD libraries
-   (``cuobjdump -sass``; none in any fails the run); for the three fleet kernels at J=4096,
-   a summary of registers, spills, static and dynamic shared memory and
+   SASS of the flash attention forward and backward and SSD scan and SSD
+   backward libraries (``cuobjdump -sass``; none in any, or in either
+   bfloat16 SSD backward kernel, fails the run); for the three fleet
+   kernels at J=4096 and the two bfloat16 SSD backward kernels at N=64, a
+   summary of registers, spills, static and dynamic shared memory and
    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
@@ -131,14 +133,15 @@ Phases, each of which raises on failure (the run then exits non-zero):
    rates on the card or handed over as numpy), the prefill in tokens per
    second on both paths and the engine in generated tokens per second;
    the attention backward beside its bound and SDPA's forward+backward
-   minus its forward; the SSD backward beside its bound and its plain
-   reverse scan; train tokens per second (B x S over the median of
-   the last four steps).
+   minus its forward; the SSD backward beside its bound, its plain
+   reverse scan and the float32 kernel at the same shape; train tokens per
+   second (B x S over the median of the last four steps).
 5. Trace one fused/pallas run, one mega run, one streaming fused/pallas
    run, 60 telemetry folds at the main shape, one bfloat16 prefill step,
    one engine run and one bfloat16 train step (with the SSD backward
-   kernel's share, its ``record_function`` range, and no plain SSD
-   backward range) with ``torch.profiler``: device busy time, idle
+   kernels' share, its ``record_function`` range, no plain SSD backward
+   range, and the bfloat16 walk, chunk and reduction kernels 54 times each
+   and the SIMT scan never) with ``torch.profiler``: device busy time, idle
    share and device time by kernel (the fused/pallas run's beside the
    one from before the allocation kernel ran two blocks an SM,
    ``ONE_BLOCK_FUSED_TRACE``; the fold's device time a window beside the
@@ -152,6 +155,7 @@ prints no result.
 from __future__ import annotations
 
 import bisect
+import ctypes
 import json
 import re
 import statistics
@@ -2174,8 +2178,9 @@ def check_ssd_bwd_kernel(torch, ssd_ops, dev):
     P=16 with N=128.  float32 within 1e-4 x max(1, max |g|) a gradient;
     bfloat16 no farther from the float32 autograd gradients than the
     bfloat16 plain path's autograd (mean within 1.25x, max within 2x).
-    Each call launches the kernel once (two launches: the scan and the
-    reduction); two calls are bitwise equal.  Returns the training-shape
+    Each call launches the kernel once (bfloat16: the walk, the chunk
+    kernel and the reduction; float32: the scan and the reduction); two
+    calls are bitwise equal.  Returns the training-shape
     bfloat16 inputs and the largest float32 absolute error."""
     gen = torch.Generator(device=dev).manual_seed(61)
     names = ("dx", "ddt", "da", "dB", "dC", "dD", "dh0")
@@ -2448,7 +2453,9 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
                lambda: (step_fn(state, b), torch.cuda.synchronize()),
                what="one step", top=12,
                focus=("flash_attention", "flash_bwd", "flash_bwd_dkdv_tc",
-                      "flash_bwd_dq_tc", "ssd_scan", "ssd_bwd"),
+                      "flash_bwd_dq_tc", "ssd_scan", "ssd_bwd",
+                      "ssd_bwd_walk_tc", "ssd_bwd_chunk_tc", "ssd_bwd_reduce",
+                      "ssd_bwd_scan"),
                ranges=(KERNEL_BACKWARD_RANGE, BACKWARD_RANGE))
     if tr:
         busy = tr[0]
@@ -2457,6 +2464,13 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
             raise AssertionError(f"train step: the bfloat16 attention "
                                  f"backward's tensor-core kernels launched "
                                  f"{tc}, expected {n_attn} each")
+        sb = {k: tr[2][k][0] for k in ("ssd_bwd_walk_tc", "ssd_bwd_chunk_tc",
+                                       "ssd_bwd_reduce", "ssd_bwd_scan")}
+        want_sb = {k: cfg.n_layers for k in sb}
+        want_sb["ssd_bwd_scan"] = 0
+        if sb != want_sb:
+            raise AssertionError(f"train step: the bfloat16 SSD backward's "
+                                 f"kernels launched {sb}, expected {want_sb}")
         if tr[2][BACKWARD_RANGE][0] or \
                 tr[2][KERNEL_BACKWARD_RANGE][0] != cfg.n_layers:
             raise AssertionError(
@@ -2527,7 +2541,8 @@ def main() -> int:
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for lib, label, mark in (("flash_attention", "bfloat16", "Li80E"),
                              ("flash_attention_bwd", "bfloat16", "Li80E"),
-                             ("ssd_scan", "bfloat16", "ssd_scan_tc")):
+                             ("ssd_scan", "bfloat16", "ssd_scan_tc"),
+                             ("ssd_scan_bwd", "bfloat16", "_tc")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -2544,6 +2559,11 @@ def main() -> int:
         if n_hgmma == 0:
             raise AssertionError(f"the {label} {lib} library holds no "
                                  "tensor-core (HGMMA) instruction")
+        if lib == "ssd_scan_bwd":
+            for kernel in ("ssd_bwd_walk_tc", "ssd_bwd_chunk_tc"):
+                if not any(kernel in k and v for k, v in per_fn.items()):
+                    raise AssertionError(f"the bfloat16 SSD backward kernel "
+                                         f"{kernel} holds no HGMMA instruction")
     print("ssd_scan_tc dynamic shared memory (bytes): N <= 64: "
           f"{ssd_ops.tc_smem_bytes(64)}, N <= 128: {ssd_ops.tc_smem_bytes(128)}")
     cufilt = Path(_build._nvcc()).parent / "cu++filt"
@@ -2576,6 +2596,22 @@ def main() -> int:
               f"static + {dyn} B dynamic shared memory a block; {blocks} "
               f"blocks an SM, {blocks * n_sm} rows a wave on {n_sm} SMs "
               f"(O={O}: {-(-O // max(blocks * n_sm, 1))} wave(s))")
+
+    # the bfloat16 SSD backward's kernels at the training shape (N = 64)
+    for kernel, entry in (("ssd_bwd_walk_tcILi64E", "ssd_bwd_walk_occupancy"),
+                          ("ssd_bwd_chunk_tcILi64E", "ssd_scan_bwd_occupancy")):
+        regs, stores, loads, smem = ptxas_of(
+            libs["ssd_scan_bwd"].with_suffix(".log"), kernel)
+        dyn = ctypes.c_int(0)
+        blocks = _build.load(entry, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                             lib="ssd_scan_bwd")(64, ctypes.byref(dyn))
+        occupancy[kernel[:-6]] = blocks
+        print(f"{kernel[:-6]}<64>: {regs} registers (consumers raise theirs "
+              f"by setmaxnreg), {stores} B spill stores, {loads} B spill "
+              f"loads, {smem} B static + {dyn.value} B dynamic shared memory "
+              f"a block; {blocks} blocks an SM")
+        if blocks < 1:
+            raise AssertionError(f"{kernel[:-6]} fits no block on an SM")
 
     # 2. each kernel against its plain version, at the main path's shapes
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
@@ -2782,6 +2818,11 @@ def main() -> int:
     sb_calls = ssd_ops.launches_bwd - before
     sb_plain = cuda_ms(lambda: ssd_ops.ref.ssd_chunked_bwd(*sb_in, gy=sb_gy),
                        reps=1, groups=3)
+    sb_f32_in = [None if t is None else t.float() for t in sb_in]
+    sb_f32_gy = sb_gy.float()
+    sb_f32 = cuda_ms(lambda: ssd_ops.ssd_bwd(*sb_f32_in, gy=sb_f32_gy),
+                     reps=2, groups=3)
+    del sb_f32_in, sb_f32_gy
     sb_b, sb_by = bound_ms(*ssd_bwd_work(TRAIN_B, TRAIN_S, 80, 64, 64, 2),
                            BF16_OPS_S)
     lens = [int(x) for x in length.tolist()]
@@ -2840,9 +2881,11 @@ def main() -> int:
           f"forward+backward {fb_lib_fb:.4f} ms minus forward {fb_lib_f:.4f} "
           f"ms = {fb_lib:.4f} ms; bound {fb_b:.4f} ms by {fb_by}); "
           f"ssd_scan_bwd (B={TRAIN_B} S={TRAIN_S} H=80 P=64 N=64 bfloat16, "
-          f"gy only) {sb_ms:.4f} ms (one launch a call, {sb_calls} calls "
-          f"timed; plain reverse scan {sb_plain:.4f} ms; bound {sb_b:.4f} "
-          f"ms by {sb_by}; no single PyTorch call computes it)")
+          f"gy only) {sb_ms:.4f} ms (one call: the walk, the chunk kernel "
+          f"and the reduction; {sb_calls} calls timed; plain reverse scan "
+          f"{sb_plain:.4f} ms; the float32 SIMT kernel at the same shape "
+          f"{sb_f32:.4f} ms; bound {sb_b:.4f} ms by {sb_by}; no single "
+          f"PyTorch call computes it)")
     print(f"{LM_ARCH} training on {card}: B={TRAIN_B} S={TRAIN_S} bfloat16 "
           f"step {train['train_step_ms']:.1f} ms, "
           f"{train['train_tok_s']:.1f} train tokens/s; peak device memory "
@@ -2943,8 +2986,13 @@ def main() -> int:
          "launches": train["train_launches"]["ssd_scan_bwd"],
          "launches_per_step":
              train["train_launches_per_step"]["ssd_scan_bwd"],
+         "device_kernels_per_call": ["ssd_bwd_walk_tc", "ssd_bwd_chunk_tc",
+                                     "ssd_bwd_reduce"],
          "max_abs_err": sb_err, "ms": sb_ms, "plain_ms": sb_plain,
-         "bound_ms": sb_b, "bound_by": sb_by, "library_ms": None},
+         "float32_ms": sb_f32, "bound_ms": sb_b, "bound_by": sb_by,
+         "library_ms": None,
+         "blocks_per_sm": {k: occupancy[k] for k in ("ssd_bwd_walk_tc",
+                                                     "ssd_bwd_chunk_tc")}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:184",

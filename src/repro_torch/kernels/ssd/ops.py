@@ -10,10 +10,12 @@ multiple of 16 bytes (so P a multiple of 8); the float32 scan is the exact
 SIMT kernel.
 
 ``ssd`` is differentiable.  Its forward runs the scan above; its backward
-(``ssd_bwd``) is the chunked reverse scan of ``ref.ssd_chunked``'s
-gradient: the backward kernel for CUDA tensors, ``ref.ssd_chunked_bwd``
-for CPU tensors.  The reference has no SSD backward kernel: it
-differentiates its jnp chunked scan by autodiff."""
+(``ssd_bwd``) is ``ref.ssd_chunked``'s gradient: for CUDA tensors the
+backward kernels (bfloat16: the chunk-parallel tensor-core kernels, which
+read x, gy, B and C by TMA under the forward's rules; float32: the exact
+SIMT reverse scan), for CPU tensors ``ref.ssd_chunked_bwd``.  The
+reference has no SSD backward kernel: it differentiates its jnp chunked
+scan by autodiff."""
 from __future__ import annotations
 
 import ctypes
@@ -52,7 +54,7 @@ class _SsdParams(ctypes.Structure):
                                                "dtype")])
 
 
-def _check(x, dt, a, B, C, tma=True):
+def _check(x, dt, a, B, C):
     if x.dtype not in _DTYPES:
         raise TypeError(f"the SSD kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
@@ -74,7 +76,7 @@ def _check(x, dt, a, B, C, tma=True):
     if p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(f"the SSD kernel takes P <= {MAX_HEAD_DIM} and "
                          f"N <= {MAX_STATE}, got P={p}, N={n}")
-    if tma and x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16:
         check_16b("the bfloat16 SSD kernel's TMA", x=x, B=B, C=C)
         if p % 8:   # y [B,S,H,P] leaves by TMA too: a 16-byte head stride
             raise ValueError(f"the bfloat16 SSD kernel's TMA needs P to be "
@@ -92,13 +94,14 @@ class _SsdBwdParams(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
                     "x", "dt", "a", "bm", "cm", "d_skip", "h0", "gy",
-                    "gstate", "states", "dx", "ddt", "db_part", "dc_part",
-                    "da_part", "dd_part", "dh0", "db", "dc", "da", "dd")]
+                    "gstate", "states", "cums", "hs", "dhs", "dx", "ddt",
+                    "db_part", "dc_part", "da_part", "dd_part", "dh0", "db",
+                    "dc", "da", "dd")]
                 + [(n, ctypes.c_longlong) for n in (
                     "x_sb", "x_ss", "x_sh", "dt_sb", "dt_ss", "b_sb", "b_ss",
                     "c_sb", "c_ss")]
                 + [(n, ctypes.c_int) for n in ("B", "S", "H", "P", "N",
-                                               "dtype")])
+                                               "dtype", "groups")])
 
 
 class _Ssd(torch.autograd.Function):
@@ -126,9 +129,9 @@ def ssd_bwd(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
     (dx, ddt, da, dB, dC, d_skip's gradient or None, initial_state's or
     None), each in its input's dtype.  CPU tensors take
     ``ref.ssd_chunked_bwd`` (range ``BACKWARD_RANGE``); CUDA tensors launch
-    the backward kernel (range ``KERNEL_BACKWARD_RANGE``), which takes the
-    forward kernel's shapes and chunks of ``CHUNK``; anything else
-    raises."""
+    the backward kernels (range ``KERNEL_BACKWARD_RANGE``), which take the
+    forward kernel's shapes, its TMA rules in bfloat16, and chunks of
+    ``CHUNK``; anything else raises."""
     global launches_bwd
     given = [t for t in (d_skip, initial_state, gy, gstate) if t is not None]
     if not route(x, dt, a, B, C, *given):
@@ -139,7 +142,7 @@ def ssd_bwd(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
     if chunk != CHUNK:
         raise ValueError(f"the SSD backward kernel runs chunks of {CHUNK}, "
                          f"got chunk={chunk}")
-    _check(x, dt, a, B, C, tma=False)
+    _check(x, dt, a, B, C)
     b, s, h, p = x.shape
     n = B.shape[-1]
     dev, f32 = x.device, torch.float32
@@ -155,10 +158,24 @@ def ssd_bwd(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
         gs = None if gstate is None else gstate.to(f32).contiguous()
         g = None if gy is None else gy.to(x.dtype).contiguous()
         skip = None if d_skip is None else d_skip.to(f32).contiguous()
+        code = _DTYPES[x.dtype]
         nc = -(-s // CHUNK)
-        states = torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
-        parts = torch.empty((2, b, h, s, n), dtype=f32, device=dev)
-        small = torch.empty((2, b, h), dtype=f32, device=dev)
+        if code:     # bf16: gy read by TMA; h_c and dh_c in bf16 scratch
+            if g is None:
+                g = torch.zeros((b, s, h, p), dtype=x.dtype, device=dev)
+            elif g.data_ptr() % 16:
+                g = g.clone()
+            states = None
+            cums = torch.empty((b, h, nc, CHUNK), dtype=f32, device=dev)
+            hs = torch.empty((2, b, h, nc, 64 if n <= 64 else 128, 64),
+                             dtype=x.dtype, device=dev)
+        else:
+            states = torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
+            cums = hs = None
+        groups = _build.load("ssd_scan_bwd_groups", [ctypes.c_int] * 3,
+                             lib="ssd_scan_bwd")(h, n, code)
+        parts = torch.empty((2, b, groups, s, n), dtype=f32, device=dev)
+        small = torch.empty((2, b, nc, h), dtype=f32, device=dev)
         dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
         ddt = torch.empty((b, s, h), dtype=f32, device=dev)
         dB = torch.empty((b, s, n), dtype=B.dtype, device=dev)
@@ -172,13 +189,13 @@ def ssd_bwd(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
 
         prm = _SsdBwdParams(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
-            C.data_ptr(), ptr(skip), ptr(h0), ptr(g), ptr(gs),
-            states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), small[0].data_ptr(),
+            C.data_ptr(), ptr(skip), ptr(h0), ptr(g), ptr(gs), ptr(states),
+            ptr(cums), None if hs is None else hs[0].data_ptr(),
+            None if hs is None else hs[1].data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), small[0].data_ptr(),
             small[1].data_ptr(), ptr(dh0), dB.data_ptr(), dC.data_ptr(),
             da.data_ptr(), dd.data_ptr(), *x.stride()[:3], *dt.stride()[:2],
-            *B.stride()[:2], *C.stride()[:2], b, s, h, p, n,
-            _DTYPES[x.dtype])
+            *B.stride()[:2], *C.stride()[:2], b, s, h, p, n, code, groups)
         _build.launch("ssd_scan_bwd", [ctypes.POINTER(_SsdBwdParams),
                                        ctypes.c_void_p], ctypes.byref(prm),
                       torch.cuda.current_stream(dev).cuda_stream)

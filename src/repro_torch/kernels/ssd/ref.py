@@ -12,7 +12,8 @@ short loop.  Single B/C group (n_groups=1).
 
 ``ssd_chunked`` is the prefill path; ``ssd_update`` is the O(1) one-token
 decode path (plain on every device, as in the reference).  ``ssd_scan_model``
-is a test-only model of the CUDA kernel's own order of rounding and summing.
+is a test-only model of the CUDA kernel's own order of rounding and summing;
+``ssd_bwd_model`` is the same for the bfloat16 backward kernels.
 """
 from __future__ import annotations
 
@@ -96,7 +97,7 @@ def ssd_chunked(
 def ssd_chunked_bwd(x, dt, a, B, C, d_skip=None, initial_state=None,
                     gy=None, gstate=None, chunk: int = 64):
     """The gradient of ``ssd_chunked`` by a chunked reverse scan, in float32:
-    op for op what ``csrc/ssd_scan_bwd.cu`` computes.  ``gy`` [B,S,H,P] and
+    op for op what the float32 kernel of ``csrc/ssd_scan_bwd.cu`` computes.  ``gy`` [B,S,H,P] and
     ``gstate`` [B,H,P,N] are the incoming gradients of y and the final
     state; either may be None (zeros).  Returns (dx, ddt, da, dB, dC,
     d_skip's gradient or None, initial_state's gradient or None), each in
@@ -216,6 +217,145 @@ def ssd_chunked_bwd(x, dt, a, B, C, d_skip=None, initial_state=None,
     return (cut(dx, (h, p)).to(x.dtype), cut(ddt, (h,)).to(dt.dtype),
             da.to(a.dtype), cut(dB, (n,)).to(B.dtype),
             cut(dC, (n,)).to(C.dtype), dskip, dh0)
+
+
+def ssd_bwd_model(x, dt, a, B, C, d_skip=None, initial_state=None, gy=None,
+                  gstate=None, chunk: int = 64):
+    """Test-only plain model of the bfloat16 tensor-core backward
+    (``csrc/ssd_scan_bwd.cu``: ``ssd_bwd_walk_tc`` then
+    ``ssd_bwd_chunk_tc``): the gradient of ``ssd_chunked`` with every
+    product's operands rounded to x's type exactly where the kernel rounds
+    them (r: to x's type and back), each product and sum in float32.  Same
+    arguments and returns as ``ssd_chunked_bwd``.
+
+    - The walks (one product a chunk): h = h exp(cum_Q) + r(B exp(cum_Q -
+      cum) dt)^T x and dh = dh exp(cum_Q) + r(C exp(cum))^T gy, carried in
+      float32 from the warm start rounded to x's type (zeros) and gstate;
+      the state entering each chunk and the gradient of the one leaving it
+      are kept rounded (the chunk products' operands); dh after chunk 0 is
+      the warm start's gradient.
+    - Per chunk, x dt in float32 (x and gy are the products' operands, dt
+      scales their float32 results): the scores, dw = gy (x dt)^T, the
+      decays, w, the clamp's share dw x w, dS = dw x decay; dC = r(dS) B +
+      exp(cum) gy r(h) and dB = r(dS)^T C + exp(cum_Q - cum) (x dt) r(dh),
+      summed over the heads, with their dcum shares; d(xw) = r(w)^T gy +
+      exp(cum_Q - cum) B r(dh)^T; <r(dh), r(h)> exp(cum_Q) for the
+      chunk's decay, whose share of the state decay's dcum enters dA as
+      the sum before each position (the same sum as ``ssd_chunked_bwd``'s
+      reverse cumsum of dseg at the last position, without its
+      cancellation)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dtype = x.dtype
+    f32 = torch.float32
+    q = chunk
+    pad = (-s) % q
+    if gy is None:
+        gy = torch.zeros((b, s, h, p), dtype=dtype, device=x.device)
+    if pad:
+        x, dt, B, C, gy = (_pad_seq(t, pad) for t in (x, dt, B, C, gy))
+    nc = (s + pad) // q
+
+    def rnd(t):
+        return t.to(dtype).to(f32)
+
+    xc = x.reshape(b, nc, q, h, p).to(f32)
+    dtc = dt.reshape(b, nc, q, h).to(f32)
+    Bc = B.reshape(b, nc, q, n).to(f32)
+    Cc = C.reshape(b, nc, q, n).to(f32)
+    gyc = rnd(gy.reshape(b, nc, q, h, p).to(f32))
+    a32 = a.to(f32)
+    cum = torch.cumsum(dtc * a32, dim=2)                   # [b,nc,q,h]
+    seg = cum[:, :, -1, :]
+    gamma = torch.exp(seg)
+    xw = xc * dtc[..., None]
+    e = torch.exp(cum)
+    sd = torch.exp(seg[:, :, None, :] - cum)
+
+    hp, dha, dh = _model_walks(xc, dtc, Bc, Cc, gyc, e, sd, gamma,
+                               initial_state, gstate, dtype)
+
+    # the chunks
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    below = torch.tril(tri, -1)
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    u = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b,nc,i,j,h]
+    decay = torch.exp(torch.clamp_max(u, 0.0))
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    w = torch.where(tri[..., None], scores[..., None] * decay, zero)
+    dw = torch.where(tri[..., None],
+                     torch.einsum("bcihp,bcjhp->bcijh", gyc, xw), zero)
+    ds = rnd(dw * decay)
+    g = torch.where(below[..., None] & (u <= 0.0), dw * w, zero)
+    t1 = torch.einsum("bcihp,bchpn->bcihn", gyc, hp)
+    t2 = torch.einsum("bcjhp,bchpn->bcjhn", xw, dha)
+    dC = (torch.einsum("bcijh,bcjn->bcin", ds, Bc)
+          + torch.einsum("bcih,bcihn->bcin", e, t1))
+    dB = (torch.einsum("bcijh,bcin->bcjn", ds, Cc)
+          + torch.einsum("bcjh,bcjhn->bcjn", sd, t2))
+    de = e * torch.einsum("bcihn,bcin->bcih", t1, Cc)
+    dsd = sd * torch.einsum("bcjhn,bcjn->bcjh", t2, Bc)
+    dxw = (torch.einsum("bcijh,bcihp->bcjhp", rnd(w), gyc)
+           + sd[..., None] * torch.einsum("bcjn,bchpn->bcjhp", Bc, dha))
+    # dA: the reverse cumsum of dcum but the state decay's share dsd, plus
+    # the chunk decay's <dh, h> exp(cum_Q), plus the sum of dsd before each
+    # position (dseg's sum of every dsd less the reverse cumsum of dsd,
+    # without the cancellation)
+    hg = torch.einsum("bchpn,bchpn->bch", dha, hp) * gamma
+    dcum = g.sum(3) - g.sum(2) + de
+    before = torch.cat([torch.zeros_like(dsd[:, :, :1]),
+                        torch.cumsum(dsd, dim=2)[:, :, :-1]], dim=2)
+    dA = (torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+          + before + hg[:, :, None, :])
+    ddt = dA * a32 + (dxw * xc).sum(-1)
+    da = (dA * dtc).sum((0, 1, 2))
+    dx = dxw * dtc[..., None]
+    dskip = None
+    if d_skip is not None:
+        dx = dx + d_skip.to(f32)[:, None] * gyc
+        dskip = (xc * gyc).sum((0, 1, 2, 4)).to(d_skip.dtype)
+    dh0 = None if initial_state is None else dh.to(initial_state.dtype)
+    rows = nc * q
+
+    def cut(t, shape):
+        return t.reshape((b, rows) + shape)[:, :s]
+
+    return (cut(dx, (h, p)).to(x.dtype), cut(ddt, (h,)).to(dt.dtype),
+            da.to(a.dtype), cut(dB, (n,)).to(B.dtype),
+            cut(dC, (n,)).to(C.dtype), dskip, dh0)
+
+
+def _model_walks(xc, dtc, Bc, Cc, gyc, e, sd, gamma, initial_state, gstate,
+                 dtype):
+    """``ssd_bwd_model``'s walks from its chunked float32 inputs (xc, gyc
+    [b,nc,q,h,p], dtc, e = exp(cum), sd = exp(cum_Q - cum) [b,nc,q,h], Bc,
+    Cc [b,nc,q,n], gamma [b,nc,h]): (the states entering each chunk, the
+    gradients of those leaving it, both rounded to ``dtype`` [b,nc,h,p,n];
+    dh after chunk 0 in float32)."""
+    b, nc, _, h, p = xc.shape
+    n = Bc.shape[-1]
+    f32 = torch.float32
+
+    def rnd(t):
+        return t.to(dtype).to(f32)
+
+    b_w = rnd(Bc[:, :, :, None, :] * (sd * dtc)[..., None])  # [b,nc,q,h,n]
+    c_w = rnd(Cc[:, :, :, None, :] * e[..., None])
+    h_chunk = torch.einsum("bcjhn,bcjhp->bchpn", b_w, xc)
+    d_chunk = torch.einsum("bcihn,bcihp->bchpn", c_w, gyc)
+    hcar = (torch.zeros((b, h, p, n), dtype=f32, device=xc.device)
+            if initial_state is None else rnd(initial_state.to(f32)))
+    hs = []
+    for c in range(nc):
+        hs.append(rnd(hcar))
+        hcar = hcar * gamma[:, c, :, None, None] + h_chunk[:, c]
+    dh = (torch.zeros((b, h, p, n), dtype=f32, device=xc.device)
+          if gstate is None else gstate.to(f32))
+    dhs = [None] * nc
+    for c in reversed(range(nc)):
+        dhs[c] = rnd(dh)
+        dh = dh * gamma[:, c, :, None, None] + d_chunk[:, c]
+    return torch.stack(hs, dim=1), torch.stack(dhs, dim=1), dh
 
 
 def ssd_scan_model(x, dt, a, B, C, d_skip=None, initial_state=None,

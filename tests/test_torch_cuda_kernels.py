@@ -17,7 +17,9 @@ the decode's 16-byte copies want 16-byte aligned bases and strides); and
 the training kernels: the attention backward (bfloat16 on the tensor
 cores, float32 SIMT) over GQA, S != T, ragged S and head dims 16-128, the
 SSD backward against autograd of the plain scan (warm start, no skip, gy
-only, gstate only, S = 1, P = 16 with N = 128), both bitwise across two
+only, gstate only, S = 1, P = 16 with N = 128, 32 chunks of carry, S =
+64 k + 1, cum in the thousands), its bfloat16 tensor-core kernels by the
+profiler's kernel names and its TMA checks, both bitwise across two
 calls, and a trainer's crash and restore bitwise on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
@@ -1133,6 +1135,8 @@ def _ssd_autograd(args, gy, gs):
     (2, 130, 3, 16, 128, True, False, True, True),   # P = 16, N = 128
     (1, 64, 2, 32, 96, False, True, False, True),    # gstate only
     (1, 65, 2, 64, 64, False, True, True, False),    # gy only
+    (1, 2048, 3, 64, 64, True, True, True, True),    # 32 chunks of carry
+    (2, 193, 9, 64, 64, True, True, True, True),     # S = 64 k + 1, 2 groups
 ])
 def test_ssd_bwd_matches_autograd(cuda, b, s, h, p, n, warm, skip, use_gy,
                                   use_gs, dtype):
@@ -1174,6 +1178,85 @@ def test_ssd_bwd_matches_autograd(cuda, b, s, h, p, n, warm, skip, use_gy,
         theirs = (w.double() - r.double()).abs()
         assert float(ours.mean()) <= 1.25 * float(theirs.mean()) + 1e-12, name
         assert float(ours.max()) <= 2 * float(theirs.max()) + 1e-12, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_at_large_cum_is_as_close_as_the_plain_path(cuda, dtype):
+    """dt up to ~25 and a down to -16 (zamba2-2.7b's initial weights) put
+    cum in the thousands.  float32: every gradient of the kernel as close
+    to autograd of a float64 plain scan as the float32 plain path's
+    autograd (mean within 1.25x, max within 2x); bfloat16: no farther from
+    the float32 autograd gradients than the bfloat16 plain path's (the
+    same ratios)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, s, h, p, n = 2, 256, 4, 64, 64
+    x = (_rand(gen, (b, s, h, p), torch.float32) * 10.0).to(dtype)
+    dt = torch.nn.functional.softplus(
+        _rand(gen, (b, s, h), torch.float32) * 6.0)
+    a = -torch.exp(torch.rand(h, generator=gen, device=cuda) * 2.77)
+    B = (_rand(gen, (b, s, n), torch.float32) * 8.0).to(dtype)
+    C = (_rand(gen, (b, s, n), torch.float32) * 8.0).to(dtype)
+    skip = torch.linspace(0.5, 1.5, h, device=cuda)
+    h0 = _rand(gen, (b, h, p, n), torch.float32)
+    gy = _rand(gen, (b, s, h, p), dtype)
+    gs = _rand(gen, (b, h, p, n), torch.float32)
+    cum = torch.cumsum((dt * a).reshape(b, s // 64, 64, h), dim=2)
+    assert float(cum.abs().max()) > 1000.0
+    args = [x, dt, a, B, C, skip, h0]
+    got = ssd_ops.ssd_bwd(*args, gy=gy, gstate=gs)
+    plain = _ssd_autograd(args, gy, gs)
+    if dtype == torch.float32:
+        want = _ssd_autograd([t.double() for t in args], gy.double(),
+                             gs.double())
+    else:
+        f32 = [t.float() for t in args]
+        f32[6] = h0.to(dtype).float()
+        want = _ssd_autograd(f32, gy.float(), gs)
+    for name, g, w, r in zip(SSD_BWD_NAMES, got, plain, want):
+        ours = (g.double() - r.double()).abs()
+        theirs = (w.double() - r.double()).abs()
+        assert bool(g.isfinite().all()), name
+        assert float(ours.mean()) <= 1.25 * float(theirs.mean()) + 1e-12, name
+        assert float(ours.max()) <= 2 * float(theirs.max()) + 1e-12, name
+
+
+def test_ssd_bwd_bf16_runs_the_tensor_core_kernels(cuda):
+    """A bfloat16 ``ssd_bwd`` launches the walk, the chunk kernel and the
+    reduction, and not the float32 SIMT scan; a float32 one the reverse."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, dt, a, B, C, d = _ssd_case(cuda, 1, 130, 3, 64, 64, torch.bfloat16, 4)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    gy = _rand(gen, x.shape, torch.bfloat16)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        conv = [t.to(dtype) if t.dtype == torch.bfloat16 else t
+                for t in (x, B, C, gy)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ssd_ops.ssd_bwd(conv[0], dt, a, conv[1], conv[2], d, gy=conv[3])
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA)
+    for kernel in ("ssd_bwd_walk_tc", "ssd_bwd_chunk_tc", "ssd_bwd_reduce"):
+        assert kernel in names[torch.bfloat16], (kernel, names)
+    assert "ssd_bwd_scan" not in names[torch.bfloat16], names
+    assert "ssd_bwd_scan" in names[torch.float32], names
+    assert "_tc" not in names[torch.float32], names
+
+
+def test_ssd_bwd_bf16_rejects_what_tma_cannot_read(cuda):
+    """The bfloat16 backward reads x, B and C by TMA under the forward's
+    rules: an x base off 16 bytes or P=4 raises, and nothing launches."""
+    x, dt, a, B, C, d = _ssd_case(cuda, 1, 128, 2, 64, 64, torch.bfloat16, 6)
+    before = ssd_ops.launches_bwd
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_ops.ssd_bwd(odd, dt, a, B, C, d, gy=x)
+    narrow = x[..., :8].contiguous()[..., :4]   # 16-byte strides, P = 4
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd_ops.ssd_bwd(narrow, dt, a, B, C, d, gy=narrow)
+    assert ssd_ops.launches_bwd == before
 
 
 def test_ssd_backward_launches_the_kernel(cuda):

@@ -1,9 +1,11 @@
 """The SSD backward's plain version (``ref.ssd_chunked_bwd``, the chunked
-reverse scan that ``csrc/ssd_scan_bwd.cu`` computes) on the CPU: against
-``jax.vjp`` of the reference package's ``ssd_chunked`` and against torch
-autograd of the port's ``ref.ssd_chunked``, in float32, with and without a
-warm start and ``d_skip``, with gy only and gstate only; and ``ops.ssd``'s
-backward on CPU tensors, which takes it.
+reverse scan that the float32 kernel of ``csrc/ssd_scan_bwd.cu`` computes)
+on the CPU: against ``jax.vjp`` of the reference package's ``ssd_chunked``
+and against torch autograd of the port's ``ref.ssd_chunked``, in float32,
+with and without a warm start and ``d_skip``, with gy only and gstate
+only; ``ops.ssd``'s backward on CPU tensors, which takes it; and
+``ref.ssd_bwd_model``, the bfloat16 kernels' rounding, held to ``jax.vjp``
+in float32 by the bfloat16 reference's own distance from it.
 
 Inputs come from a seeded numpy generator.  Tolerance: 1e-5 x max(1,
 max |g|) a gradient against the JAX reference (float32 sums in another
@@ -148,3 +150,59 @@ def test_ssd_backward_on_the_cpu_takes_the_plain_reverse_scan(dtype):
     for name, g, w, x in zip(NAMES, got, want, t):
         assert g.dtype == x.dtype, name
         assert torch.equal(g, w), name
+
+
+# (b, s, h, p, n, warm start, d_skip, gy, gstate): S ragged over three
+# chunks, N = 128 at P = 32, one whole chunk with gy only
+MODEL_CASES = [
+    (2, 150, 3, 16, 32, True, True, True, True),
+    (1, 100, 2, 32, 128, True, True, True, True),
+    (2, 64, 2, 64, 64, False, False, True, False),
+]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_kernel_model_is_as_close_to_float32_as_the_bf16_reference(case):
+    """``ref.ssd_bwd_model`` (where the bfloat16 tensor-core backward
+    rounds its product operands) on bfloat16 x, B, C and gy, against
+    ``jax.vjp`` of the reference's ``ssd_chunked`` in float32 on the same
+    values (the warm start rounded to bfloat16, as the scan casts it): no
+    farther from it than ``jax.vjp`` in bfloat16 is, every gradient (mean
+    |err| within 1.25x, max within 2x) -- the rule the card holds the
+    kernel to against the bfloat16 plain path."""
+    b, s, h, p, n, warm, skip, use_gy, use_gs = case
+    args, gy, gs = _inputs(b, s, h, p, n, warm, seed=sum(case[:5]) + 2)
+    bf = jnp.bfloat16
+
+    def r(v):   # the float32 value of v rounded to bfloat16
+        return np.array(jnp.asarray(v, bf).astype(jnp.float32))
+
+    x, B, C, gyr = r(args[0]), r(args[3]), r(args[4]), r(gy)
+    h0 = args[6] if warm else np.zeros((b, h, p, n), np.float32)
+    gy32 = gyr if use_gy else np.zeros_like(gyr)
+    gs32 = gs if use_gs else np.zeros_like(gs)
+    vjp = _jax_vjp(warm, skip, tuple(v.shape for v in args[:6]))
+    want = vjp(x, args[1], args[2], B, C, args[5], r(h0), gy32, gs32)
+    theirs = vjp(jnp.asarray(x, bf), args[1], args[2], jnp.asarray(B, bf),
+                 jnp.asarray(C, bf), args[5], h0, jnp.asarray(gy32, bf),
+                 jnp.asarray(gs32, bf))
+    t16 = [torch.from_numpy(v).to(torch.bfloat16) for v in (x, B, C, gyr)]
+    ours = ref.ssd_bwd_model(
+        t16[0], torch.from_numpy(args[1]), torch.from_numpy(args[2]), t16[1],
+        t16[2], d_skip=torch.from_numpy(args[5]) if skip else None,
+        initial_state=torch.from_numpy(h0) if warm else None,
+        gy=t16[3] if use_gy else None,
+        gstate=torch.from_numpy(gs) if use_gs else None)
+    for name, g, w, o in zip(NAMES, ours, want, theirs):
+        if (name == "d_skip" and not skip) or (name == "initial_state"
+                                               and not warm):
+            assert g is None
+            continue
+        w = np.asarray(w, np.float64)
+        e_ours = np.abs(g.double().numpy() - w)
+        e_theirs = np.abs(np.asarray(jnp.asarray(o, jnp.float32),
+                                     np.float64) - w)
+        assert e_ours.mean() <= 1.25 * e_theirs.mean() + 1e-12, \
+            (name, e_ours.mean(), e_theirs.mean())
+        assert e_ours.max() <= 2 * e_theirs.max() + 1e-12, \
+            (name, e_ours.max(), e_theirs.max())
