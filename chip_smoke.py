@@ -124,7 +124,32 @@ Phases, each of which raises on failure (the run then exits non-zero):
    place), each launching B4 18 times (9 and 9 recomputed), its
    backward 9 times, B6 108 times and B6's backward 54 times, the plain
    path launching nothing;
-   every loss, parameter and moment finite; the peak device memory.
+   every loss, parameter and moment finite; the peak device memory.  The
+   MoE block and the audio and vision frontends (``frontier_phase``,
+   phase 3g): each config's bytes from ``param_shapes`` and
+   ``cache_shapes`` (meta tensors) printed before anything is allocated;
+   B4 and B5 against their plain versions at the phase's shapes (causal
+   D=128 at 16/16 and 32/8 heads, non-causal D=80 at S=1500, decode at 16
+   heads of 128, both types) and timed at moonshot's; then, each at full
+   width on weights from ``torch.Generator(0)``, moonshot-v1-16b-a3b (48
+   layers), phi3.5-moe-42b-a6.6b (16 of its 32: 78.0 GiB at full depth),
+   hubert-xlarge (48; frames at S=1500, non-causal) and pixtral-12b (40;
+   1024 patches, then 1024 tokens): float32 at 4, 2, 48 and 10 layers,
+   kernel path against plain path and both against a float64 plain run
+   at the positions whose routing agrees in the three (the kernel path's
+   error within 1.25x mean and 2x max the plain path's; kernel vs plain
+   within 1e-3 x max(1, max |logit|) where the plain path's mean error
+   from float64 is below that; routing flips between the float32 paths
+   at most 0.1% of positions; hubert's ``loss_fn`` within 1e-4
+   relative), bfloat16 at the same depths held to the bfloat16 plain
+   path's mean error; then bfloat16 at the run's depth: the prefill step
+   (hubert: the encoder's forward) with B4 once a layer, no call of the
+   plain attention, logits finite, two MoE calls on one input bitwise
+   equal, tokens/s over three calls, peak memory, argmax agreement and
+   routing flips against the bfloat16 plain path; moonshot's serving
+   engine in bfloat16 (the launcher's workload; B5 once a layer a step,
+   every request answered with its 16 tokens, the plain path
+   teacher-forced for the argmax agreement).
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
@@ -148,7 +173,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
    service and allocation kernels').
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is a JSON object with one entry per kernel.  Without a CUDA
+line before it is a JSON object with one entry per kernel, and the two
+before that the card's name and power limit and each phase's seconds.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -2488,6 +2514,579 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     return out
 
 
+# ----------------------------------- the MoE block and the frontends (3g)
+
+# (arch, depth of its bfloat16 full-width run, depth of its float32 gates):
+# moonshot fits the card only in bfloat16 (52.3 GiB at full depth);
+# phi3.5-moe does not fit at full depth even in bfloat16 (78.0 GiB), so its
+# run takes 16 of its 32 layers; the float32 gates cut the depth where
+# float32 weights would not fit
+FRONTIER = [("moonshot-v1-16b-a3b", 48, 4), ("phi3.5-moe-42b-a6.6b", 16, 2),
+            ("hubert-xlarge", 48, 48), ("pixtral-12b", 40, 10)]
+HUBERT_S = 1500                   # 30 s of 50 Hz frames
+PIXTRAL_PATCHES = 1024            # patch embeddings ahead of 1024 tokens
+FLIP_LIMIT = 1e-3                 # float32 routing flips, share of positions
+
+
+def frontier_batch(torch, cfg, dev):
+    """The phase's seeded batch: B=4 rows of 2048 tokens (pixtral: 1024
+    patch embeddings, then tokens) or, for the audio encoder, 1500 frames
+    with a masked-unit label each."""
+    rng = np.random.default_rng(0)
+    s = HUBERT_S if cfg.frontend == "audio" else PREFILL_S
+    batch = {"labels": rng.integers(0, cfg.vocab, (PREFILL_B, s))}
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal(
+            (PREFILL_B, s, cfg.frontend_dim), dtype=np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (PREFILL_B, s))
+    if cfg.frontend == "vision":
+        batch["patches"] = rng.standard_normal(
+            (PREFILL_B, PIXTRAL_PATCHES, cfg.frontend_dim), dtype=np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+class Watch:
+    """While active: counts the calls of the plain attention versions
+    (``ref.mha``, ``ref.decode_attention``; a kernel path makes none) and
+    records each MoE call's chosen and kept experts per token ([B, S, E]
+    bools, from ``layers.moe_route`` and ``moe_sort`` on the same input),
+    and the first MoE call's (weights, input, output)."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels.attention import ref
+        from repro_torch.models import layers
+        self.torch, self.ref, self.L = torch, ref, layers
+        self.plain, self.routes, self.first = 0, [], None
+
+    def __enter__(self):
+        torch, ref, L = self.torch, self.ref, self.L
+        self.saved = (ref.mha, ref.decode_attention, L.moe_apply)
+        mha, dec, moe = self.saved
+
+        def plain(fn):
+            def counted(*a, **kw):
+                self.plain += 1
+                return fn(*a, **kw)
+            return counted
+
+        def routed(p, x, cfg):
+            y = moe(p, x, cfg)
+            b, s, _ = x.shape
+            idx, _ = L.moe_route(p, x, cfg)
+            rank = L.moe_sort(idx.reshape(b, -1), cfg.n_experts)[3]
+            keep = rank.reshape(idx.shape) < L.moe_capacity(s, cfg)
+            none = torch.zeros(b, s, cfg.n_experts, dtype=torch.bool,
+                               device=x.device)
+            self.routes.append((none.scatter(-1, idx, True),
+                                none.scatter(-1, idx, keep)))
+            if self.first is None:
+                self.first = (p, x, y)
+            return y
+
+        ref.mha, ref.decode_attention = plain(mha), plain(dec)
+        L.moe_apply = routed
+        return self
+
+    def __exit__(self, *exc):
+        self.ref.mha, self.ref.decode_attention, self.L.moe_apply = self.saved
+
+
+def routing_diff(torch, a, b):
+    """Positions [B, S] whose chosen experts differ in any layer between two
+    runs' records, and the positions that agree: in each row, those before
+    its first position whose chosen or kept experts differ in any layer (a
+    flip reaches later positions of its row through causal attention and
+    through the capacity of the experts it joins or leaves)."""
+    flips = changed = None
+    for (ca, ka), (cb, kb) in zip(a, b):
+        f = (ca != cb).any(-1)
+        c = f | (ka != kb).any(-1)
+        flips = f if flips is None else flips | f
+        changed = c if changed is None else changed | c
+    s = changed.shape[1]
+    pos = torch.arange(s, device=changed.device)
+    first = torch.where(changed, pos, s).min(-1).values         # [B]
+    return flips, pos[None, :] < first[:, None]
+
+
+def frontier_gates(torch, cfg, depth, dev):
+    """The float32 and bfloat16 gates at full width and ``depth`` layers on
+    weights from ``torch.Generator(0)``, at the positions whose routing
+    agrees in the float32 kernel, float32 plain and float64 plain runs (MoE:
+    at most FLIP_LIMIT of positions flip between the two float32 paths).
+    float32: the kernel path's error from the float64 plain logits within
+    1.25x (mean) and 2x (max) the float32 plain path's, and the kernel path
+    within 1e-3 x max(1, max |logit|) of the plain path where float32
+    itself holds the logits to that bound on average (the plain path's mean
+    error from float64 below it); hubert's float32 ``loss_fn`` within 1e-4
+    relative.  bfloat16: the kernel path's mean error from the float32 plain
+    logits within 1.25x the bfloat16 plain path's.  Returns the numbers for
+    the report."""
+    import dataclasses
+    from repro_torch import models
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    batch = frontier_batch(torch, cfg, dev)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    moe = cfg.block == "moe"
+    params = models.init_params(cut, torch.Generator(device=dev).manual_seed(0))
+    out = {"depth": depth}
+
+    def run(dtype, kernels, w):
+        with torch.no_grad(), Watch(torch) as watch:
+            lg = models.forward(w, cut, inputs, dtype=dtype, kernels=kernels)
+        if kernels and watch.plain:
+            raise AssertionError(f"{cfg.name}: the kernel path called the "
+                                 f"plain attention {watch.plain} times")
+        if not bool(lg.isfinite().all()):
+            raise AssertionError(f"{cfg.name} ({dtype}, kernels={kernels}): "
+                                 "logits not finite")
+        return lg, watch.routes
+
+    p32, r32 = run(torch.float32, False, params)
+    k32, rk = run(torch.float32, True, params)
+    if cfg.frontend == "audio":
+        losses = {}
+        for kernels in (True, False):
+            with torch.no_grad():
+                losses[kernels] = float(models.loss_fn(
+                    params, cut, batch, dtype=torch.float32, kernels=kernels))
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        print(f"{cfg.name} float32 loss_fn (masked-unit cross-entropy): "
+              f"kernel path {losses[True]:.6f}, plain path "
+              f"{losses[False]:.6f}, rel err {rel:.3g} (bound 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{cfg.name}: float32 loss_fn off by {rel}")
+        out["loss_rel"] = rel
+    w16 = models.cast_params(params, torch.bfloat16)
+    w64 = models.cast_params(params, torch.float64)
+    del params
+    p64, r64 = run(torch.float64, False, w64)
+    del w64
+    n_pos = p32.shape[0] * p32.shape[1]
+    agree = torch.ones(p32.shape[:2], dtype=torch.bool, device=dev)
+    n_flip = 0
+    if moe:
+        flips, agree = routing_diff(torch, rk, r32)
+        n_flip = int(flips.sum())
+        for a, b in ((rk, r64), (r32, r64)):
+            agree &= routing_diff(torch, a, b)[1]
+    n_agree = int(agree.sum())
+    scale = float(p32.abs().max())
+    bound = 1e-3 * max(1.0, scale)
+
+    def err(a, b):
+        d = (a.double() - b)[agree].abs()
+        return float(d.mean()), float(d.max())
+
+    ek, ep = err(k32, p64), err(p32, p64)
+    e32 = float((k32 - p32)[agree].abs().max())
+    del k32, p64, rk, r32, r64
+    gated = ep[0] <= bound
+    print(f"{cfg.name} float32 at {depth} layers, B={p32.shape[0]} "
+          f"S={p32.shape[1]}, over "
+          + (f"the {n_agree} of {n_pos} positions whose routing agrees in "
+             f"the three runs" if moe else f"all {n_pos} positions")
+          + ": against the float64 plain "
+          f"logits, kernel path mean/max |err| {ek[0]:.4g}/{ek[1]:.4g}, "
+          f"plain path {ep[0]:.4g}/{ep[1]:.4g} (bound: mean within 1.25x, "
+          f"max within 2x); kernel vs plain max |err| {e32:.4g} (bound 1e-3 "
+          f"x max(1, max |logit| {scale:.3f}) = {bound:.4g}, "
+          + ("gated" if gated else "not gated: the float32 plain path's mean "
+             "error from float64 exceeds it")
+          + ")" + (f"; routing flips between the two float32 paths at "
+                   f"{n_flip} positions ({n_flip / n_pos:.2e}, bound "
+                   f"{FLIP_LIMIT})" if moe else ""))
+    if ek[0] > 1.25 * ep[0] or ek[1] > 2 * ep[1]:
+        raise AssertionError(f"{cfg.name} float32: the kernel path is farther "
+                             "from float64 than the plain path")
+    if gated and e32 > bound:
+        raise AssertionError(f"{cfg.name} float32: kernel path off the plain "
+                             f"path by {e32}")
+    if n_flip > FLIP_LIMIT * n_pos:
+        raise AssertionError(f"{cfg.name} float32: routing flips at {n_flip} "
+                             f"of {n_pos} positions")
+    out.update(f32_err=e32, f32_gated=gated, f32_vs_f64=(ek, ep),
+               f32_flips=n_flip, f32_agree=n_agree, positions=n_pos)
+
+    errs = {}
+    for kernels in (True, False):
+        lg, _ = run(torch.bfloat16, kernels, w16)
+        d = (lg.float() - p32).abs()
+        errs[kernels] = (float(d.mean(dtype=torch.float64)), float(d.max()))
+        del lg, d
+    del w16, p32
+    (km, kx), (pm, px) = errs[True], errs[False]
+    print(f"{cfg.name} bfloat16 at {depth} layers against the float32 plain "
+          f"logits: kernel path mean/max |err| {km:.5f}/{kx:.4f}, plain path "
+          f"{pm:.5f}/{px:.4f} (bound: mean within 1.25x; the max is not "
+          f"gated)")
+    if km > 1.25 * pm:
+        raise AssertionError(f"{cfg.name} bfloat16: the kernel path is "
+                             "farther from the float32 logits than the "
+                             "plain path")
+    out.update(bf16_err=errs[True], bf16_plain_err=errs[False])
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontier_run(torch, cfg, depth, dev, counts, zero_counts, card, out):
+    """The full-width bfloat16 run at ``depth`` layers on weights made in
+    bfloat16 from ``torch.Generator(0)``: the prefill step (hubert: the
+    encoder's forward) on the kernels, launches counted, no plain attention
+    call, logits finite; then on the plain path for the argmax agreement
+    (and, for MoE, the routing flips between the two); tokens/s and peak
+    memory.  For moonshot at full depth also the serving engine.  Returns
+    the weights for the engine."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as L
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    name = cfg.name
+    batch = frontier_batch(torch, cfg, dev)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    n_tok = inputs[next(iter(inputs))].shape[0] * inputs[
+        next(iter(inputs))].shape[1]
+    encoder = cfg.frontend == "audio"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{name}: {depth} of {cfg.n_layers} layers in bfloat16 on the card "
+          f"in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def step(kernels):
+        if encoder:
+            return models.forward(params, cut, inputs, dtype=torch.bfloat16,
+                                  kernels=kernels)
+        return make_prefill_step(cut, compute_dtype=torch.bfloat16,
+                                 kernels=kernels)(params, inputs)
+
+    res = {}
+    for kernels in (True, False):
+        zero_counts()
+        with torch.no_grad(), Watch(torch) as watch:
+            t0 = time.perf_counter()
+            lg = step(kernels)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        got = {k: v for k, v in counts().items() if v}
+        want = {"flash_attention": depth} if kernels else {}
+        if got != want:
+            raise AssertionError(f"{name} ({'kernel' if kernels else 'plain'}"
+                                 f" path): launches {got}, expected {want}")
+        if kernels and watch.plain:
+            raise AssertionError(f"{name}: the kernel path called the plain "
+                                 f"attention {watch.plain} times")
+        if not bool(lg.isfinite().all()):
+            raise AssertionError(f"{name}: logits not finite")
+        res[kernels] = (lg[:, -1] if not encoder else lg, watch.routes,
+                        watch.first, first)
+        if kernels:
+            out["launches"] = got
+            reps = 3
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    step(True)
+                torch.cuda.synchronize()
+            out["tok_s"] = reps * n_tok / (time.perf_counter() - t0)
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            if name == FRONTIER[0][0]:   # phase 5: where its step's time goes
+                with torch.no_grad():
+                    out["trace"] = trace(
+                        torch, f"{name} prefill step, bfloat16, kernel path",
+                        lambda: (step(True), torch.cuda.synchronize()),
+                        what="one step", top=10, focus=("flash_attention",))
+    (k16, rk, moe_first, secs), (p16, rp, _, _) = res[True], res[False]
+    agree = float((k16.argmax(-1) == p16.argmax(-1)).double().mean())
+    line = (f"{name} bfloat16, {depth} layers, B={PREFILL_B} x "
+            f"{n_tok // PREFILL_B} {'frames (encoder forward)' if encoder else 'positions (prefill step)'} "
+            f"on {card}: launches {out['launches']} (first call {secs:.2f} "
+            f"s); {out['tok_s']:.1f} tokens/s (3 synchronised calls); peak "
+            f"device memory {out['peak_gib']:.2f} GiB; argmax agreement "
+            f"with the bfloat16 plain path {agree} over {k16.shape[0] * (k16.shape[1] if encoder else 1)} "
+            f"{'positions' if encoder else 'last tokens'}")
+    out["argmax_agree"] = agree
+    if moe_first is not None:
+        flips, _ = routing_diff(torch, rk, rp)
+        out["flips"] = int(flips.sum())
+        # two MoE calls on the same input, bitwise equal to each other and
+        # to the call inside the step
+        p, x, y = moe_first
+        with torch.no_grad():
+            a, b = L.moe_apply(p, x, cut), L.moe_apply(p, x, cut)
+        if not (torch.equal(a, b) and torch.equal(a, y)):
+            raise AssertionError(f"{name}: two MoE calls on the same input "
+                                 "differ")
+        line += (f"; routing flips between the two paths at {out['flips']} "
+                 f"of {n_tok} positions; layer 0's MoE called twice on the "
+                 f"same input: bitwise equal")
+    print(line)
+    del res, k16, p16, rk, rp, moe_first
+    return params
+
+
+def frontier_engine(torch, cfg, params, dev, counts, zero_counts, card, out):
+    """The serving launcher's workload through ServingEngine and
+    AdapTBFController in bfloat16 (8 requests, 16 new tokens, 4 slots,
+    max_len 128), launches counted; the plain path teacher-forced on the
+    kernel run's inputs for the argmax agreement."""
+    from repro_torch import models
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.storage import AdapTBFController
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, cfg.vocab, SERVE["prompt"]).tolist(),
+             "interactive" if i % 2 == 0 else "batch")
+            for i in range(SERVE["requests"])]
+    ctl = AdapTBFController(n_targets=1, capacity_rpc_per_s=2000,
+                            window_s=0.05, device=dev)
+    eng = ServingEngine(cfg, params, slots=SERVE["slots"],
+                        max_len=SERVE["max_len"], controller=ctl,
+                        classes={"interactive": 3.0, "batch": 1.0},
+                        compute_dtype=torch.bfloat16)
+    reqs = [Request(prompt=p, max_new_tokens=SERVE["max_new"], klass=k)
+            for p, k in work]
+    for r in reqs:
+        eng.submit(r)
+    record, decode = [], models.decode_step
+
+    def recording(p, cache, cfg_, tokens, pos, **kw):
+        lg, cache = decode(p, cache, cfg_, tokens, pos, **kw)
+        record.append((tokens.clone(), pos.clone(), lg[:, -1].clone()))
+        return lg, cache
+
+    models.decode_step = recording
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        with torch.no_grad(), Watch(torch) as watch:
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        models.decode_step = decode
+    got = {k: v for k, v in counts().items() if v}
+    n_steps = len(record)
+    want = {"flash_decode": n_steps * cfg.n_layers}
+    if got != want or watch.plain:
+        raise AssertionError(f"{cfg.name} engine: launches {got}, expected "
+                             f"{want}; plain attention calls {watch.plain}")
+    if len(done) != len(reqs) or any(len(r.output) != SERVE["max_new"]
+                                     for r in reqs):
+        raise AssertionError(f"{cfg.name} engine answered "
+                             f"{len(done)}/{len(reqs)}")
+    if not all(bool(lg.isfinite().all()) for _, _, lg in record):
+        raise AssertionError(f"{cfg.name} engine: logits not finite")
+    n_tok = sum(len(r.output) for r in reqs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # at one token a group every expert holds one slot, so a decode step
+    # reads every expert's weights, as the reference's does
+    expert_bytes = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff * 2
+    cache = models.init_cache(cfg, SERVE["slots"], SERVE["max_len"],
+                              dtype=torch.bfloat16, device=dev)
+    agree, worst = [], 0.0
+    with torch.no_grad():
+        for tok, pos, lg in record:
+            plg, cache = models.decode_step(params, cache, cfg, tok, pos,
+                                            dtype=torch.bfloat16,
+                                            kernels=False)
+            plg = plg[:, -1]
+            worst = max(worst, float((plg.float() - lg.float()).abs().max()))
+            agree.append(float((plg.argmax(-1) == lg.argmax(-1)).double()
+                               .mean()))
+    del cache
+    out.update(engine_launches=got, engine_steps=n_steps,
+               engine_tok_s=n_tok / secs, engine_peak_gib=peak,
+               engine_step_ms=1e3 * secs / n_steps,
+               engine_expert_gb=expert_bytes / 1e9,
+               engine_argmax_agree=float(np.mean(agree)),
+               engine_windows=ctl.windows_run)
+    print(f"{cfg.name} engine (bfloat16, {SERVE}) on {card}: answered "
+          f"{len(done)}/{len(reqs)}, {n_tok} tokens in {n_steps} steps, "
+          f"{secs:.3f} s ({n_tok / secs:.2f} generated tokens/s, "
+          f"{1e3 * secs / n_steps:.1f} ms a step); AdapTBF windows "
+          f"{ctl.windows_run}; launches {got}; peak device memory {peak:.2f} "
+          f"GiB; a decode step reads every expert's weights, "
+          f"{expert_bytes / 1e9:.1f} GB = {expert_bytes / HBM_BYTES_S * 1e3:.2f}"
+          f" ms at {HBM_BYTES_S / 1e12} TB/s; the plain path teacher-forced: "
+          f"argmax agreement {np.mean(agree)}, max |err| {worst:.4f} "
+          f"(bfloat16, not gated)")
+
+
+def check_attention_frontier(torch, attn_ops, dev):
+    """B4 and B5 against their plain versions at the phase's shapes: B4
+    causal at moonshot's (B=4, S=2048, 16 heads of 128) and pixtral's and
+    phi3.5-moe's (GQA 32/8, D=128), non-causal at hubert's (B=4, S=1500, 16
+    heads of 80), in both types; B5 at moonshot's engine shape (4 slots,
+    T=128, 16 heads of 128, lengths {1, 37, 128, 128}) in both types.
+    Returns the bfloat16 moonshot-shape inputs of each and the largest
+    errors."""
+    gen = torch.Generator(device=dev).manual_seed(59)
+    both = ("float32", "bfloat16")
+    cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, dt) for dt in both]
+    cases += [(PREFILL_B, PREFILL_S, 32, 8, 128, True, dt) for dt in both]
+    cases += [(PREFILL_B, HUBERT_S, 16, 16, 80, False, dt) for dt in both]
+    fa_err, fa_in = 0.0, None
+    for b, s, hq, hkv, d, causal, name in cases:
+        dt = getattr(torch, name)
+        q = _randn(torch, gen, (b, s, hq, d), dt)
+        k = _randn(torch, gen, (b, s, hkv, d), dt)
+        v = _randn(torch, gen, (b, s, hkv, d), dt)
+        o, lse = attn_ops.attention_lse(q, k, v, causal=causal)
+        wo, wl = attn_ops.ref.mha_lse(q, attn_ops.ref.broadcast_kv(k, hq),
+                                      attn_ops.ref.broadcast_kv(v, hq),
+                                      causal=causal)
+        e_o = close_err(o, wo, ATTN_TOL[name])
+        e_l = close_err(lse, wl, ATTN_TOL[name])
+        print(f"flash_attention kernel vs plain, B={b} S={s} Hq={hq} "
+              f"Hkv={hkv} D={d} causal={causal} {name}: max |err| o {e_o}, "
+              f"lse {e_l} (atol = rtol = {ATTN_TOL[name]})")
+        fa_err = max(fa_err, e_o)
+        if (hq, hkv, d, name) == (16, 16, 128, "bfloat16"):
+            fa_in = (q, k, v)
+    fd_err, fd_in = 0.0, None
+    lens = (1, 37, 128, 128)
+    for name in both:
+        dt = getattr(torch, name)
+        b, t, h, d = len(lens), SERVE["max_len"], 16, 128
+        q = _randn(torch, gen, (b, 1, h, d), dt)
+        kc = _randn(torch, gen, (b, t, h * d), dt).view(b, t, h, d)
+        vc = _randn(torch, gen, (b, t, h * d), dt).view(b, t, h, d)
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = attn_ops.decode_attention(q, kc, vc, length)
+        want = attn_ops.ref.decode_attention(q, kc, vc, length)
+        err = close_err(got, want, ATTN_TOL[name])
+        print(f"flash_decode kernel vs plain, B={b} T={t} Hq={h} Hkv={h} "
+              f"D={d} lengths {list(lens)} {name}: max |err| {err} "
+              f"(atol = rtol = {ATTN_TOL[name]})")
+        fd_err = max(fd_err, err)
+        if name == "bfloat16":
+            fd_in = (q, kc, vc, length)
+    return fa_in, fa_err, fd_in, fd_err
+
+
+def time_attention_frontier(torch, attn_ops, fa_in, fd_in, dev, card):
+    """B4 at moonshot's prefill shape and B5 at its engine shape, bfloat16:
+    kernel, plain version and the library call (SDPA; with a length mask for
+    decode) between CUDA events, beside the bound."""
+    q, k, v = fa_in
+    b, s, h, d = q.shape
+    fa = dict(
+        ms=cuda_ms(lambda: attn_ops.attention(q, k, v, causal=True), reps=20),
+        plain_ms=cuda_ms(lambda: attn_ops.ref.mha(q, k, v, causal=True),
+                         reps=2, groups=3),
+        library_ms=cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in fa_in), is_causal=True), reps=20))
+    fa["bound_ms"], fa["bound_by"] = bound_ms(*attention_work(b, s, h, d, 2),
+                                              BF16_OPS_S)
+    q, kc, vc, length = fd_in
+    mask = (torch.arange(kc.shape[1], device=dev)[None, :]
+            < length[:, None])[:, None, None, :]
+    fd = dict(
+        ms=cuda_ms(lambda: attn_ops.decode_attention(q, kc, vc, length),
+                   reps=20),
+        plain_ms=cuda_ms(lambda: attn_ops.ref.decode_attention(
+            q, kc, vc, length), reps=20),
+        library_ms=cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask), reps=20))
+    lens = [int(x) for x in length.tolist()]
+    fd["bound_ms"], fd["bound_by"] = bound_ms(
+        *decode_work(lens, q.shape[2], kc.shape[2], q.shape[3], 2))
+    print(f"LM kernel times at moonshot-v1-16b-a3b's shapes on {card}: "
+          f"flash_attention (B={b} S={s} H={h} D={d} causal bfloat16) "
+          f"{fa['ms']:.4f} ms (plain {fa['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {fa['library_ms']:.4f} ms, bound "
+          f"{fa['bound_ms']:.4f} ms by {fa['bound_by']}); flash_decode "
+          f"(engine shape, 4 slots, T={kc.shape[1]}, lengths {lens}, 16 "
+          f"heads of 128, bfloat16) {fd['ms']:.4f} ms (plain "
+          f"{fd['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{fd['library_ms']:.4f} ms, bound {fd['bound_ms']:.5f} ms by "
+          f"{fd['bound_by']})")
+    return fa, fd
+
+
+def frontier_entry(frontier, name: str, key: str) -> dict:
+    """Phase 3g's keys of a kernel's entry in the ``kernels`` line: its
+    launches on each of the phase's paths, its time, plain time, bound and
+    library time at moonshot's shape, and its largest error there."""
+    own = frontier[name]
+    return {
+        "launches_3g": {a: r[key][name] for a, r in frontier["configs"].items()
+                        if name in r.get(key, {})},
+        **{f"{k}_moonshot": v for k, v in own.items()}}
+
+
+def frontier_phase(torch, attn_ops, dev, counts, zero_counts, card):
+    """Phase 3g: the MoE block and the audio and vision frontends.  Sizes
+    from ``param_shapes``/``cache_shapes`` printed before anything is
+    allocated; B4 and B5 checked at the phase's shapes; then per config the
+    float32 and bfloat16 gates at reduced depth (``frontier_gates``) and the
+    bfloat16 full-width run (``frontier_run``), moonshot's with the serving
+    engine.  Returns the numbers for the report."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.window_mega.ops import _leaves
+    t_phase = time.perf_counter()
+    gib = 2**30
+    cfgs = {arch: get_config(arch) for arch, _, _ in FRONTIER}
+    for arch, depth, gate in FRONTIER:
+        cfg = cfgs[arch]
+        full = sum(t.numel() for t in _leaves(models.param_shapes(cfg)))
+        per_layer = sum(t.numel() for t in _leaves(
+            models.param_shapes(cfg)["layers"][0]))
+        run = (full - (cfg.n_layers - depth) * per_layer) * 2
+        gates = (full - (cfg.n_layers - gate) * per_layer) * 4
+        cache = ""
+        if arch == FRONTIER[0][0]:
+            cache = sum(t.numel() * t.element_size() for t in _leaves(
+                models.cache_shapes(cfg, SERVE["slots"], SERVE["max_len"])))
+            cache = f"; the engine's bfloat16 cache {cache / gib:.3f} GiB"
+        meta = all(t.device.type == "meta"
+                   for t in _leaves(models.param_shapes(cfg)))
+        print(f"planned ({arch}, from param_shapes on the meta device: "
+              f"{meta}): {full} parameters, {full * 2 / gib:.1f} GiB in "
+              f"bfloat16 and {full * 4 / gib:.1f} GiB in float32 at full "
+              f"depth; the run at {depth} of {cfg.n_layers} layers "
+              f"{run / gib:.1f} GiB (bfloat16), the float32 gates at {gate} "
+              f"{gates / gib:.1f} GiB{cache}")
+        if run > 0.9 * torch.cuda.get_device_properties(0).total_memory:
+            raise AssertionError(f"{arch}: {run / gib:.1f} GiB of bfloat16 "
+                                 "weights would not fit the card")
+    fa_in, fa_err, fd_in, fd_err = check_attention_frontier(torch, attn_ops,
+                                                            dev)
+    fa, fd = time_attention_frontier(torch, attn_ops, fa_in, fd_in, dev, card)
+    del fa_in, fd_in
+    out = {"flash_attention": dict(fa, max_abs_err=fa_err),
+           "flash_decode": dict(fd, max_abs_err=fd_err), "configs": {}}
+    for arch, depth, gate in FRONTIER:
+        cfg = cfgs[arch]
+        t0 = time.perf_counter()
+        res = frontier_gates(torch, cfg, gate, dev)
+        params = frontier_run(torch, cfg, depth, dev, counts, zero_counts,
+                              card, res)
+        if arch == FRONTIER[0][0]:
+            frontier_engine(torch, cfg, params, dev, counts, zero_counts,
+                            card, res)
+        del params
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out["configs"][arch] = res
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 3g (the MoE block and the frontends) on {card}: "
+          + "; ".join(f"{a} {r['seconds']:.1f} s" for a, r in
+                      out["configs"].items())
+          + f"; {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # keep lines if cut short
     try:
@@ -2532,6 +3131,12 @@ def main() -> int:
             attn_ops.launches[name] = 0
         ssd_ops.launches = 0
         ssd_ops.launches_bwd = 0
+
+    laps = [("start", time.perf_counter())]
+
+    def lap(label):
+        """Mark the end of a phase (seconds printed at the end)."""
+        laps.append((label, time.perf_counter()))
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2613,6 +3218,7 @@ def main() -> int:
         if blocks < 1:
             raise AssertionError(f"{kernel[:-6]} fits no block on an SM")
 
+    lap("1 build")
     # 2. each kernel against its plain version, at the main path's shapes
     fw_args, fw_err = check_window_kernel(torch, fw_ops, dev)
     fw_err = max(fw_err, check_window_edges(torch, fw_ops, dev))
@@ -2628,6 +3234,7 @@ def main() -> int:
     fb_args, fb_err = check_attention_bwd_kernel(torch, attn_ops, dev)
     sb_args, sb_err = check_ssd_bwd_kernel(torch, ssd_ops, dev)
 
+    lap("2 kernel checks")
     # 3. the main paths ---------------------------------------------------
     t0 = time.perf_counter()
     scn = random_fleet(0, n_ost=O, n_jobs=J, profile="mixed", duration_s=2.0)
@@ -2738,6 +3345,7 @@ def main() -> int:
     print(f"coded dispatch, code {code} (adaptbf), under mega: bitwise equal "
           "to direct adaptbf in served, demand, alloc, record, queue_final")
 
+    lap("3 fleet main paths")
     # 3b. streaming telemetry and the online service ----------------------
     online = fleet_online(torch, dev, inputs, scn, run, counted, zero_counts,
                           counts, {"fused/pallas": kernel_res,
@@ -2745,23 +3353,34 @@ def main() -> int:
     del kernel_res, coded_res, mega_res
     torch.cuda.empty_cache()
 
+    lap("3b streaming, service")
     # 3c. the tenant axis: many fleets in one run -------------------------
     tenants = tenant_phase(torch, dev, inputs, scn, counts, zero_counts,
                            names, card)
     torch.cuda.empty_cache()
 
+    lap("3c tenants")
     # 3d. sharding: ost_shard and fleet_shard on torch.distributed ------
     shards = shard_phase(torch, dev, scn, card)
     torch.cuda.empty_cache()
 
+    lap("3d sharding")
     # 3e. the LM serving path: zamba2-2.7b prefill and engine ------------
     lm = lm_main_path(torch, dev, counts, zero_counts)
     torch.cuda.empty_cache()
 
+    lap("3e LM serving")
     # 3f. the LM training path: zamba2-2.7b loss_fn, gradients, AdamW ----
     train = lm_train_path(torch, dev, counts, zero_counts, card)
     torch.cuda.empty_cache()
 
+    lap("3f LM training")
+    # 3g. the MoE block and the frontends: moonshot, phi3.5-moe, hubert,
+    # pixtral at full width ------------------------------------------------
+    frontier = frontier_phase(torch, attn_ops, dev, counts, zero_counts, card)
+    torch.cuda.empty_cache()
+
+    lap("3g MoE, frontends")
     # 4. times -----------------------------------------------------------
     fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
     fw_plain = cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
@@ -2900,6 +3519,7 @@ def main() -> int:
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    lap("4 times")
     # 5. where the time goes: one run of each kernel path under the profiler
     fused = trace(torch, "fused/pallas", lambda: run("fused", "pallas"),
                   focus=("fleet_window", "adaptbf_alloc"))
@@ -2937,6 +3557,7 @@ def main() -> int:
               f"{streaming[1]:.3f} (trajectory: "
               f"{fused[0] if fused else float('nan'):.2f} ms)")
 
+    lap("5 traces")
     kernels = [
         {"name": "fleet_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_window.cu",
@@ -2971,7 +3592,8 @@ def main() -> int:
          "launches": lm["prefill_launches_kernel"]["flash_attention"],
          "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
          "bound_ms": fa_b, "bound_by": fa_by, "library_ms": fa_lib,
-         "train_launches": train["train_launches"]["flash_attention"]},
+         "train_launches": train["train_launches"]["flash_attention"],
+         **frontier_entry(frontier, "flash_attention", "launches")},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/attention/ref.py:76",
@@ -2999,7 +3621,8 @@ def main() -> int:
          "launches": lm["engine_launches"]["flash_decode"],
          "max_abs_err": fd_err, "ms": fd_ms, "plain_ms": fd_plain,
          "bound_ms": fd_b, "bound_by": fd_by, "library_ms": fd_lib,
-         **fd_long},
+         **fd_long, **frontier_entry(frontier, "flash_decode",
+                                     "engine_launches")},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:78",
@@ -3008,6 +3631,10 @@ def main() -> int:
          "bound_ms": ssd_b, "bound_by": ssd_by, "library_ms": None,
          "train_launches": train["train_launches"]["ssd_scan"]},
     ]
+    print(f"seconds by phase on {card}: "
+          + ", ".join(f"{label} {t - laps[i][1]:.1f}"
+                      for i, (label, t) in enumerate(laps[1:]))
+          + f"; {laps[-1][1] - laps[0][1]:.1f} in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

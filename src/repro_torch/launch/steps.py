@@ -43,7 +43,10 @@ def _value_and_grad(loss_of, params, batch):
     leaves = [x.detach().requires_grad_(True)
               for _, x in leaves_with_paths(params)]
     loss = loss_of(unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not read (the token embedding of an audio
+    # encoder) gets zeros, as under jax.grad
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), unflatten(params, list(grads))
 
 

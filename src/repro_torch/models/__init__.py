@@ -2,6 +2,7 @@
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import (
     cache_defs,
+    cache_shapes,
     cast_params,
     decode_step,
     forward,
@@ -10,6 +11,7 @@ from repro_torch.models.model import (
     init_params,
     loss_fn,
     model_defs,
+    param_shapes,
     params_from_numpy,
     train_state_from_numpy,
 )
@@ -18,6 +20,7 @@ __all__ = [
     "ModelConfig",
     "model_defs",
     "init_params",
+    "param_shapes",
     "params_from_numpy",
     "train_state_from_numpy",
     "cast_params",
@@ -26,5 +29,6 @@ __all__ = [
     "loss_fn",
     "init_cache",
     "cache_defs",
+    "cache_shapes",
     "decode_step",
 ]

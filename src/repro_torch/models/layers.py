@@ -1,4 +1,4 @@
-"""Layer library: RMSNorm, RoPE, GQA attention, dense FFN, Mamba-2 block.
+"""Layer library: RMSNorm, RoPE, GQA attention, dense/MoE FFN, Mamba-2 block.
 
 Every layer is a pair of functions, as in the reference package:
   ``*_defs(cfg)``  -> tree of ParamDef (shapes + init)
@@ -169,10 +169,85 @@ def moe_defs(cfg: ModelConfig):
     }
 
 
+def moe_capacity(s: int, cfg: ModelConfig) -> int:
+    """Slots an expert holds in a group of ``s`` tokens: the reference's
+    rule, dropless for tiny groups (decode: ``s=1`` gives 1)."""
+    cap = int((s * cfg.top_k / cfg.n_experts) * cfg.capacity_factor + 0.5)
+    return max(min(cap, s), min(s, 4), 1)
+
+
+def moe_route(p, x, cfg: ModelConfig):
+    """Top-k routing of each group (batch row) of x [G,S,D] -> (experts
+    [G,S,k] int64, gates [G,S,k] float32): the router product in x's type,
+    then float32; a stable descending sort picks the k largest logits, so
+    ties keep the lower expert first, as ``jax.lax.top_k`` does
+    (``torch.topk`` promises no order among ties); softmax over those k."""
+    logits = torch.matmul(x, p["router"].to(x.dtype)).to(torch.float32)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.top_k
+    return idx[..., :k], torch.softmax(vals[..., :k], dim=-1)
+
+
+def moe_sort(flat, n_experts: int):
+    """Each group's entries sorted by expert, stably, so that every
+    expert's entries stay in token order.  flat [G,N] expert ids (token-
+    major) -> (order [G,N]: the entries in expert order; starts, counts
+    [G,E]: each expert's range in that order; rank [G,N]: each entry's
+    place in its expert's range)."""
+    b, n = flat.shape
+    sorted_e, order = torch.sort(flat, dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=flat.device).expand(
+        b, n_experts).contiguous()
+    starts = torch.searchsorted(sorted_e, experts)
+    counts = torch.searchsorted(sorted_e, experts, right=True) - starts
+    entries = torch.arange(n, device=flat.device).expand(b, n)
+    inv = torch.empty_like(order).scatter_(1, order, entries)  # a permutation
+    rank = (entries - torch.gather(starts, 1, sorted_e)).gather(1, inv)
+    return order, starts, counts, rank
+
+
 def moe_apply(p, x, cfg: ModelConfig):
-    raise NotImplementedError(
-        "the MoE block is not ported to PyTorch yet (ROADMAP.md, queue A, "
-        "item A.3, \"the MoE block\")")
+    """Grouped sort-based top-k dispatch, as the reference's: routing per
+    group (batch row), each expert's entries in token order, the first
+    ``moe_capacity`` kept and the rest dropped (weight 0).
+
+    Vectorised over groups, with no scatter into the buffers: each expert
+    slot gathers the token that fills it (empty slots stay zero), the
+    experts run as two batched products over an [E, G*C, D] buffer, and
+    each (token, j) contribution is gathered back by its expert and rank,
+    scaled by its gate in x's type and summed over j in index order.  No
+    ``index_add_`` or atomics: two calls are bitwise equal on the card."""
+    b, s, d = x.shape
+    e, k, dt, dev = cfg.n_experts, cfg.top_k, x.dtype, x.device
+    cap = moe_capacity(s, cfg)
+    idx, gates = moe_route(p, x, cfg)
+    flat = idx.reshape(b, s * k)
+    order, starts, counts, rank = moe_sort(flat, e)
+    slots = torch.arange(cap, device=dev)
+    groups = torch.arange(b, device=dev)
+
+    # dispatch: slot c of expert i takes entry starts[i] + c of the order
+    src = (starts[:, :, None] + slots).clamp(max=s * k - 1)   # [G,E,C]
+    token = torch.gather(order, 1, src.reshape(b, e * cap)) // k
+    row = token.reshape(b, e, cap) + s * groups[:, None, None]
+    filled = slots < counts[:, :, None]                        # [G,E,C]
+    buf = torch.where(filled.transpose(0, 1)[..., None],
+                      x.reshape(b * s, d)[row.transpose(0, 1)], 0)
+    buf = buf.reshape(e, b * cap, d)
+
+    hg = torch.bmm(buf, p["wi"].to(dt))                        # [E,G*C,2F]
+    h, g = hg.chunk(2, dim=-1)
+    out = torch.bmm(F.silu(g) * h, p["wo"].to(dt))             # [E,G*C,D]
+
+    # combine: entry (t, j) sits in slot (expert, rank) if it was kept
+    keep = (rank < cap).reshape(b, s, k)
+    slot = flat * (b * cap) + cap * groups[:, None] + rank.clamp(max=cap - 1)
+    contrib = out.reshape(e * b * cap, d)[slot].reshape(b, s, k, d)
+    contrib = torch.where(keep[..., None], contrib * gates.to(dt)[..., None], 0)
+    y = contrib[:, :, 0]
+    for j in range(1, k):
+        y = y + contrib[:, :, j]
+    return y
 
 
 # ---------------------------------------------------------------- Mamba-2

@@ -1,6 +1,6 @@
-"""Model assembly: param defs, forward, prefill and one-token decode for the
-dense, SSM and hybrid families, as in the reference package's
-``models/model.py``.
+"""Model assembly: param defs, forward, loss, prefill and one-token decode
+for every family of the reference package's ``models/model.py`` (dense,
+MoE, SSM, hybrid, the audio encoder and the vision-language model).
 
 Parameters are a plain dictionary; ``params["layers"]`` is a list with one
 dictionary per block (the reference stacks them on a leading axis for
@@ -188,6 +188,13 @@ def train_state_from_numpy(cfg: ModelConfig,
         int(step), dtype=torch.int32, device=dev)))
 
 
+def param_shapes(cfg: ModelConfig, dtype=torch.float32):
+    """The parameter tree as ``device="meta"`` tensors (shapes and dtype, no
+    storage), in the port's layout: ``layers`` a list of per-block dicts."""
+    return map_tree(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                    model_defs(cfg))
+
+
 def cast_params(params, dtype):
     """Float32 weights cast to the compute dtype (others as they are).  A
     step casts once when it is built; the layers' own casts are then
@@ -234,12 +241,18 @@ def _remat(fn):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend is not ported to PyTorch yet "
-            "(ROADMAP.md, queue A, item A.4, \"the audio and vision "
-            "frontends\")")
-    return params["embed"].to(dtype)[batch["tokens"].long()]
+    """Token / frontend embedding.  batch keys: tokens [B,S] and/or
+    frames|patches [B,P,F] (stub modality embeddings): audio frames replace
+    the token embedding, vision patches overwrite its first P positions."""
+    if cfg.frontend == "audio":
+        return torch.matmul(batch["frames"].to(dtype),
+                            params["frontend"]["proj"].to(dtype))
+    x = params["embed"].to(dtype)[batch["tokens"].long()]
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = torch.matmul(batch["patches"].to(dtype),
+                          params["frontend"]["proj"].to(dtype))
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 def forward_hidden(params, cfg: ModelConfig, batch, dtype=torch.bfloat16, *,
@@ -357,6 +370,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     dev = resolve_device(device)
     return map_tree(lambda d: torch.zeros(d.shape, dtype=dtype, device=dev),
+                    cache_defs(cfg, batch, max_len))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16):
+    """The decode cache as ``device="meta"`` tensors, in ``init_cache``'s
+    stacked layout; nothing is allocated."""
+    return map_tree(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
                     cache_defs(cfg, batch, max_len))
 
 

@@ -20,7 +20,9 @@ SSD backward against autograd of the plain scan (warm start, no skip, gy
 only, gstate only, S = 1, P = 16 with N = 128, 32 chunks of carry, S =
 64 k + 1, cum in the thousands), its bfloat16 tensor-core kernels by the
 profiler's kernel names and its TMA checks, both bitwise across two
-calls, and a trainer's crash and restore bitwise on the card.
+calls, and a trainer's crash and restore bitwise on the card; the MoE
+block (bitwise across two calls, the CPU's experts and output) and the
+MoE and frontend smoke models' attention launches.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -1332,3 +1334,62 @@ def test_trainer_restore_is_bitwise_on_the_card(cuda, tmp_path, arch):
                                 leaves_with_paths(tr2.state)):
         assert pa == pb and a.device.type == "cuda"
         assert torch.equal(a, b), pa
+
+
+def test_moe_apply_on_the_card_is_repeatable_and_matches_the_cpu(cuda):
+    """The MoE block on the card: two calls bitwise equal (no atomics in
+    dispatch or combine), the same experts as on the CPU, the output within
+    1e-5 x max(1, max |y|) of the CPU's, in float32, with capacity drops
+    (a skewed router) and without."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    p = models.init_params(cfg, torch.Generator().manual_seed(0))[
+        "layers"][0]["moe"]
+    for skew in (0.0, 0.5):
+        pc = dict(p, router=p["router"].clone())
+        pc["router"][:, 1] += skew
+        x = torch.randn(3, 24, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1)) + skew
+        want = L.moe_apply(pc, x, cfg)
+        on_card = {k: v.to(cuda) for k, v in pc.items()}
+        a = L.moe_apply(on_card, x.to(cuda), cfg)
+        b = L.moe_apply(on_card, x.to(cuda), cfg)
+        assert torch.equal(a, b)
+        assert torch.equal(L.moe_route(on_card, x.to(cuda), cfg)[0].cpu(),
+                           L.moe_route(pc, x, cfg)[0])
+        bound = 1e-5 * max(1.0, float(want.abs().max()))
+        assert float((a.cpu() - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "hubert-xlarge",
+                                  "pixtral-12b"])
+def test_moe_and_frontend_models_launch_the_attention_kernel(cuda, arch):
+    """The smoke configs' forward on the card: flash attention once a
+    layer, float32 logits within 1e-3 x max(1, max |logit|) of the plain
+    path's."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    cfg = get_smoke_config(arch)
+    params = models.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    batch = {}
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.randn(2, 40, cfg.frontend_dim, generator=gen,
+                                      device=cuda)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                                        device=cuda)
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(2, 8, cfg.frontend_dim, generator=gen,
+                                       device=cuda)
+    before = attn_ops.launches["flash_attention"]
+    got = models.forward(params, cfg, batch, dtype=torch.float32)
+    assert attn_ops.launches["flash_attention"] == before + cfg.n_layers
+    want = models.forward(params, cfg, batch, dtype=torch.float32,
+                          kernels=False)
+    bound = 1e-3 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= bound

@@ -18,7 +18,8 @@ phi3-mini-3.8b (dense):
 * the port's own decode against its forward, teacher-forced, as
   ``tests/test_arch_smoke.py`` checks the reference.
 
-MoE blocks and modality frontends raise ``NotImplementedError``."""
+The MoE models and the audio and vision frontends:
+``tests/test_torch_moe.py`` and ``tests/test_torch_frontends.py``."""
 import functools
 
 import jax
@@ -216,16 +217,6 @@ def test_decode_matches_forward_teacher_forced(arch):
         outs.append(logits[:, 0])
     torch.testing.assert_close(torch.stack(outs, 1), full[:, :8], rtol=2e-2,
                                atol=2e-2)
-
-
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "hubert-xlarge",
-                                  "pixtral-12b"])
-def test_moe_and_frontends_are_not_ported_yet(arch):
-    cfg = get_smoke_config(arch)
-    params = models.init_params(cfg, torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.forward(params, cfg, {"tokens": tokens}, dtype=torch.float32)
 
 
 def test_init_params_is_seeded_and_shaped():

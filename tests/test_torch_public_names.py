@@ -23,8 +23,6 @@ NOT_YET = {
         "data_axis_size": "A.5, the TPU meshes",
     },
     "models": {
-        "param_shapes": "A.5, specs and shape helpers",
-        "cache_shapes": "A.5, specs and shape helpers",
         "param_specs": "A.5, specs and shape helpers",
         "cache_specs": "A.5, specs and shape helpers",
     },
@@ -32,7 +30,8 @@ NOT_YET = {
 
 WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
             "kernels.window_mega", "checkpoint", "data", "optim", "training"]
-WITHOUT_ALL = ["launch.steps", "launch.mesh", "launch.train",
+WITHOUT_ALL = ["configs.shapes", "launch.steps", "launch.mesh",
+               "launch.train",
                "kernels.adaptbf_alloc.ops", "kernels.attention.ops",
                "kernels.ssd.ops", "storage.telemetry", "storage.metrics",
                "storage.service", "storage.workloads", "checkpoint.manager",

@@ -311,8 +311,8 @@ def test_loss_fn_float32_rounding(arch):
                          ids=["none", "group1", "group2", "none_group2"])
 def test_remat_is_exact(remat):
     """Recomputation changes memory, not numbers: loss and gradients are
-    bitwise those of ``remat="full"`` (port of ``test_sqrt_remat_is_exact``;
-    dense family, as MoE is not ported)."""
+    bitwise those of ``remat="full"`` (port of ``test_sqrt_remat_is_exact``,
+    on the dense family)."""
     base = get_smoke_config(PHI)
     assert base.remat == "full" and base.remat_group == 0
     params, batch = _port_params(PHI), _setup(PHI)[2]
