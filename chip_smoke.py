@@ -13,7 +13,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    bfloat16 SSD backward kernel, fails the run); for the three fleet
    kernels at J=4096 and the two bfloat16 SSD backward kernels at N=64, a
    summary of registers, spills, static and dynamic shared memory and
-   resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+   resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   for the three fleet kernels' instances over thread-block clusters (rows
+   of 8192 < J <= 65536), the same and the clusters of 2, 4 and 8 blocks
+   resident on the card (``cudaOccupancyMaxActiveClusters``).
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
    J=4096 jobs, W=10 ticks per window): the allocation over chained
@@ -28,6 +31,11 @@ Phases, each of which raises on failure (the run then exits non-zero):
    full wave at one and at two blocks an SM) and J=4093 (rate rows off a
    16-byte boundary), the window service at J of 1, 3 and 8192 and W of
    0 and 1, with budgets of +inf and 0 and backlog caps below the queue.
+   Rows over clusters: the stress rows also at J of 16385 and 65536, and
+   at the wide cells' widths (J=16384, clusters of 2; 65536, of 8), O of 1
+   and one past a full wave of clusters: B1 at W of 0, 1 and 10, B2, and
+   B3 for each built-in policy and coded code with a fault round (the
+   integer allocations equal).
    LM kernels, at the tolerances of the reference's kernel tests
    (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
    attention causal at the prefill's shape (B=4, S=2048, 32 heads of 80)
@@ -149,7 +157,17 @@ Phases, each of which raises on failure (the run then exits non-zero):
    routing flips against the bfloat16 plain path; moonshot's serving
    engine in bfloat16 (the launcher's workload; B5 once a layer a step,
    every request answered with its 16 tokens, the plain path
-   teacher-forced for the argmax agreement).
+   teacher-forced for the argmax agreement).  The fleet main path on rows
+   over thread-block clusters (``wide_phase``, phase 3h): wide-16k
+   (``random_fleet(0, n_ost=256, n_jobs=16384, "mixed")``, 20 windows of
+   trace tiled to 60; clusters of 2): fused/pallas against plain
+   scan/core, mega against fused/pallas (the main cell's comparisons and
+   invariants), coded equal to direct bitwise, streaming mega's
+   queue_final equal to its trajectory run's, 4 fleets of its first 64
+   OSTs under mega/pallas with per-fleet codes each bitwise its own run;
+   wide-64k (64 OSTs x 65536 jobs, 20 windows; clusters of 8):
+   fused/pallas against plain, mega against fused/pallas; launch counters
+   once a window in every run.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
@@ -157,6 +175,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    ``FleetService.step`` latency (p50, p99 over 60 windows; the window's
    rates on the card or handed over as numpy), the prefill in tokens per
    second on both paths and the engine in generated tokens per second;
+   B1-B3 at the wide cells beside their bounds and plain times, and
+   windows/s of fused/pallas, mega and the plain path there; what a cluster
+   reduction costs against a block's (B1 at 8192 lanes a block, one block
+   or clusters of 2 and 8 a row);
    the attention backward beside its bound and SDPA's forward+backward
    minus its forward; the SSD backward beside its bound, its plain
    reverse scan and the float32 kernel at the same shape; train tokens per
@@ -515,7 +537,8 @@ def alloc_stress_case(j, seed):
 
 def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
     """B2 and B3 (adaptbf) against their plain versions on the stress rows
-    at J of 1, 4093, 4095, 4096 and 8192: the integer allocation equal
+    at J of 1, 4093, 4095, 4096 and 8192 and over clusters at 16385 and
+    65536 (ties straddling every slice edge): the integer allocation equal
     (``torch.equal``), record and remainder and every other megakernel
     leaf within atol 1e-3.  The megakernel's row 2 gets no traffic, so it
     observes no demand.  Returns the largest error."""
@@ -527,7 +550,7 @@ def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
                                device=dev)
 
     worst = 0.0
-    for j in (1, 4093, 4095, 4096, 8192):
+    for j in (1, 4093, 4095, 4096, 8192, 16385, 65536):
         host = alloc_stress_case(j, seed=j)
         args = [t(x) for x in host]
         got = alloc_ops.fleet_alloc(*args)
@@ -718,13 +741,14 @@ def check_alloc_kernel(torch, alloc_ops, dev, rounds=3):
     return first, err
 
 
-def check_main_path(torch, name, res, inputs, cap_w):
-    """The invariants, in float64: finite outputs of the expected shape; no
-    negative queue, service or allocation; per-OST served <= cap_w;
-    moved <= offered; moved <= volume."""
+def check_main_path(torch, name, res, inputs, cap_w, n_windows=N_WINDOWS):
+    """The invariants, in float64: finite outputs of the expected shape
+    ([n_windows, O, J] of the fleet's volume); no negative queue, service
+    or allocation; per-OST served <= cap_w; moved <= offered; moved <=
+    volume."""
     for field in ("served", "demand", "alloc", "record"):
         x = getattr(res, field)
-        if tuple(x.shape) != (N_WINDOWS, O, J):
+        if tuple(x.shape) != (n_windows, *inputs["volume"].shape):
             raise AssertionError(f"{name}: {field} has shape {tuple(x.shape)}")
         if field != "alloc" and not bool(x.isfinite().all()):
             raise AssertionError(f"{name}: non-finite {field}")
@@ -739,13 +763,63 @@ def check_main_path(torch, name, res, inputs, cap_w):
     if (served.sum(-1) > cap_w[None, :] + 1e-3).any():
         raise AssertionError(f"{name}: an OST served past its capacity")
     moved = served.sum(0) + res.queue_final.double()
-    offered = (inputs["rates"].sum(0, dtype=torch.float64)
-               * (N_WINDOWS // inputs["trace_windows"]))
+    full, rest = divmod(n_windows, inputs["trace_windows"])
+    offered = (inputs["rates"].sum(0, dtype=torch.float64) * full
+               + inputs["rates"][:rest * W].sum(0, dtype=torch.float64))
     if (moved > offered + 1e-2).any():
         raise AssertionError(f"{name}: served more than offered")
     vol = inputs["volume"].double()
     if (vol.isfinite() & (moved > vol + 1e-2)).any():
         raise AssertionError(f"{name}: served more than a job's volume")
+
+
+def fleet_run(torch, dev, inputs, serve, alloc, control="adaptbf", code=None,
+              telemetry="trajectory", n_windows=N_WINDOWS, fault_plan=None):
+    """One ``simulate_fleet`` run of a fleet's inputs on the card,
+    synchronised."""
+    from repro_torch.storage import FleetConfig, simulate_fleet
+    cfg = FleetConfig(control=control, serve_backend=serve,
+                      alloc_backend=alloc, telemetry=telemetry)
+    res = simulate_fleet(cfg, inputs["nodes"], inputs["rates"],
+                         inputs["volume"], inputs["cap"], inputs["backlog"],
+                         control_code=code, n_windows=n_windows,
+                         fault_plan=fault_plan, device=dev)
+    torch.cuda.synchronize()
+    return res
+
+
+def compare_runs(torch, label, res, base):
+    """alloc and record in every window within atol 1e-3 (unruled masks
+    equal), per-OST horizon service within 1e-3 relative, and which fields
+    are bitwise equal; held while the closed loop has not forked (on these
+    fleets it has not: the kernel paths agree bitwise)."""
+    per_window = 0.0
+    for f in ("alloc", "record"):
+        k, p = getattr(res, f), getattr(base, f)
+        if not torch.equal(k.isinf(), p.isinf()):
+            raise AssertionError(f"{label}: {f} unruled masks differ")
+        fin = k.isfinite()
+        e = float((k[fin].double() - p[fin].double()).abs().max())
+        if e > 1e-3:
+            raise AssertionError(f"{label}: {f} off by {e} in some window")
+        per_window = max(per_window, e)
+    k_tot = res.served.double().sum((0, 2))
+    p_tot = base.served.double().sum((0, 2))
+    rel = float(((k_tot - p_tot).abs() / p_tot.clamp_min(1.0)).max())
+    if rel > 1e-3:
+        raise AssertionError(f"{label}: horizon served per OST off by "
+                             f"{rel} relative")
+    same = {f: bool(torch.equal(getattr(res, f), getattr(base, f)))
+            for f in ("served", "demand", "alloc", "record", "queue_final")}
+    return per_window, rel, same
+
+
+def first_window_err(res, base):
+    """The largest difference of served, demand and record in window 0."""
+    return max(float((getattr(res, f)[0].double()
+                      - getattr(base, f)[0].double()).abs()
+                     .nan_to_num(0.0).max())
+               for f in ("served", "demand", "record"))
 
 
 def trace(torch, label, run, what=f"{N_WINDOWS} windows", top=8, focus=(),
@@ -1106,14 +1180,15 @@ def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
             (demand, demand, budget), state, rates_f), reps=20))
 
 
-def wide_tenant_inputs(scn, n_fleets):
-    """[F, O, J] nodes and volumes of F wide fleets: each fleet's own seeded
-    permutation of the fleet cell's jobs."""
+def wide_tenant_inputs(scn, n_fleets, o=O):
+    """[F, o, J] nodes and volumes of F wide fleets over the first o OSTs
+    of a fleet: each fleet's own seeded permutation of the fleet's jobs."""
+    j = scn.volume.shape[1]
     nodes, volume = [], []
     for f in range(n_fleets):
-        perm = np.random.default_rng(100 + f).permutation(J)
-        nodes.append(np.broadcast_to(scn.nodes[perm], (O, J)))
-        volume.append(scn.volume[:, perm])
+        perm = np.random.default_rng(100 + f).permutation(j)
+        nodes.append(np.broadcast_to(scn.nodes[perm], (o, j)))
+        volume.append(scn.volume[:o, perm])
     return np.stack(nodes), np.stack(volume)
 
 
@@ -1640,6 +1715,426 @@ def shard_print(group, world, labels, ranks, peak, rate, wall, card):
               f"rank); staged "
               f"through the host by the port: none ({group.split()[0]} "
               "takes the card's tensors)")
+
+
+# ------------------------------------------- rows over clusters (1, 2, 3h, 4)
+
+#: the wide cells: (label, O, J, windows run), 20 windows of trace each
+WIDE_CELLS = [("wide-16k", 256, 16384, N_WINDOWS), ("wide-64k", 64, 65536, 20)]
+#: the wide tenants: fleets of wide-16k's first OSTs, per-fleet codes (the
+#: default trio and one out of range)
+WIDE_TENANT_F, WIDE_TENANT_O, WIDE_TENANT_CODES = 4, 64, [0, 1, 2, 3]
+#: the wide kernel instances (16 lanes a thread, a cluster a row)
+WIDE_MARKERS = {"fleet_window": "fleet_window_kernelILi16ELb1EE",
+                "adaptbf_alloc": "adaptbf_alloc_kernelILi16ELb1EE",
+                "window_mega": "window_mega_kernelILi16ELi0ELb0ELb1EE"}
+
+
+def wide_build_summary(libs, n_sm):
+    """Phase 1 for rows over clusters: ptxas's registers, spills and static
+    shared memory of each fleet kernel's wide instance (one instance serves
+    clusters of 2, 4 and 8 blocks) and, for each cluster size, the dynamic
+    shared memory a block and the clusters resident on the card
+    (``cudaOccupancyMaxActiveClusters``).  Returns {kernel: {c: clusters}}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch import cluster_size
+    out = {}
+    for name, marker in WIDE_MARKERS.items():
+        regs, stores, loads, smem = ptxas_of(libs[name].with_suffix(".log"),
+                                             marker)
+        per_c, dyn = {}, 0
+        for j in (16384, 32768, 65536):
+            clusters, dyn = _build.occupancy(name, j)
+            if clusters < 1:
+                raise AssertionError(f"{name}: no cluster of "
+                                     f"{cluster_size(j)} fits the card")
+            per_c[cluster_size(j)] = clusters
+        out[name] = per_c
+        print(f"{name} over clusters (16 lanes a thread, a slice of up to "
+              f"8192 jobs a block): {regs} registers, {stores} B spill "
+              f"stores, {loads} B spill loads, {smem} B static + {dyn} B "
+              f"dynamic shared memory a block; clusters resident on the card "
+              + ", ".join(f"c={c}: {n} ({n * c} of {n_sm} SMs)"
+                          for c, n in per_c.items()))
+    return out
+
+
+def leaf_errs(torch, label, got, want, atol):
+    """The largest |got - want| over finite lanes of each pair; raises on a
+    finite-mask difference or an error past atol."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not torch.equal(g.isfinite(), w.isfinite()):
+            raise AssertionError(f"{label}: leaf {i} finite masks differ")
+        fin = w.isfinite()
+        e = float((g[fin].double() - w[fin].double()).abs().max()) \
+            if bool(fin.any()) else 0.0
+        if e > atol:
+            raise AssertionError(f"{label}: leaf {i} off by {e} > {atol}")
+        worst = max(worst, e)
+    return worst
+
+
+def check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, clusters):
+    """Phase 2 for rows over clusters: at the wide cells' widths (J=16384,
+    clusters of 2; J=65536, of 8), at O of 1 and one past a full wave of
+    clusters (each kernel's resident clusters + 1): B1 at W of 0, 1 and 10
+    (atol 1e-4; budgets of +inf and 0, backlog caps below the queue); B2
+    (allocations equal, record and remainder within 1e-3); B3 for each
+    built-in policy and coded dispatch (each code), one round and one round
+    with a fault row (every leaf within 1e-3, adaptbf's allocation equal).
+    Returns the largest error of each kernel."""
+    from repro_torch.core.policies import CodedPolicy, get_policy
+    from repro_torch.kernels.dispatch import cluster_size
+    from repro_torch.storage import DEFAULT_CODED_POLICIES, FLEET_CONTROL_CODES
+    worst = {"fleet_window": 0.0, "adaptbf_alloc": 0.0, "window_mega": 0.0}
+    cases = [(name, get_policy(name), None) for name in
+             ("adaptbf", "static", "nobw", "static_wc", "aimd")]
+    cases += [(f"coded[{name}]", CodedPolicy(DEFAULT_CODED_POLICIES), code)
+              for name, code in FLEET_CONTROL_CODES.items()]
+    for j in (16384, 65536):
+        c = cluster_size(j)
+        for name in worst:
+            o_wave = clusters[name][c] + 1
+            for o in (1, o_wave):
+                if name == "fleet_window":
+                    for w in (0, 1, W):
+                        queue, vol, budget, rates, backlog, cap = window_case(
+                            o, j, w, seed=o + j + w)
+                        budget[:, ::7] = 0.0
+                        backlog[:, ::5] = queue[:, ::5] * 0.5
+                        args = [torch.as_tensor(x, device=dev) for x in
+                                (queue, vol, budget, rates, backlog, cap)]
+                        e = leaf_errs(torch, f"fleet_window O={o} J={j} W={w}",
+                                      fw_ops.fleet_window_serve(*args),
+                                      fw_ops.fleet_window_ref(*args), 1e-4)
+                        worst[name] = max(worst[name], e)
+                elif name == "adaptbf_alloc":
+                    host = list(alloc_case(o, j, seed=o * 7 + j))
+                    host[3] = (np.random.default_rng(o).random((o, j)) - 0.5
+                               ).astype(np.float32)
+                    args = [torch.as_tensor(x, device=dev) for x in host]
+                    got = alloc_ops.fleet_alloc(*args)
+                    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+                    if not torch.equal(got[0], want[0]):
+                        raise AssertionError(f"adaptbf_alloc O={o} J={j}: "
+                                             "allocations differ")
+                    worst[name] = max(worst[name], leaf_errs(
+                        torch, f"adaptbf_alloc O={o} J={j}", got[1:], want[1:],
+                        1e-3))
+                else:
+                    for k, (label, policy, code) in enumerate(cases):
+                        e = check_mega_case(
+                            torch, mega_ops, policy, code, o, j, seed=400 + k,
+                            dev=dev, label=f"window_mega {label} O={o} J={j}",
+                            exact=label == "adaptbf")
+                        worst[name] = max(worst[name], e)
+            print(f"{name} over clusters of {c} vs plain at J={j}, O of 1 and "
+                  f"{o_wave} (one past a full wave of clusters)"
+                  + (", W of 0, 1 and 10" if name == "fleet_window" else "")
+                  + (", every policy case, a fault round" if name ==
+                     "window_mega" else "")
+                  + f": max |err| {worst[name]}")
+    return worst
+
+
+def check_mega_case(torch, mega_ops, policy, code, o, j, seed, dev, label,
+                    exact):
+    """One megakernel round of ``policy`` (``mega_case``'s running fleet at
+    O=o, J=j) and one with a fault row (OST 0 loses telemetry, the last OST
+    is down), each against the plain round: every leaf within 1e-3 with
+    equal finite masks, the next allocation equal when ``exact``.  Returns
+    the largest error."""
+    inputs, rng = mega_case(torch, policy, o, j, W, seed=seed, dev=dev,
+                            code=code)
+    ctx, cap_tick, backlog, queue, vol, alloc, held, pstate = inputs
+    up = torch.ones(o, device=dev)
+    up[-1] = 0.0 if o > 1 else 1.0
+    telem = torch.ones(o, device=dev)
+    telem[0] = 0.0
+    worst = 0.0
+    for r in range(2):
+        rates = torch.as_tensor(
+            rng.integers(0, 4, (W, o, j)).astype(np.float32), device=dev)
+        faults = ()
+        args = (policy, ctx, cap_tick, backlog, queue, vol, alloc, held,
+                pstate, rates)
+        if r == 1:
+            cap_r = cap_tick * up
+            args = (policy, ctx._replace(cap_w=cap_r * W), cap_r, backlog,
+                    queue, vol, alloc, held, pstate, rates * up[None, :, None])
+            faults = (telem, up)
+        got = mega_ops.mega_window_round(*args, *faults)
+        want = mega_ops.ref.mega_round_ref(*args, *faults)
+        if exact and not torch.equal(got[8], want[8]):
+            raise AssertionError(f"{label} round {r}: allocations differ")
+        flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+        worst = max(worst, leaf_errs(torch, f"{label} round {r}", flat(got),
+                                     flat(want), 1e-3))
+        queue, vol = want[0], want[1]
+        held, pstate, alloc = tuple(want[4:7]), want[7], want[8]
+    return worst
+
+
+def wide_fleet(torch, dev, o, j):
+    """A wide cell's fleet on the card: ``random_fleet(0, n_ost=o,
+    n_jobs=j, "mixed", 2.0 s)``."""
+    from repro_torch.storage import random_fleet
+    t0 = time.perf_counter()
+    scn = random_fleet(0, n_ost=o, n_jobs=j, profile="mixed", duration_s=2.0)
+    inputs = dict(nodes=torch.as_tensor(scn.nodes, device=dev),
+                  rates=torch.as_tensor(scn.issue_rate, device=dev),
+                  volume=torch.as_tensor(scn.volume, device=dev),
+                  cap=torch.as_tensor(scn.capacity_per_tick, device=dev),
+                  backlog=torch.as_tensor(scn.max_backlog, device=dev))
+    inputs["trace_windows"] = scn.issue_rate.shape[0] // W
+    print(f"wide fleet: random_fleet(0, n_ost={o}, n_jobs={j}, mixed, 2.0 s) "
+          f"built in {time.perf_counter() - t0:.1f} s; rates "
+          f"{scn.issue_rate.shape}, {scn.issue_rate.nbytes / 1e6:.0f} MB")
+    return scn, inputs
+
+
+def wide_phase(torch, dev, counts, zero_counts, names, card):
+    """Phase 3h: the main path over clusters.  wide-16k (256 x 16384,
+    clusters of 2; 20 windows of trace tiled to 60): fused/pallas against
+    plain scan/core on the card, mega against fused/pallas (the main
+    cell's comparisons: first window within 1e-3, alloc and record in
+    every window within 1e-3, horizon service per OST within 1e-3
+    relative, the invariants), coded (AdapTBF's code) equal to mega
+    bitwise, streaming mega's queue_final equal to its trajectory run's,
+    and 4 fleets of its first 64 OSTs under mega/pallas with per-fleet
+    codes, each fleet bitwise its own ``simulate_fleet`` run.  wide-64k
+    (64 x 65536, clusters of 8; 20 windows): fused/pallas against plain,
+    mega against fused/pallas.  Every run's launch counters: B1 and B2
+    once a window, or B3 once a window (a distinct code).  Windows/s of
+    fused/pallas and mega (median of 3 runs) and of the plain run.
+    Returns {cell: numbers} for phase 4 and the kernel line."""
+    from repro_torch.storage import (FLEET_CONTROL_CODES, FleetConfig,
+                                     simulate_fleet, simulate_tenants)
+    from repro_torch.kernels.dispatch import cluster_size
+    t_phase = time.perf_counter()
+    out = {}
+    for label, o, j, n_win in WIDE_CELLS:
+        scn, inputs = wide_fleet(torch, dev, o, j)
+        cap_w = inputs["cap"].double() * W
+        c = cluster_size(j)
+
+        def run(serve, alloc, control="adaptbf", code=None,
+                telemetry="trajectory"):
+            return fleet_run(torch, dev, inputs, serve, alloc, control, code,
+                             telemetry, n_win)
+
+        def counted(what, want, *config, **kw):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = run(*config, **kw)
+            secs = time.perf_counter() - t0
+            got = counts()
+            want = {name: want.get(name, 0) for name in names}
+            if got != want:
+                raise AssertionError(f"{label} {what}: launches {got}, "
+                                     f"expected {want}")
+            return res, got, secs
+
+        fused_want = {"fleet_window": n_win, "adaptbf_alloc": n_win}
+        mega_want = {"window_mega": n_win}
+        fused, fused_launches, _ = counted("fused/pallas", fused_want,
+                                           "fused", "pallas")
+        t0 = time.perf_counter()
+        plain = run("scan", "core")
+        plain_secs = time.perf_counter() - t0
+        check_main_path(torch, f"{label} fused/pallas", fused, inputs, cap_w,
+                        n_win)
+        check_main_path(torch, f"{label} scan/core", plain, inputs, cap_w,
+                        n_win)
+        first = first_window_err(fused, plain)
+        if first > 1e-3:
+            raise AssertionError(f"{label}: first window off by {first}")
+        per_window, rel, same = compare_runs(
+            torch, f"{label}: fused/pallas vs scan/core", fused, plain)
+        print(f"{label} (O={o} J={j}, clusters of {c}), {n_win} windows: "
+              f"fused/pallas launches {fused_launches}; vs plain scan/core: "
+              f"first window max |err| {first}; alloc/record max |err| "
+              f"{per_window}; horizon served per OST max rel err {rel}; "
+              f"bitwise equal: {same}; invariants hold on both")
+        del plain
+        mega, mega_launches, _ = counted("mega", mega_want, "mega", "core")
+        check_main_path(torch, f"{label} mega", mega, inputs, cap_w, n_win)
+        per_window, rel, same = compare_runs(
+            torch, f"{label}: mega vs fused/pallas", mega, fused)
+        print(f"{label}: mega launches {mega_launches}; vs fused/pallas: "
+              f"alloc/record max |err| {per_window}; horizon served per OST "
+              f"max rel err {rel}; bitwise equal: {same}; invariants hold")
+        del fused
+        if label == "wide-16k":
+            code = FLEET_CONTROL_CODES["adaptbf"]
+            coded, _, _ = counted(f"coded, code {code}", mega_want, "mega",
+                                  "core", "coded", code)
+            for f in ("served", "demand", "alloc", "record", "queue_final"):
+                if not torch.equal(getattr(coded, f), getattr(mega, f)):
+                    raise AssertionError(f"{label}: coded (code {code}) "
+                                         f"differs from direct in {f}")
+            del coded
+            stream, _, _ = counted("mega, streaming", mega_want, "mega",
+                                   "core", telemetry="streaming")
+            if not torch.equal(stream.queue_final, mega.queue_final):
+                raise AssertionError(f"{label}: streaming mega's queue_final "
+                                     "differs from the trajectory run's")
+            if int(stream.stats.windows) != n_win:
+                raise AssertionError(f"{label}: stats.windows "
+                                     f"{int(stream.stats.windows)}")
+            del stream
+            print(f"{label}: coded (code {code}) under mega bitwise equal to "
+                  f"direct adaptbf in served, demand, alloc, record, "
+                  f"queue_final; streaming mega's queue_final equal to its "
+                  f"trajectory run's, stats.windows {n_win}")
+            # tenants: fleets of the first OSTs, per-fleet codes
+            t_nodes, t_volume = (torch.as_tensor(x, device=dev) for x in
+                                 wide_tenant_inputs(scn, WIDE_TENANT_F,
+                                                    WIDE_TENANT_O))
+            sub = slice(0, WIDE_TENANT_O)
+            t_rates = inputs["rates"][:, sub].contiguous()
+            t_cap, t_backlog = inputs["cap"][sub], inputs["backlog"][sub]
+            cfg = FleetConfig(control="coded", serve_backend="mega",
+                              alloc_backend="pallas")
+            codes = WIDE_TENANT_CODES
+            zero_counts()
+            batched = simulate_tenants(cfg, t_nodes, t_rates, t_volume, t_cap,
+                                       t_backlog, control_code=codes,
+                                       n_windows=n_win, device=dev)
+            torch.cuda.synchronize()
+            got = counts()
+            want = {name: 0 for name in names}
+            want["window_mega"] = n_win * len(set(codes))
+            if got != want:
+                raise AssertionError(f"{label} tenants: launches {got}")
+            for f, code_f in enumerate(codes):
+                one = simulate_fleet(cfg, t_nodes[f], t_rates, t_volume[f],
+                                     t_cap, t_backlog, control_code=code_f,
+                                     n_windows=n_win, device=dev)
+                tenant_leaves_equal(torch, batched, one, f, label)
+            print(f"{label} tenants: {WIDE_TENANT_F} fleets x O="
+                  f"{WIDE_TENANT_O} x J={j} under mega/pallas, codes {codes}, "
+                  f"{n_win} windows: launches {got}; every fleet bitwise "
+                  f"equal to its own simulate_fleet run")
+            del batched, one, t_nodes, t_volume, t_rates
+        del mega
+        rates = {}
+        for key, serve, alloc in (("fused/pallas", "fused", "pallas"),
+                                  ("mega/core", "mega", "core")):
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(serve, alloc)
+                secs.append(time.perf_counter() - t0)
+            rates[key] = n_win / statistics.median(secs)
+        rates["scan/core"] = n_win / plain_secs
+        print(f"{label} windows/s on {card} (kernel paths: median of 3 runs; "
+              "plain: its one run): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+        launches = {**fused_launches,
+                    "window_mega": mega_launches["window_mega"]}
+        out[label] = dict(o=o, j=j, c=c, windows=n_win, rates=rates,
+                          launches=launches)
+        del inputs, scn
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
+                      clusters, n_sm):
+    """Phase 4 at the wide cells' shapes: B1, B2 and B3 (adaptbf) on one
+    window's seeded fixtures (``window_case``, ``alloc_case``,
+    ``mega_case``) against their plain versions (max |err|), timed (CUDA
+    events, 20 launches, median of 5; plain: 3 of 3) beside their bounds.
+    Then what a cluster reduction costs against a block's: B1 with W=50
+    ticks (two reductions a tick) at J=8192 on c * n rows (one block a
+    row) and at J=8192 c on n rows (clusters of c), the same blocks of the
+    same lanes in one wave (n clusters resident at once, c * n SMs at
+    most), for c of 2 and 8.  Fills ``wide[cell]``."""
+    from repro_torch.core.policies import get_policy
+    for label, o, j, _ in WIDE_CELLS:
+        host = window_case(o, j, W, seed=11)
+        fw_args = [torch.as_tensor(x, device=dev) for x in host]
+        host = alloc_case(o, j, seed=97, cap=50000.0)
+        al_args = [torch.as_tensor(x, device=dev) for x in host]
+        m_in, rng = mega_case(torch, get_policy("adaptbf"), o, j, W, seed=300,
+                              dev=dev)
+        ctx, cap_tick, backlog, queue, vol, alloc, held, pstate = m_in
+        rates = torch.as_tensor(rng.integers(0, 3, (W, o, j)).astype(
+            np.float32), device=dev)
+        mega_args = (get_policy("adaptbf"), ctx, cap_tick, backlog, queue, vol,
+                     alloc, held, pstate, rates)
+        got = alloc_ops.fleet_alloc(*al_args)
+        want = alloc_ops.fleet_alloc_ref(*al_args)[:3]
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{label}: adaptbf_alloc allocations differ")
+        mgot = mega_ops.mega_window_round(*mega_args)
+        mwant = mega_ops.ref.mega_round_ref(*mega_args)
+        if not torch.equal(mgot[8], mwant[8]):
+            raise AssertionError(f"{label}: window_mega allocations differ")
+        flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+        errs = {
+            "fleet_window": leaf_errs(torch, f"{label} fleet_window",
+                                      fw_ops.fleet_window_serve(*fw_args),
+                                      fw_ops.fleet_window_ref(*fw_args), 1e-4),
+            "adaptbf_alloc": leaf_errs(torch, f"{label} adaptbf_alloc",
+                                       got[1:], want[1:], 1e-3),
+            "window_mega": leaf_errs(torch, f"{label} window_mega",
+                                     flat(mgot), flat(mwant), 1e-3)}
+        del got, want, mgot, mwant
+        times = {
+            "fleet_window": (
+                cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20),
+                cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
+                        groups=3), bound_ms(*window_work(o, j, W))),
+            "adaptbf_alloc": (
+                cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20),
+                cuda_ms(lambda: alloc_ops.fleet_alloc_ref(*al_args), reps=3,
+                        groups=3), bound_ms(*alloc_work(o, j))),
+            "window_mega": (
+                cuda_ms(lambda: mega_ops.mega_window_round(*mega_args),
+                        reps=20),
+                cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
+                        reps=3, groups=3), bound_ms(*mega_work(o, j, W)))}
+        wide[label]["kernels"] = {name: dict(
+            ms=t[0], plain_ms=t[1], bound_ms=t[2][0], bound_by=t[2][1],
+            max_abs_err=errs[name]) for name, t in times.items()}
+        print(f"kernel times at {label} (O={o} J={j} W={W}, clusters of "
+              f"{wide[label]['c']}) on {card}: "
+              + "; ".join(f"{name} {t[0]:.4f} ms (plain {t[1]:.4f} ms, bound "
+                          f"{t[2][0]:.4f} ms by {t[2][1]}; max |err| "
+                          f"{errs[name]})" for name, t in times.items()))
+        del fw_args, al_args, mega_args, m_in, rates
+    # a cluster reduction against a block's: the same 16-lane blocks
+    ticks, cost = 50, {}
+    for c in (2, 8):
+        n = min(clusters["fleet_window"][c], n_sm // c)
+        one = [torch.as_tensor(x, device=dev)
+               for x in window_case(c * n, 8192, ticks, seed=5)]
+        wide_in = [torch.as_tensor(x, device=dev)
+                   for x in window_case(n, 8192 * c, ticks, seed=5)]
+        t1 = cuda_ms(lambda: fw_ops.fleet_window_serve(*one), reps=20)
+        tc = cuda_ms(lambda: fw_ops.fleet_window_serve(*wide_in), reps=20)
+        cost[c] = (t1, tc, (tc - t1) * 1e3 / (2 * ticks), n)
+        del one, wide_in
+    wide["reduction_cost"] = cost
+    print(f"a cluster reduction against a block reduction on {card} "
+          f"(fleet_window, W={ticks}, {2 * ticks} reductions a launch, the "
+          "same blocks of 8192 lanes in one wave): "
+          + "; ".join(f"c={c}, {cost[c][3]} clusters: {cost[c][0]:.4f} ms "
+                      f"one block a row, {cost[c][1]:.4f} ms clusters of {c}, "
+                      f"{cost[c][2]:.3f} us a reduction more"
+                      for c in cost))
+
+
+def wide_entry(wide, name):
+    """A fleet kernel's numbers at the wide cells for the kernel line."""
+    return {"wide": {label: {"cluster": wide[label]["c"],
+                             "launches": wide[label]["launches"][name],
+                             **wide[label]["kernels"][name]}
+                     for label, *_ in WIDE_CELLS}}
 
 
 # ------------------------------------------------------- the LM serving path
@@ -3105,8 +3600,7 @@ def main() -> int:
     from repro_torch.kernels.fleet_window import ops as fw_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.window_mega import ops as mega_ops
-    from repro_torch.storage import (
-        FLEET_CONTROL_CODES, FleetConfig, random_fleet, simulate_fleet)
+    from repro_torch.storage import FLEET_CONTROL_CODES, random_fleet
 
     dev = torch.device(DEVICE)
     card = _smi()
@@ -3189,9 +3683,9 @@ def main() -> int:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     occupancy = {}
     for name, marker in (
-            ("fleet_window", "fleet_window_kernelILi8EE"),
-            ("adaptbf_alloc", "adaptbf_alloc_kernelILi8EE"),
-            ("window_mega", "window_mega_kernelILi8ELi0ELb0EE")):
+            ("fleet_window", "fleet_window_kernelILi8ELb0EE"),
+            ("adaptbf_alloc", "adaptbf_alloc_kernelILi8ELb0EE"),
+            ("window_mega", "window_mega_kernelILi8ELi0ELb0ELb0EE")):
         regs, stores, loads, smem = ptxas_of(
             libs[name].with_suffix(".log"), marker)
         blocks, dyn = _build.occupancy(name, J)
@@ -3201,6 +3695,7 @@ def main() -> int:
               f"static + {dyn} B dynamic shared memory a block; {blocks} "
               f"blocks an SM, {blocks * n_sm} rows a wave on {n_sm} SMs "
               f"(O={O}: {-(-O // max(blocks * n_sm, 1))} wave(s))")
+    clusters = wide_build_summary(libs, n_sm)
 
     # the bfloat16 SSD backward's kernels at the training shape (N = 64)
     for kernel, entry in (("ssd_bwd_walk_tcILi64E", "ssd_bwd_walk_occupancy"),
@@ -3227,6 +3722,8 @@ def main() -> int:
     mega_args, mega_err = check_mega_kernel(torch, mega_ops, dev)
     stress_err = check_alloc_stress(torch, alloc_ops, mega_ops, dev)
     al_err, mega_err = max(al_err, stress_err), max(mega_err, stress_err)
+    wide_err = check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev,
+                                  clusters)
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
     fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
@@ -3251,15 +3748,8 @@ def main() -> int:
 
     def run(serve, alloc, control="adaptbf", code=None,
             telemetry="trajectory", n_windows=N_WINDOWS, fault_plan=None):
-        cfg = FleetConfig(control=control, serve_backend=serve,
-                          alloc_backend=alloc, telemetry=telemetry)
-        res = simulate_fleet(cfg, inputs["nodes"], inputs["rates"],
-                             inputs["volume"], inputs["cap"],
-                             inputs["backlog"], control_code=code,
-                             n_windows=n_windows, fault_plan=fault_plan,
-                             device=dev)
-        torch.cuda.synchronize()
-        return res
+        return fleet_run(torch, dev, inputs, serve, alloc, control, code,
+                         telemetry, n_windows, fault_plan)
 
     def counted(label, want, *config, **kw):
         """One run with every launch counter set to 0 just before it and
@@ -3275,31 +3765,7 @@ def main() -> int:
         return res, got
 
     def compare(label, res, base):
-        """alloc and record in every window within atol 1e-3 (unruled masks
-        equal), per-OST horizon service within 1e-3 relative, and which
-        fields are bitwise equal; held while the closed loop has not forked
-        (on this fleet it has not: the kernel paths agree bitwise)."""
-        per_window = 0.0
-        for f in ("alloc", "record"):
-            k, p = getattr(res, f), getattr(base, f)
-            if not torch.equal(k.isinf(), p.isinf()):
-                raise AssertionError(f"{label}: {f} unruled masks differ")
-            fin = k.isfinite()
-            e = float((k[fin].double() - p[fin].double()).abs().max())
-            if e > 1e-3:
-                raise AssertionError(f"{label}: {f} off by {e} in some "
-                                     "window")
-            per_window = max(per_window, e)
-        k_tot = res.served.double().sum((0, 2))
-        p_tot = base.served.double().sum((0, 2))
-        rel = float(((k_tot - p_tot).abs() / p_tot.clamp_min(1.0)).max())
-        if rel > 1e-3:
-            raise AssertionError(f"{label}: horizon served per OST off by "
-                                 f"{rel} relative")
-        same = {f: bool(torch.equal(getattr(res, f), getattr(base, f)))
-                for f in ("served", "demand", "alloc", "record",
-                          "queue_final")}
-        return per_window, rel, same
+        return compare_runs(torch, label, res, base)
 
     kernel_res, launches = counted(
         "fused, pallas", {"fleet_window": N_WINDOWS,
@@ -3308,9 +3774,7 @@ def main() -> int:
     plain_res = run("scan", "core")
     check_main_path(torch, "fused/pallas", kernel_res, inputs, cap_w)
     check_main_path(torch, "scan/core", plain_res, inputs, cap_w)
-    first = max(float((getattr(kernel_res, f)[0].double()
-                       - getattr(plain_res, f)[0].double()).abs().nan_to_num(0.0).max())
-                for f in ("served", "demand", "record"))
+    first = first_window_err(kernel_res, plain_res)
     if first > 1e-3:
         raise AssertionError(f"first window: kernel path off by {first}")
     per_window, rel, same = compare("fused/pallas vs scan/core", kernel_res,
@@ -3381,6 +3845,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("3g MoE, frontends")
+    # 3h. the fleet main path on rows over clusters: wide-16k, wide-64k ---
+    wide = wide_phase(torch, dev, counts, zero_counts, names, card)
+
+    lap("3h rows over clusters")
     # 4. times -----------------------------------------------------------
     fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
     fw_plain = cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
@@ -3516,6 +3984,11 @@ def main() -> int:
           f"{lm['engine_answered']}/{SERVE['requests']} requests answered; "
           f"peak device memory {lm['prefill_peak_gib']:.2f} GiB over the "
           f"prefill runs, {lm['peak_gib']:.2f} GiB over the engine runs")
+    time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
+                      clusters, n_sm)
+    for label, *_ in WIDE_CELLS:
+        for name, k in wide[label]["kernels"].items():
+            k["max_abs_err"] = max(k["max_abs_err"], wide_err[name])
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -3567,7 +4040,8 @@ def main() -> int:
          "bound_by": fw_by, "library_ms": None,
          "blocks_per_sm": occupancy["fleet_window"],
          **tenant_entry(tenants, "fleet_window", 0),
-         "shard_launches_per_rank": shards["fleet_window"]},
+         "shard_launches_per_rank": shards["fleet_window"],
+         **wide_entry(wide, "fleet_window")},
         {"name": "adaptbf_alloc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/adaptbf_alloc.cu",
          "replaces": "src/repro/kernels/adaptbf_alloc/kernel.py:135",
@@ -3576,7 +4050,8 @@ def main() -> int:
          "bound_by": al_by, "library_ms": None,
          "blocks_per_sm": occupancy["adaptbf_alloc"],
          **tenant_entry(tenants, "adaptbf_alloc", 1),
-         "shard_launches_per_rank": shards["adaptbf_alloc"]},
+         "shard_launches_per_rank": shards["adaptbf_alloc"],
+         **wide_entry(wide, "adaptbf_alloc")},
         {"name": "window_mega", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_mega.cu",
          "replaces": "src/repro/kernels/window_mega/kernel.py:168",
@@ -3585,7 +4060,8 @@ def main() -> int:
          "bound_by": mega_by, "library_ms": None,
          "blocks_per_sm": occupancy["window_mega"],
          **tenant_entry(tenants, "window_mega", 2),
-         "shard_launches_per_rank": shards["window_mega"]},
+         "shard_launches_per_rank": shards["window_mega"],
+         **wide_entry(wide, "window_mega")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:79",

@@ -4,6 +4,12 @@
 in this package it names the hand-written CUDA kernel
 ``kernels/csrc/adaptbf_alloc.cu``.  CUDA tensors launch it; CPU tensors take
 the plain version (``ref.py``); anything else raises.
+
+On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs: rows of
+up to 8192 run on one thread block, wider rows on a thread-block cluster of
+2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row raises
+``ValueError`` before any launch; CPU tensors run the plain version at any
+width.
 """
 from __future__ import annotations
 
@@ -13,7 +19,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.adaptbf_alloc import ref
-from repro_torch.kernels.dispatch import MAX_JOBS, check_f32, route
+from repro_torch.kernels.dispatch import (
+    check_f32,
+    cluster_size,
+    route,
+)
 
 #: kernel launches made by ``fleet_alloc`` (never by the plain version)
 launches = 0
@@ -27,7 +37,7 @@ def fleet_alloc(demand, nodes, record, remainder, alloc_prev, capacity,
     """[O, J] tensors + [O] capacity -> (alloc, new_record, new_remainder).
 
     Integer tokens only, like the reference kernel.  On the card every input
-    must be a contiguous float32 CUDA tensor and J <= ``MAX_JOBS``.
+    must be a contiguous float32 CUDA tensor and J <= ``dispatch.MAX_JOBS``.
     ``interpret`` is accepted for the reference's signature and ignored:
     the tensors' device picks the kernel or the plain version."""
     global launches
@@ -35,9 +45,7 @@ def fleet_alloc(demand, nodes, record, remainder, alloc_prev, capacity,
     if not route(*ins, capacity):
         return ref.fleet_alloc_ref(*ins, capacity, u_max=u_max)[:3]
     o, j = demand.shape
-    if j > MAX_JOBS:
-        raise ValueError(f"the allocation kernel takes at most {MAX_JOBS} "
-                         f"jobs per row, got {j}")
+    cluster_size(j)   # raises past MAX_JOBS
     for name, x in zip(("demand", "nodes", "record", "remainder",
                         "alloc_prev"), ins):
         check_f32(name, x, (o, j))

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.core.adaptbf import fleet_allocate
 from repro_torch.core.state import AllocatorState
+from repro_torch.kernels.dispatch import cluster_size
 
 
 def fleet_alloc_ref(demand, nodes, record, remainder, alloc_prev, capacity,
@@ -26,7 +27,11 @@ def fleet_alloc_ref(demand, nodes, record, remainder, alloc_prev, capacity,
 # written digit by digit as the kernel runs them, so that the CPU tests can
 # hold them bitwise against ``core/remainder.py`` and the reference's
 # ``repro.core.remainder``.  Nothing on the main path calls them.
-# Rows are [R, J] float32; a row is one thread block's row.
+# Rows are [R, J] float32.  A row runs on ``blocks`` thread blocks (default:
+# the kernels' rule, ``dispatch.cluster_size``), block q counting the slice
+# of S = ceil(J / blocks) lanes from q * S, as a cluster runs it: the
+# searches sum the slices' counts in rank order, and a tied lane's index
+# rank adds the tied lanes of the lower slices.
 
 _U32 = 0xFFFFFFFF
 
@@ -40,7 +45,15 @@ def _order_u32(key: torch.Tensor) -> torch.Tensor:
     return (ordv & _U32) ^ 0x80000000
 
 
-def topk_mask_radix(key: torch.Tensor, k) -> torch.Tensor:
+def _slices(j: int, blocks=None):
+    """The [start, stop) lane ranges of a row's blocks, in rank order."""
+    blocks = cluster_size(j) if blocks is None else blocks
+    size = -(-j // blocks)
+    return [(q * size, min(q * size + size, j)) for q in range(blocks)
+            if q * size < j]
+
+
+def topk_mask_radix(key: torch.Tensor, k, blocks=None) -> torch.Tensor:
     """Membership of the k largest keys of each row, ties to the lowest
     index, found as the kernel finds it: k <= 0 selects nothing and k >= J
     every lane; otherwise up to four passes over an 8-bit digit of the
@@ -49,9 +62,13 @@ def topk_mask_radix(key: torch.Tensor, k) -> torch.Tensor:
     krem <= count(digit >= d)) and the rank left below it follow; a pass
     whose digit group holds exactly krem lanes selects that group and
     stops; after four passes the krem lowest-index lanes equal to the
-    threshold are selected by a prefix count.  key [R, J], k [R] ints."""
+    threshold are selected by a prefix count.  key [R, J], k [R] ints;
+    each histogram is the sum of the row's blocks' (``_slices``), and the
+    prefix count runs slice by slice, each slice's offset the tied lanes of
+    the slices before it."""
     u = _order_u32(key.to(torch.float32))
     rows, j = u.shape
+    slices = _slices(j, blocks)
     ks = torch.as_tensor(k).reshape(-1).expand(rows).tolist()
     sel = torch.zeros((rows, j), dtype=torch.bool)
     for r, kr in enumerate(ks):
@@ -64,8 +81,11 @@ def topk_mask_radix(key: torch.Tensor, k) -> torch.Tensor:
         for pas in range(4):
             shift = 24 - 8 * pas
             hi = 0 if pas == 0 else (_U32 << (shift + 8)) & _U32
-            group = (ur & hi) == pre
-            hist = torch.bincount((ur[group] >> shift) & 255, minlength=256)
+            hist = torch.zeros(256, dtype=torch.int64)
+            for a, b in slices:
+                us = ur[a:b]
+                hist += torch.bincount((us[(us & hi) == pre] >> shift) & 255,
+                                       minlength=256)
             at_least = hist.flip(0).cumsum(0).flip(0)   # count(digit >= d)
             above = at_least - hist
             d = int(((above < krem) & (krem <= at_least)).nonzero()[0])
@@ -76,27 +96,35 @@ def topk_mask_radix(key: torch.Tensor, k) -> torch.Tensor:
                 break
         else:
             tied = ur == pre
-            rank = torch.cumsum(tied.to(torch.int64), 0) - 1
+            rank = torch.empty(j, dtype=torch.int64)
+            lower = 0   # tied lanes of the lower slices
+            for a, b in slices:
+                within = torch.cumsum(tied[a:b].to(torch.int64), 0)
+                rank[a:b] = lower + within - 1
+                lower += int(within[-1])
             sel[r] = (ur > pre) | (tied & (rank < krem))
     return sel
 
 
-def excess_rounds(floored: torch.Tensor, d_dn: torch.Tensor):
+def excess_rounds(floored: torch.Tensor, d_dn: torch.Tensor, blocks=None):
     """The excess descent as the kernel runs it: p, the largest r < 2^25
     with g(r) = sum_j min(floored_j, r) <= d_dn, and g(p) as float32, in 5
     passes that evaluate g at the 32 candidates p + c 2^shift (c = 0..31,
     shift = 20, 15, ..., 0) as exact integer sums rounded once to float32.
     floored [R, J] integer-valued float32 >= 0 (0 off the mask); d_dn [R]
-    float32.  Returns (p [R] int64, g_p [R] float32)."""
+    float32; g sums the row's blocks' partials (``_slices``) in rank order.
+    Returns (p [R] int64, g_p [R] float32)."""
     f = torch.clamp_max(floored.to(torch.float32), 2.0**25).to(torch.int64)
     rows = f.shape[0]
+    slices = _slices(f.shape[1], blocks)
     p = torch.zeros(rows, dtype=torch.int64)
     g_p = torch.zeros(rows, dtype=torch.float32)
     c = torch.arange(32, dtype=torch.int64)
     for pas in range(5):
         shift = 20 - 5 * pas
         cand = p[:, None] + (c << shift)[None, :]                     # [R, 32]
-        g = torch.minimum(f[:, :, None], cand[:, None, :]).sum(1)     # exact
+        g = sum(torch.minimum(f[:, a:b, None], cand[:, None, :]).sum(1)
+                for a, b in slices)                                   # exact
         gf = g.to(torch.float32)
         best = (gf <= d_dn.reshape(-1, 1)).sum(1) - 1   # g is nondecreasing in c
         g_p = gf.gather(1, best[:, None])[:, 0]
@@ -104,9 +132,10 @@ def excess_rounds(floored: torch.Tensor, d_dn: torch.Tensor):
     return p, g_p
 
 
-def integerize_model(raw, remainder, budget, mask):
+def integerize_model(raw, remainder, budget, mask, blocks=None):
     """``core/remainder.py::integerize`` with the kernel's searches in place
-    of the bit descent and the sort: rows [R, J], budget [R] or [R, 1]."""
+    of the bit descent and the sort: rows [R, J], budget [R] or [R, 1],
+    each row over ``blocks`` blocks (``_slices``)."""
     budget = torch.as_tensor(budget, dtype=torch.float32).reshape(-1, 1)
     zero = torch.zeros_like(raw)
     x = torch.where(mask, raw + remainder, zero)
@@ -120,7 +149,8 @@ def integerize_model(raw, remainder, budget, mask):
     q = torch.div(d_up, torch.clamp_min(n_masked, 1), rounding_mode="floor")
     k_up = d_up - q * n_masked
     d_dn = torch.clamp_min(-delta, 0.0)
-    p, g_p = excess_rounds(torch.where(mask, floored, zero), d_dn[:, 0])
+    p, g_p = excess_rounds(torch.where(mask, floored, zero), d_dn[:, 0],
+                           blocks)
     # rows that do not overshoot never run the descent (p = 0, g(p) = 0)
     down = delta[:, 0] < 0
     p = torch.where(down, p, torch.zeros_like(p))
@@ -132,7 +162,7 @@ def integerize_model(raw, remainder, budget, mask):
     neg_inf = torch.full_like(raw, -torch.inf)
     key = torch.where(is_up, torch.where(mask, rem, neg_inf),
                       torch.where(elig, rem, neg_inf))
-    sel = topk_mask_radix(key, torch.where(is_up, k_up, k_dn)[:, 0])
+    sel = topk_mask_radix(key, torch.where(is_up, k_up, k_dn)[:, 0], blocks)
     bump_up = q.to(torch.float32) * mask.to(torch.float32) + (sel & mask).to(
         torch.float32)
     bump_dn = torch.minimum(torch.where(mask, floored, zero), p_f) + (

@@ -34,6 +34,12 @@
 // ptxas's registers and spills: PERF.md.  Rows wider than 4096 run one
 // block an SM.
 //
+// Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
+// c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>), each block the
+// round over its slice with the cluster's reductions and searches
+// (alloc_round.cuh); one block an SM at 16 lanes a thread.  Rows of
+// J <= 8192 run the one-block case, unchanged.
+//
 // A batch of F independent fleets (storage/tenants.py) is F * O rows of one
 // launch: the round reads no rates and nothing of a row's place, so a row
 // gives the same bits launched alone or in a batch.
@@ -55,7 +61,7 @@ __host__ __device__ constexpr int smem_bytes() {
   return SmemRound<LPT>::BYTES + LPT * THREADS * 4;
 }
 
-template <int LPT>
+template <int LPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, LPT <= 8 ? 2 : 1)
 adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      const float* __restrict__ nodes_g,
@@ -68,56 +74,72 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      float* __restrict__ remainder_out,
                      int n_jobs, float u_max) {
   __shared__ Scratch s;
-  Red r{&s, 0};
+  RowBlock<WIDE> rb(s, n_jobs);
   search_init(s);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n_jobs;
+  const int n = rb.n;  // this block's lanes, from lane rb.first of the row
+  const size_t row = static_cast<size_t>(rb.index()) * n_jobs + rb.first;
 
   SmemLanes<LPT, SmemRound<LPT>::ARRAYS> demand;  // after the round's
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
-    demand[i] = j < n_jobs ? demand_g[row + j] : 0.0f;
+    demand[i] = j < n ? demand_g[row + j] : 0.0f;
   }
   adaptbf_round<LPT>(demand, nodes_g + row, record_g + row,
-                     remainder_g + row, prev_g + row, cap_g[blockIdx.x],
-                     u_max, /*integer_tokens=*/true, n_jobs, r,
+                     remainder_g + row, prev_g + row, cap_g[rb.index()],
+                     u_max, /*integer_tokens=*/true, n, rb.red,
                      [&](int i, float alloc, float record, float rem) {
                        const int j = lane_of(i);
-                       if (j < n_jobs) {
+                       if (j < n) {
                          alloc_out[row + j] = alloc;
                          record_out[row + j] = record;
                          remainder_out[row + j] = rem;
                        }
                      });
+  rb.done();
 }
 
 }  // namespace
 
 // demand/nodes/record/remainder/alloc_prev: [O, J]; capacity: [O]; outputs
-// [O, J].  Launches on `stream`, does not synchronise, allocates nothing;
-// returns the launch's cudaError_t.
+// [O, J]; J <= MAX_ROW_J (a cluster a row past MAX_J).  Launches on
+// `stream`, does not synchronise, allocates nothing; returns the launch's
+// cudaError_t.
 extern "C" int adaptbf_alloc(const float* demand, const float* nodes,
                              const float* record, const float* remainder,
                              const float* alloc_prev, const float* capacity,
                              float* alloc_out, float* record_out,
                              float* remainder_out, int n_ost, int n_jobs,
                              float u_max, void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_J || n_ost < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0 || n_ost < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c > 1)
+    return static_cast<int>(
+        launch_clusters<adaptbf_alloc_kernel<MAX_LPT, true>,
+                        smem_bytes<MAX_LPT>()>(
+            n_ost, c, st, demand, nodes, record, remainder, alloc_prev,
+            capacity, alloc_out, record_out, remainder_out, n_jobs, u_max));
   REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
-      launch_rows<adaptbf_alloc_kernel<LPT>, smem_bytes<LPT>()>(
+      launch_rows<adaptbf_alloc_kernel<LPT, false>, smem_bytes<LPT>()>(
           n_ost, st, demand, nodes, record, remainder, alloc_prev, capacity,
           alloc_out, record_out, remainder_out, n_jobs, u_max)));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Blocks of the kernel resident on an SM at row width n_jobs (-1 on
-// error); its dynamic shared memory a block into *smem.
+// Blocks of the kernel resident on an SM at row width n_jobs, or past
+// MAX_J the clusters resident on the card (-1 on error); its dynamic shared
+// memory a block into *smem.
 extern "C" int adaptbf_alloc_occupancy(int n_jobs, int* smem) {
-  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0) return -1;
+  if (c > 1) {
+    *smem = smem_bytes<MAX_LPT>();
+    return clusters_per_card<adaptbf_alloc_kernel<MAX_LPT, true>,
+                             smem_bytes<MAX_LPT>()>(c);
+  }
   REPRO_DISPATCH_LPT(n_jobs, *smem = smem_bytes<LPT>();
-                     return blocks_per_sm<adaptbf_alloc_kernel<LPT>,
+                     return blocks_per_sm<adaptbf_alloc_kernel<LPT, false>,
                                           smem_bytes<LPT>()>());
   return -1;
 }

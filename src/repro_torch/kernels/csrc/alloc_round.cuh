@@ -29,6 +29,18 @@
 // k largest keys with ties to the lowest index, the threshold, the excess
 // round count p.
 //
+// A row over a cluster (common.cuh, ClusterRed) runs the same searches
+// with every barrier the cluster's: each block counts its slice into its
+// own tables, and after the barrier every warp sums the c blocks' tables
+// through distributed shared memory (integers: exact in any order, so
+// every thread finds the same digit, threshold and p); the tied lanes of
+// lower ranks come first in index order, so a tied lane's rank adds the
+// tied counts of the lower ranks' tables.  The tables follow the
+// reductions' two-set rule: a block rewrites a table only after a cluster
+// barrier that every peer reaches after its last read of it (a search's
+// histograms two searches on, past the next distribution's first
+// reduction; a pass's candidates two passes on).
+//
 // Registers.  A row's lanes are spread 8 a thread at J = 4096, so every
 // float[LPT] array the round keeps alive across a barrier costs 8
 // registers, and two 512-thread blocks an SM leave 64 a thread.  The round
@@ -77,9 +89,10 @@ struct SmemRound {
 };
 
 // Zero the radix tables before the block's first search (a reduction's
-// barrier must come between).  Search n counts into table set n & 1 and
-// zeroes the other set, which search n - 1 used: a barrier (the
-// distribution's first reduction) separates every two searches.
+// barrier, the cluster's for a row over a cluster, must come between).
+// Search n counts into table set n & 1 and zeroes the other set, which
+// search n - 1 used: a barrier (the distribution's first reduction)
+// separates every two searches.
 __device__ __forceinline__ void search_init(Scratch& s) {
   for (int k = threadIdx.x; k < 2 * 4 * 256; k += THREADS) (&s.hist[0][0][0])[k] = 0;
 }
@@ -254,15 +267,195 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
   }
 }
 
+// The cluster overloads below repeat the one-block searches above with the
+// cluster's barriers and DSMEM reads.  They are kept apart so that the
+// one-block code stays as it was: sharing the text through template
+// branches moved ptxas's register allocation and spills (PERF.md).
+//
+// topk_mask for a row over a cluster: the same search with every barrier
+// the cluster's.  Each block counts its own lanes (below n_jobs, its
+// slice) into its own tables; every warp sums the c blocks' tables through
+// DSMEM; a tied lane's rank adds the tied lanes of the lower ranks.
+template <int LPT>
+__device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
+                                              int n_jobs, ClusterRed& r) {
+  Scratch& s = *r.s;
+  const int set = r.searches++ & 1;
+  for (int k2 = threadIdx.x; k2 < 4 * 256; k2 += THREADS)
+    (&s.hist[set ^ 1][0][0])[k2] = 0;
+  uint32_t in = 0;  // this block's lanes below n_jobs
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) in |= static_cast<uint32_t>(lane_of(i) < n_jobs) << i;
+  if (k <= 0 || k >= r.row_jobs) return k > 0 ? in : 0u;  // nothing, or every lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned u[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const float kv = key[i] == 0.0f ? 0.0f : key[i];
+    const int bits = __float_as_int(kv);
+    u[i] = static_cast<unsigned>(bits >= 0 ? bits : bits ^ 0x7FFFFFFF) ^
+           0x80000000u;
+  }
+  unsigned pre = 0;
+  int krem = k, n_tied = 0;
+#pragma unroll
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    int* const hist = s.hist[set][pass];
+    const unsigned hi = pass == 0 ? 0u : 0xFFFFFFFFu << (shift + 8);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i)
+      if (bit(in, i) && (u[i] & hi) == pre)
+        atomicAdd(&hist[(u[i] >> shift) & 255u], 1);
+    cluster_sync();
+    int b[8], tot = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) b[e] = 0;
+#pragma unroll 1
+    for (int q = 0; q < r.blocks; ++q) {
+      const int* const h = peer(hist, q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) b[e] += h[8 * lane + e];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tot += b[e];
+    int incl = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_down_sync(0xffffffffu, incl, off);
+      if (lane + off < 32) incl += o;
+    }
+    int acc = incl - tot, d = 0, above = 0;
+    bool found = false;
+#pragma unroll
+    for (int e = 7; e >= 0; --e) {
+      if (!found && acc + b[e] >= krem) {
+        found = true;
+        d = 8 * lane + e;
+        above = acc;
+      }
+      acc += b[e];
+    }
+    const int src =
+        __ffs(__ballot_sync(0xffffffffu, incl - tot < krem && krem <= incl)) - 1;
+    d = __shfl_sync(0xffffffffu, d, src);
+    krem -= __shfl_sync(0xffffffffu, above, src);
+    pre |= static_cast<unsigned>(d) << shift;
+    n_tied = 0;
+#pragma unroll 1
+    for (int q = 0; q < r.blocks; ++q) n_tied += peer(hist, q)[d];
+    if (n_tied == krem) {
+      const unsigned mask = 0xFFFFFFFFu << shift;
+      uint32_t sel = 0;
+#pragma unroll
+      for (int i = 0; i < LPT; ++i)
+        sel |= static_cast<uint32_t>(bit(in, i) && (u[i] & mask) >= pre) << i;
+      return sel;
+    }
+  }
+  // index order: rank, lane slot, warp, lane
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
+    if (lane == 0) s.tie[i][warp] = __popc(tied);
+  }
+  cluster_sync();
+  int lower = 0;  // tied lanes of the lower ranks
+#pragma unroll 1
+  for (int q = 0; q < r.rank; ++q) {
+    const int* const t = &peer(r.s, q)->tie[0][0];
+    for (int m = lane; m < LPT * WARPS; m += 32) lower += t[m];
+  }
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t sel = 0;
+  int base = warp_count(lower);
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
+    const int v = lane < WARPS ? s.tie[i][lane] : 0;
+    const int rank = base + warp_count(lane < warp ? v : 0) + __popc(tied & below);
+    base += warp_count(v);
+    sel |= static_cast<uint32_t>(bit(in, i) &&
+                                 (u[i] > pre || (bit(tied, lane) && rank < krem)))
+           << i;
+  }
+  return sel;
+}
+
+// excess_rounds for a row over a cluster: each pass's candidate sums are
+// the c blocks' tables summed through DSMEM after the cluster barrier.
+template <int LPT>
+__device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
+                                              float d_dn, int& p, float& g_p,
+                                              ClusterRed& r) {
+  Scratch& s = *r.s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned f[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) f[i] = static_cast<unsigned>(fminf(fl[i], TWO25));
+  p = 0;
+  g_p = 0.0f;
+#pragma unroll 1
+  for (int pass = 0; pass < 5; ++pass) {
+    const int shift = 20 - 5 * pass;
+    unsigned long long(*const cand)[32] = s.cand[pass & 1];
+#pragma unroll
+    for (int grp = 0; grp < 4; ++grp) {
+      unsigned v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const unsigned c = static_cast<unsigned>(p) + ((grp * 8u + e) << shift);
+        unsigned sum = 0;
+#pragma unroll
+        for (int i = 0; i < LPT; ++i) sum += min(f[i], c);
+        v[e] = sum;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool up = lane & 16;
+        const unsigned o = __shfl_xor_sync(0xffffffffu, up ? v[e] : v[e + 4], 16);
+        v[e] = (up ? v[e + 4] : v[e]) + o;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool up = lane & 8;
+        const unsigned o = __shfl_xor_sync(0xffffffffu, up ? v[e] : v[e + 2], 8);
+        v[e] = (up ? v[e + 2] : v[e]) + o;
+      }
+      {
+        const bool up = lane & 4;
+        const unsigned o = __shfl_xor_sync(0xffffffffu, up ? v[0] : v[1], 4);
+        v[0] = (up ? v[1] : v[0]) + o;
+      }
+      unsigned long long w = v[0];
+      w += __shfl_xor_sync(0xffffffffu, w, 2);
+      w += __shfl_xor_sync(0xffffffffu, w, 1);
+      if ((lane & 3) == 0) cand[warp][grp * 8 + (lane >> 2)] = w;
+    }
+    cluster_sync();
+    unsigned long long tot = 0;
+#pragma unroll 1
+    for (int q = 0; q < r.blocks; ++q) {
+      unsigned long long(*const cq)[32] = peer(cand, q);
+#pragma unroll
+      for (int k = 0; k < WARPS; ++k) tot += cq[k][lane];
+    }
+    const float gc = __ull2float_rn(tot);
+    const int best = 31 - __clz(__ballot_sync(0xffffffffu, gc <= d_dn));
+    g_p = __shfl_sync(0xffffffffu, gc, best);
+    p += best << shift;
+  }
+}
+
 // Floor raw + remainder over the mask and correct largest-remainder-first
 // so the masked total equals `budget`; updates the remainder carry (lanes
 // of `remainder`, registers or shared memory).  Callers leave lanes past J
 // out of the mask.
-template <int LPT, class Rem>
+template <int LPT, class Rem, class R>
 __device__ __forceinline__ void integerize(const float (&raw)[LPT],
                                            Rem& remainder, float budget,
                                            uint32_t mask, float (&alloc)[LPT],
-                                           int n_jobs, Red& r) {
+                                           int n_jobs, R& r) {
   float fl[LPT], rem[LPT];
   double part = 0.0;
   int cnt = 0;
@@ -322,12 +515,12 @@ __device__ __forceinline__ void integerize(const float (&raw)[LPT],
 
 // The distribution primitive: integerize, or with float tokens the
 // reference's passthrough (raw over the mask, remainder unchanged).
-template <int LPT, class Rem>
+template <int LPT, class Rem, class R>
 __device__ __forceinline__ void distribute(bool integer_tokens,
                                            const float (&raw)[LPT],
                                            Rem& remainder, float budget,
                                            uint32_t mask, float (&alloc)[LPT],
-                                           int n_jobs, Red& r) {
+                                           int n_jobs, R& r) {
   if (integer_tokens) {
     integerize<LPT>(raw, remainder, budget, mask, alloc, n_jobs, r);
   } else {
@@ -336,21 +529,22 @@ __device__ __forceinline__ void distribute(bool integer_tokens,
   }
 }
 
-// One allocation round of this block's row, its live lanes in the first
-// SmemRound<LPT>::BYTES of dynamic shared memory.  `demand` holds the
-// row's demand in this thread's lanes (0 past n_jobs): a float[LPT] or
-// lanes of shared memory.  nodes, record, the remainder carry and the
-// previous allocation are read from the row pointers.  For each lane slot
-// i, out(i, alloc, record, remainder) receives the next allocation, the
-// new record and the new remainder (lanes past n_jobs too: the caller
-// drops them).
-template <int LPT, class Dem, class Out>
+// One allocation round of this block's row (or its slice of a row over a
+// cluster: n_jobs lanes from the row pointers, r a ClusterRed), its live
+// lanes in the first SmemRound<LPT>::BYTES of dynamic shared memory.
+// `demand` holds the row's demand in this thread's lanes (0 past n_jobs): a
+// float[LPT] or lanes of shared memory.  nodes, record, the remainder carry
+// and the previous allocation are read from the row pointers.  For each
+// lane slot i, out(i, alloc, record, remainder) receives the next
+// allocation, the new record and the new remainder (lanes past n_jobs
+// too: the caller drops them).
+template <int LPT, class Dem, class R, class Out>
 __device__ __forceinline__ void adaptbf_round(
     Dem& demand, const float* __restrict__ nodes_row,
     const float* __restrict__ record_row,
     const float* __restrict__ remainder_row,
     const float* __restrict__ prev_row, float cap, float u_max,
-    bool integer_tokens, int n_jobs, Red& r, Out&& out) {
+    bool integer_tokens, int n_jobs, R& r, Out&& out) {
   SmemRound<LPT> L;
   // inputs past n_jobs read as 0
   auto in_row = [&](const float* __restrict__ row, int i) {

@@ -1,18 +1,36 @@
 // Shared pieces of the per-row kernels (fleet_window.cu, adaptbf_alloc.cu,
 // window_mega.cu; serve.cuh and alloc_round.cuh build on them).
 //
-// Every kernel runs one thread block per OST row.  Thread t owns the lanes
-// j = t + i * THREADS (i < LPT) of the row in registers; lanes at or past J
-// are absent from every sum and count.  What bounds these kernels on the
-// H100 beside their bytes is the chain of dependent row reductions, so a
-// reduction costs one barrier: a warp butterfly, one shared slot per warp,
-// __syncthreads, and a second butterfly over the slots, in which every
-// thread comes out with the same total (the same order in every warp), so
-// block-uniform branches on it stay uniform.  Reductions alternate between
-// two slot sets: reduction n writes set n & 1, and the set it overwrites
-// was last read in reduction n - 2, which every thread finished before it
-// reached reduction n - 1's barrier.  Independent sums of one step ride in
-// one reduction (block_sum2, block_sum_count).
+// A row of J <= 8192 jobs runs on one thread block (RowBlock<false>): thread
+// t owns the lanes j = t + i * THREADS (i < LPT) of the row in registers;
+// lanes at or past J are absent from every sum and count.  What bounds
+// these kernels on the H100 beside their bytes is the chain of dependent
+// row reductions, so a reduction costs one barrier: a warp butterfly, one
+// shared slot per warp, __syncthreads, and a second butterfly over the
+// slots, in which every thread comes out with the same total (the same
+// order in every warp), so block-uniform branches on it stay uniform.
+// Reductions alternate between two slot sets: reduction n writes set n & 1,
+// and the set it overwrites was last read in reduction n - 2, which every
+// thread finished before it reached reduction n - 1's barrier.  Independent
+// sums of one step ride in one reduction (block_sum2, block_sum_count).
+//
+// A wider row (8192 < J <= 65536) runs on a thread-block cluster of c
+// blocks (RowBlock<true>; c = cluster_blocks(J), the fewest of 2, 4 and 8
+// with c * 8192 >= J), co-scheduled on one GPC.  Block rank q owns the
+// slice of S = ceil(J / c) lanes from q * S, laid out in it as a row of its
+// own (so lane index order is rank, then lane slot, warp, lane).  Each
+// reduction is still one barrier, now the cluster's (barrier.cluster
+// arrive.release / wait.acquire): every warp writes its partial into its
+// own block's slot set n & 1 as above, and after the barrier every thread
+// reads the c x WARPS slots of the cluster through distributed shared
+// memory in a fixed order (lane l: slots l, l + 32, ... of the rank-major
+// list) and sums them with the same butterfly, so every thread of every
+// block gets the same total and cluster-uniform branches stay uniform.  The
+// two-set argument carries over, a block's slot set being read by its peers
+// only between the barrier of reduction n and their arrival at the barrier
+// of reduction n + 1.  A block's shared memory must outlive its peers'
+// reads of it: each block waits at one more cluster barrier before it
+// exits (RowBlock<true>::done), after which no peer reads it.
 //
 // Float row sums accumulate in double and round once to float, as the plain
 // PyTorch versions do (kernels/numerics.py::row_sum).  The kernel reduces in
@@ -21,15 +39,29 @@
 // a float32 ulp, in practice bitwise.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro {
 
-constexpr int THREADS = 512;        // threads per block (one block per row)
+constexpr int THREADS = 512;        // threads per block
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_LPT = 16;         // lanes per thread: J <= 8192
+constexpr int MAX_LPT = 16;         // lanes per thread: J <= 8192 a block
 constexpr int MAX_J = THREADS * MAX_LPT;
+constexpr int MAX_CLUSTER = 8;      // the portable cluster size
+constexpr int MAX_ROW_J = MAX_CLUSTER * MAX_J;  // 65536 jobs a row
+
+// Blocks a row of n_jobs runs on: 1 up to MAX_J, else the fewest of 2, 4
+// and 8 with c * MAX_J >= n_jobs; 0 past MAX_ROW_J or below 1 (the host's
+// rule: kernels/dispatch.py::cluster_size).
+__host__ __device__ constexpr int cluster_blocks(int n_jobs) {
+  return n_jobs < 1 ? 0
+         : n_jobs <= MAX_J ? 1
+         : n_jobs <= 2 * MAX_J ? 2
+         : n_jobs <= 4 * MAX_J ? 4
+         : n_jobs <= MAX_ROW_J ? 8 : 0;
+}
 
 struct Scratch {
   double f[2][WARPS][2];        // [slot set][warp][sum]
@@ -47,6 +79,70 @@ struct Red {
   Scratch* s;
   int n;
   int searches;
+};
+
+// The reductions of a row over a cluster: as Red, with this block's rank,
+// the cluster's blocks and the whole row's jobs (the block's own lanes are
+// its slice).
+struct ClusterRed {
+  Scratch* s;
+  int n;
+  int searches;
+  int rank;
+  int blocks;
+  int row_jobs;
+};
+
+__device__ __forceinline__ void cluster_sync() {
+  cooperative_groups::this_cluster().sync();
+}
+
+// The address p of this block's shared memory in the block of cluster rank
+// `rank` (distributed shared memory).
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// A block's place in its row.  One block a row (false): block b is row
+// slot b and holds all J lanes.  A row over a cluster (true): cluster r of
+// the grid is row slot r, and the block of rank q holds the slice of
+// S = ceil(J / c) lanes from q * S.  index() is the row slot, `first` the
+// block's first lane in the row, `n` its lanes, `red` the row's reduction
+// handle; done() ends the block's part in the row's reductions.
+template <bool WIDE>
+struct RowBlock;
+
+template <>
+struct RowBlock<false> {
+  static constexpr int first = 0;
+  Red red;
+  int n;
+  __device__ __forceinline__ RowBlock(Scratch& s, int n_jobs)
+      : red{&s, 0}, n(n_jobs) {}
+  __device__ __forceinline__ static unsigned index() { return blockIdx.x; }
+  __device__ __forceinline__ void done() {}
+};
+
+template <>
+struct RowBlock<true> {
+  ClusterRed red;
+  int first, n;
+  __device__ __forceinline__ RowBlock(Scratch& s, int n_jobs) {
+    const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    const int c = static_cast<int>(cl.num_blocks());
+    const int q = static_cast<int>(cl.block_rank());
+    const int slice = (n_jobs + c - 1) / c;
+    red = ClusterRed{&s, 0, 0, q, c, n_jobs};
+    first = q * slice;
+    n = min(slice, n_jobs - first);
+  }
+  __device__ __forceinline__ static unsigned index() {
+    return blockIdx.x / cooperative_groups::this_cluster().num_blocks();
+  }
+  // peers read this block's reduction slots and search tables after each
+  // barrier until they reach the next one: wait for all of them first
+  __device__ __forceinline__ void done() { cluster_sync(); }
 };
 
 // The kernel's dynamic shared memory (the allocation round's lane arrays,
@@ -101,8 +197,41 @@ __device__ __forceinline__ void block_reduce(double (&f)[2], int& c, Red& r) {
   if (NI) c = warp_count(lane < WARPS ? r.s->i[set][lane] : 0);
 }
 
+// The same over a cluster (an overload, so the one-block code above stays
+// as it was): the cluster's barrier, then slot m of the rank-major list of
+// the c x WARPS slots (block m / WARPS, warp m % WARPS) to lane m % 32, in
+// increasing m.
+template <int NF, int NI>
+__device__ __forceinline__ void block_reduce(double (&f)[2], int& c,
+                                             ClusterRed& r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int set = r.n++ & 1;
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
+  if (NI) c = warp_count(c);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) r.s->f[set][warp][k] = f[k];
+    if (NI) r.s->i[set][warp] = c;
+  }
+  cluster_sync();
+  double g[2] = {0.0, 0.0};
+  int gc = 0;
+#pragma unroll 1
+  for (int m = lane; m < r.blocks * WARPS; m += 32) {
+    const Scratch* ps = peer(r.s, m / WARPS);
+#pragma unroll
+    for (int k = 0; k < NF; ++k) g[k] += ps->f[set][m % WARPS][k];
+    if (NI) gc += ps->i[set][m % WARPS];
+  }
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(g[k]);
+  if (NI) c = warp_count(gc);
+}
+
 // Row-wide sum of per-thread double partials, rounded once to float.
-__device__ __forceinline__ float block_sum(double x, Red& r) {
+template <class R>
+__device__ __forceinline__ float block_sum(double x, R& r) {
   double f[2] = {x, 0.0};
   int c = 0;
   block_reduce<1, 0>(f, c, r);
@@ -110,7 +239,8 @@ __device__ __forceinline__ float block_sum(double x, Red& r) {
 }
 
 // Two independent row sums in one reduction.
-__device__ __forceinline__ float2 block_sum2(double x, double y, Red& r) {
+template <class R>
+__device__ __forceinline__ float2 block_sum2(double x, double y, R& r) {
   double f[2] = {x, y};
   int c = 0;
   block_reduce<2, 0>(f, c, r);
@@ -118,7 +248,8 @@ __device__ __forceinline__ float2 block_sum2(double x, double y, Red& r) {
 }
 
 // A row sum and a row-wide int32 count in one reduction.
-__device__ __forceinline__ void block_sum_count(double x, int c, Red& r,
+template <class R>
+__device__ __forceinline__ void block_sum_count(double x, int c, R& r,
                                                 float& sum, int& count) {
   double f[2] = {x, 0.0};
   block_reduce<1, 1>(f, c, r);
@@ -127,7 +258,8 @@ __device__ __forceinline__ void block_sum_count(double x, int c, Red& r,
 }
 
 // Host side: kernel K (one instance of a kernel template) runs one block of
-// THREADS a row with SMEM bytes of dynamic shared memory.  Above 48 KB CUDA
+// THREADS a row, or a cluster of c such blocks a row, with SMEM bytes of
+// dynamic shared memory a block.  Above 48 KB CUDA
 // needs the kernel's own leave, asked once per kernel (a function-local
 // static of each instance) for both the launch and the occupancy query.
 template <auto K, int SMEM>
@@ -148,6 +280,35 @@ cudaError_t launch_rows(int rows, cudaStream_t s, Args... args) {
   return cudaGetLastError();
 }
 
+// The launch of `rows` clusters of c blocks of K on stream s.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int rows, int c, int smem, cudaStream_t s) {
+    cfg.gridDim = dim3(static_cast<unsigned>(rows) * c);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Launch K over `rows` clusters of c blocks on stream s; the launch's
+// cudaError_t.
+template <auto K, int SMEM, class... Args>
+cudaError_t launch_clusters(int rows, int c, cudaStream_t s, Args... args) {
+  const cudaError_t err = allow_smem<K, SMEM>();
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(rows, c, SMEM, s);
+  const cudaError_t launched = cudaLaunchKernelEx(&l.cfg, K, args...);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
 // Blocks of K resident on one SM, from CUDA's occupancy calculator (-1 on
 // error).
 template <auto K, int SMEM>
@@ -158,6 +319,18 @@ int blocks_per_sm() {
                                                     SMEM) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+// Clusters of c blocks of K resident on the card at once, from CUDA's
+// occupancy calculator (-1 on error).
+template <auto K, int SMEM>
+int clusters_per_card(int c) {
+  int clusters = -1;
+  ClusterLaunch l(1, c, SMEM, nullptr);
+  if (allow_smem<K, SMEM>() != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, K, &l.cfg) != cudaSuccess)
+    return -1;
+  return clusters;
 }
 
 }  // namespace repro

@@ -26,6 +26,12 @@
 // tick is bound by its instruction stream on the SM, not by residency or
 // bytes in flight (PERF.md).
 //
+// Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
+// c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>): each block serves
+// its slice of the row with the same loop, its rate rows offset by the
+// slice, and the tick's row sums are the cluster's.  Rows of J <= 8192 run
+// the one-block case, unchanged.
+//
 // A batch of F independent fleets (storage/tenants.py) is F * O rows in one
 // launch: block r serves row o = r % O of fleet f = r / O, whose rates start
 // f * fleet_rows * J floats into the rate block (fleet_rows = 0 when every
@@ -43,7 +49,7 @@ namespace {
 
 using namespace repro;
 
-template <int LPT>
+template <int LPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fleet_window_kernel(const float* __restrict__ queue_in,
                     const float* __restrict__ vol_in,
@@ -57,20 +63,21 @@ fleet_window_kernel(const float* __restrict__ queue_in,
                     int n_jobs, int n_ticks, int rows_per_fleet,
                     int fleet_rows) {
   __shared__ Scratch scratch;
-  Red red{&scratch, 0};
-  const int o = blockIdx.x;
+  RowBlock<WIDE> rb(scratch, n_jobs);
+  const int o = rb.index();
+  const int n = rb.n;  // this block's lanes, from lane rb.first of the row
   const int fleet = o / rows_per_fleet;
-  const size_t row = static_cast<size_t>(o) * n_jobs;
+  const size_t row = static_cast<size_t>(o) * n_jobs + rb.first;
   const float cap = cap_tick[o];
   const float* rate_row =
       rates + (static_cast<size_t>(fleet) * fleet_rows + o -
-               fleet * rows_per_fleet) * n_jobs;
+               fleet * rows_per_fleet) * n_jobs + rb.first;
 
   float q[LPT], v[LPT], b[LPT], bl[LPT], acc[LPT];
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = threadIdx.x + i * THREADS;
-    const bool in = j < n_jobs;
+    const bool in = j < n;
     q[i] = in ? queue_in[row + j] : 0.0f;
     v[i] = in ? vol_in[row + j] : 0.0f;
     b[i] = in ? budget_in[row + j] : 0.0f;
@@ -80,26 +87,27 @@ fleet_window_kernel(const float* __restrict__ queue_in,
 
   serve_window<LPT>(q, v, b, bl, acc, rate_row,
                     static_cast<size_t>(rows_per_fleet) * n_jobs, n_ticks, cap,
-                    n_jobs, red);
+                    n, rb.red);
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = threadIdx.x + i * THREADS;
-    if (j < n_jobs) {
+    if (j < n) {
       queue_out[row + j] = q[i];
       vol_out[row + j] = v[i];
       served_out[row + j] = acc[i];
     }
   }
+  rb.done();
 }
 
 }  // namespace
 
 // queue/vol/budget/backlog: [R, J] with R = F * O rows (F fleets of
 // rows_per_fleet = O rows); rates: [F, W, O, J] with fleet f's block
-// f * fleet_rows * J floats from the base; cap_tick: [R]; outputs [R, J].
-// Launches on `stream`, does not synchronise, allocates nothing; returns
-// the launch's cudaError_t.
+// f * fleet_rows * J floats from the base; cap_tick: [R]; outputs [R, J];
+// J <= MAX_ROW_J (a cluster a row past MAX_J).  Launches on `stream`, does
+// not synchronise, allocates nothing; returns the launch's cudaError_t.
 extern "C" int fleet_window(const float* queue, const float* vol,
                             const float* budget, const float* backlog,
                             const float* rates, const float* cap_tick,
@@ -107,23 +115,31 @@ extern "C" int fleet_window(const float* queue, const float* vol,
                             float* served_out, int n_rows, int n_jobs,
                             int n_ticks, int rows_per_fleet, int fleet_rows,
                             void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_J || n_rows < 1 || n_ticks < 0 ||
-      rows_per_fleet < 1 || n_rows % rows_per_fleet || fleet_rows < 0)
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0 || n_rows < 1 || n_ticks < 0 || rows_per_fleet < 1 ||
+      n_rows % rows_per_fleet || fleet_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c > 1)
+    return static_cast<int>(launch_clusters<fleet_window_kernel<MAX_LPT, true>, 0>(
+        n_rows, c, s, queue, vol, budget, backlog, rates, cap_tick, queue_out,
+        vol_out, served_out, n_jobs, n_ticks, rows_per_fleet, fleet_rows));
   REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
-      launch_rows<fleet_window_kernel<LPT>, 0>(
+      launch_rows<fleet_window_kernel<LPT, false>, 0>(
           n_rows, s, queue, vol, budget, backlog, rates, cap_tick, queue_out,
           vol_out, served_out, n_jobs, n_ticks, rows_per_fleet,
           fleet_rows)));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Blocks of the kernel resident on an SM at row width n_jobs (-1 on
-// error); its dynamic shared memory a block (none) into *smem.
+// Blocks of the kernel resident on an SM at row width n_jobs, or past
+// MAX_J the clusters resident on the card (-1 on error); its dynamic shared
+// memory a block (none) into *smem.
 extern "C" int fleet_window_occupancy(int n_jobs, int* smem) {
-  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0) return -1;
   *smem = 0;
-  REPRO_DISPATCH_LPT(n_jobs, return blocks_per_sm<fleet_window_kernel<LPT>, 0>());
+  if (c > 1) return clusters_per_card<fleet_window_kernel<MAX_LPT, true>, 0>(c);
+  REPRO_DISPATCH_LPT(n_jobs, return blocks_per_sm<fleet_window_kernel<LPT, false>, 0>());
   return -1;
 }

@@ -23,16 +23,18 @@ constexpr float SERVE_EPS = 1e-9f;
 // q/v/b/acc: queue, remaining volume, token budget and the window's served
 // accumulator of this thread's lanes, updated in place; bl: backlog caps
 // (read-only: a float[LPT] or lanes of shared memory).  rates points at
-// tick 0 of this row; tick t's row is t * tick_stride further.  Lanes at
-// or past n_jobs are absent from every sum and left untouched.
-template <int LPT, class BL>
+// tick 0 of this row (of this block's slice of a row over a cluster); tick
+// t's row is t * tick_stride further.  Lanes at or past n_jobs (the
+// block's lanes) are absent from every sum and left untouched; red: Red,
+// or ClusterRed for a row over a cluster.
+template <int LPT, class BL, class R>
 __device__ __forceinline__ void serve_window(float (&q)[LPT], float (&v)[LPT],
                                              float (&b)[LPT], const BL& bl,
                                              float (&acc)[LPT],
                                              const float* __restrict__ rates,
                                              size_t tick_stride, int n_ticks,
                                              float cap, int n_jobs,
-                                             Red& red) {
+                                             R& red) {
   // each tick's rate row is loaded one tick ahead, so its latency hides
   // behind the tick before (a barrier keeps loads from moving across it)
   float rate_next[LPT];

@@ -37,12 +37,23 @@
 // round fills only after the ticks): fewer spills than with either in
 // registers, and faster (ptxas and the measured times: PERF.md).
 //
+// Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
+// c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>; template case
+// WIDE): each block runs the round over its slice of the row, its rate,
+// state and output rows offset by the slice, with the cluster's reductions
+// and searches.  A block of 16 lanes a thread fits one an SM (its round's
+// 128 KB of lanes), so the wide case drops the two-block register cap:
+// held to 64 registers it spilled 1.7 KB a thread and ran 1.3193 ms at
+// 256 x 16384 (PERF.md).  Rows of J <= 8192 run the one-block cases,
+// unchanged.
+//
 // A batch of F independent fleets (storage/tenants.py): F * O rows, the
 // rates of row o = f * O + r at (f * rate_fleet_rows + r) * J floats (0 rows
 // a fleet for one shared trace), ticks O * J apart, as in fleet_window.cu.
 // Per-fleet control codes: the host launches once for each distinct code
 // present, each launch's grid over that code's rows only (`rows`, the row
-// of each block; null: block b is row b), with its member's template case,
+// of each block or cluster; null: block or cluster b is row b), with its
+// member's template case,
 // so no kernel branches on the policy.  A batch of fleets is a template
 // case of its own (FLEETS): with one fleet and no row list the kernel is
 // the single-fleet code it was, its rates at `rates + row`, because the
@@ -106,8 +117,8 @@ struct MegaParams {
   float md;
   float sat;
   float floor;
-  const int* rows;            // [n_rows] the row of each block, or null
-  int n_rows;                 // blocks launched (n_ost when rows is null)
+  const int* rows;            // [n_rows] the row of each block (cluster), or null
+  int n_rows;                 // rows launched (n_ost when rows is null)
   int rows_per_fleet;         // O: rows of one fleet (n_ost for one fleet)
   int rate_fleet_rows;        // rates' fleet stride in rows of J (0: shared)
 };
@@ -134,10 +145,10 @@ constexpr float POLICY_EPS = 1e-9f;   // policies._EPS
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // Row-wide sum of this thread's nodes, with the nodes kept for the lanes.
-template <int LPT>
+template <int LPT, class R>
 __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
                                            float (&nd)[LPT], int n_jobs,
-                                           Red& s) {
+                                           R& s) {
   double part = 0.0;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
@@ -148,16 +159,19 @@ __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
   return block_sum(part, s);
 }
 
-template <int LPT, int POLICY, bool FLEETS>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int LPT, int POLICY, bool FLEETS, bool WIDE>
+__global__ void __launch_bounds__(THREADS, WIDE ? 1 : 2)
 window_mega_kernel(const MegaParams p) {
   __shared__ Scratch scratch;
-  Red s{&scratch, 0};
   if constexpr (POLICY == POLICY_ADAPTBF) search_init(scratch);
-  const int o = FLEETS && p.rows != nullptr ? p.rows[blockIdx.x]
-                                            : static_cast<int>(blockIdx.x);
-  const int n_jobs = p.n_jobs;
-  const size_t row = static_cast<size_t>(o) * n_jobs;
+  using Row = RowBlock<WIDE>;
+  const int o = FLEETS && p.rows != nullptr ? p.rows[Row::index()]
+                                            : static_cast<int>(Row::index());
+  const int n_jobs = p.n_jobs;  // the row's jobs (its stride)
+  Row rb(scratch, n_jobs);
+  auto& s = rb.red;
+  const int n = rb.n;           // this block's lanes, from lane rb.first
+  const size_t row = static_cast<size_t>(o) * n_jobs + rb.first;
   const float cap_w = p.cap_w[o];
   const bool delivered = !p.has_faults || p.telem_ok[o] > 0.0f;
 
@@ -173,7 +187,7 @@ window_mega_kernel(const MegaParams p) {
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
-    const bool in = j < n_jobs;
+    const bool in = j < n;
     q[i] = in ? p.queue[row + j] : 0.0f;
     v[i] = in ? p.vol[row + j] : 0.0f;
     bl[i] = in ? p.backlog[row + j] : 0.0f;
@@ -187,13 +201,14 @@ window_mega_kernel(const MegaParams p) {
     const int fleet = o / p.rows_per_fleet;
     serve_window<LPT>(q, v, b, bl, acc,
                       p.rates + (static_cast<size_t>(fleet) * p.rate_fleet_rows
-                                 + o - fleet * p.rows_per_fleet) * n_jobs,
+                                 + o - fleet * p.rows_per_fleet) * n_jobs
+                              + rb.first,
                       static_cast<size_t>(p.rows_per_fleet) * n_jobs,
-                      p.n_ticks, p.cap_tick[o], n_jobs, s);
+                      p.n_ticks, p.cap_tick[o], n, s);
   } else {
     serve_window<LPT>(q, v, b, bl, acc, p.rates + row,
                       static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
-                      p.cap_tick[o], n_jobs, s);
+                      p.cap_tick[o], n, s);
   }
 
   // observe: demand = served + standing queue; a lost-telemetry row hands
@@ -203,7 +218,7 @@ window_mega_kernel(const MegaParams p) {
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
     os[i] = od[i] = oa[i] = 0.0f;
-    if (j < n_jobs) {
+    if (j < n) {
       const float demand = acc[i] + q[i];
       p.queue_out[row + j] = q[i];
       p.vol_out[row + j] = v[i];
@@ -233,17 +248,17 @@ window_mega_kernel(const MegaParams p) {
     const bool up = !p.has_faults || p.up[o] > 0.0f;
     adaptbf_round<LPT>(od, p.nodes + row, p.state0 + row, p.state1 + row,
                        p.state2 + row, cap_w, p.u_max, p.integer_tokens != 0,
-                       n_jobs, s, [&](int i, float a, float rec, float rem) {
+                       n, s, [&](int i, float a, float rec, float rem) {
                          next[i] = a;
                          const int j = lane_of(i);
-                         if (j < n_jobs) {
+                         if (j < n) {
                            p.state0_out[row + j] = up ? rec : 0.0f;
                            p.state1_out[row + j] = rem;
                          }
                        });
   } else if constexpr (POLICY == POLICY_STATIC) {
     float nd[LPT];
-    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, nd, n_jobs, s),
+    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, nd, n, s),
                             STATIC_EPS);
 #pragma unroll
     for (int i = 0; i < LPT; ++i) next[i] = cap_w * (nd[i] / den);
@@ -254,7 +269,7 @@ window_mega_kernel(const MegaParams p) {
     // static shares; each window's unused share re-granted to backlogged
     // jobs by the same shares
     float share[LPT], base[LPT], weight[LPT];
-    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, share, n_jobs, s),
+    const float den = fmaxf(nodes_sum<LPT>(p.nodes + row, share, n, s),
                             STATIC_EPS);
     double part = 0.0;
 #pragma unroll
@@ -282,7 +297,7 @@ window_mega_kernel(const MegaParams p) {
     // rules only while the row is saturated; carried rates move by
     // additive increase / multiplicative decrease
     float pr[LPT];
-    const float n_tot = fmaxf(nodes_sum<LPT>(p.nodes + row, pr, n_jobs, s),
+    const float n_tot = fmaxf(nodes_sum<LPT>(p.nodes + row, pr, n, s),
                               POLICY_EPS);
     double part = 0.0;
 #pragma unroll
@@ -296,7 +311,7 @@ window_mega_kernel(const MegaParams p) {
     for (int i = 0; i < LPT; ++i) {
       const int j = lane_of(i);
       pr[i] = pr[i] / n_tot;
-      float rate = j < n_jobs ? p.state0[row + j] : 0.0f;
+      float rate = j < n ? p.state0[row + j] : 0.0f;
       // decrease only jobs whose own rule was binding in a congested window
       const bool gated = isfinite(oa[i]) && oa[i] > 0.0f;
       const bool binding = gated && os[i] >= p.sat * oa[i];
@@ -306,15 +321,16 @@ window_mega_kernel(const MegaParams p) {
       float thr = od[i] > 0.0f ? rate : 0.0f;
       if (p.integer_tokens) thr = floorf(thr);
       next[i] = congested ? thr : inf_f();
-      if (j < n_jobs) p.state0_out[row + j] = rate;
+      if (j < n) p.state0_out[row + j] = rate;
     }
   }
 
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const int j = lane_of(i);
-    if (j < n_jobs) p.alloc_out[row + j] = next[i];
+    if (j < n) p.alloc_out[row + j] = next[i];
   }
+  rb.done();
 }
 
 // Dynamic shared memory a block: the allocation round's lanes (adaptbf),
@@ -325,28 +341,34 @@ constexpr int smem_bytes() {
   return POLICY == POLICY_ADAPTBF ? SmemRound<LPT>::BYTES : LPT * THREADS * 4;
 }
 
+template <int POLICY, bool FLEETS>
+cudaError_t launch_case(const MegaParams& p, cudaStream_t s) {
+  const int c = cluster_blocks(p.n_jobs);
+  if (c > 1)
+    return launch_clusters<window_mega_kernel<MAX_LPT, POLICY, FLEETS, true>,
+                           smem_bytes<MAX_LPT, POLICY>()>(p.n_rows, c, s, p);
+  REPRO_DISPATCH_LPT(
+      p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, FLEETS, false>,
+                                   smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
+  return cudaErrorInvalidValue;
+}
+
 template <int POLICY>
 cudaError_t launch(const MegaParams& p, cudaStream_t s) {
-  if (p.rows != nullptr || p.rows_per_fleet != p.n_ost) {
-    REPRO_DISPATCH_LPT(
-        p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, true>,
-                                     smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
-  } else {
-    REPRO_DISPATCH_LPT(
-        p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, false>,
-                                     smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
-  }
-  return cudaErrorInvalidValue;
+  if (p.rows != nullptr || p.rows_per_fleet != p.n_ost)
+    return launch_case<POLICY, true>(p, s);
+  return launch_case<POLICY, false>(p, s);
 }
 
 }  // namespace
 
-// One control round for every OST row (or the rows listed in p.rows).
-// Launches on `stream`, does not synchronise, allocates nothing; returns
-// the launch's cudaError_t.
+// One control round for every OST row (or the rows listed in p.rows); rows
+// of up to MAX_ROW_J jobs (a cluster a row past MAX_J).  Launches on
+// `stream`, does not synchronise, allocates nothing; returns the launch's
+// cudaError_t.
 extern "C" int window_mega(const MegaParams* params, void* stream) {
   const MegaParams& p = *params;
-  if (p.n_jobs < 1 || p.n_jobs > MAX_J || p.n_ost < 1 || p.n_ticks < 0 ||
+  if (cluster_blocks(p.n_jobs) == 0 || p.n_ost < 1 || p.n_ticks < 0 ||
       p.n_rows < 1 || p.rows_per_fleet < 1 || p.n_ost % p.rows_per_fleet ||
       p.rate_fleet_rows < 0 || (p.rows == nullptr && p.n_rows != p.n_ost))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -361,13 +383,21 @@ extern "C" int window_mega(const MegaParams* params, void* stream) {
   }
 }
 
-// Blocks of the adaptbf case resident on an SM at row width n_jobs (-1 on
-// error); its dynamic shared memory a block into *smem.
+// Blocks of the adaptbf case resident on an SM at row width n_jobs, or past
+// MAX_J the clusters resident on the card (-1 on error); its dynamic shared
+// memory a block into *smem.
 extern "C" int window_mega_occupancy(int n_jobs, int* smem) {
-  if (n_jobs < 1 || n_jobs > MAX_J) return -1;
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0) return -1;
+  if (c > 1) {
+    *smem = smem_bytes<MAX_LPT, POLICY_ADAPTBF>();
+    return clusters_per_card<
+        window_mega_kernel<MAX_LPT, POLICY_ADAPTBF, false, true>,
+        smem_bytes<MAX_LPT, POLICY_ADAPTBF>()>(c);
+  }
   REPRO_DISPATCH_LPT(
       n_jobs, *smem = smem_bytes<LPT, POLICY_ADAPTBF>();
-      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF, false>,
+      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF, false, false>,
                            smem_bytes<LPT, POLICY_ADAPTBF>()>());
   return -1;
 }

@@ -9,9 +9,25 @@ from __future__ import annotations
 
 import torch
 
-#: the widest row the CUDA kernels take: 512 threads x 16 lanes per thread
+#: the widest row one thread block takes: 512 threads x 16 lanes per thread
 #: (``csrc/common.cuh``: THREADS * MAX_LPT)
-MAX_JOBS = 8192
+BLOCK_JOBS = 8192
+#: the widest row the fleet kernels take: a cluster of 8 blocks, the
+#: portable cluster size (``csrc/common.cuh``: MAX_ROW_J)
+MAX_JOBS = 8 * BLOCK_JOBS
+
+
+def cluster_size(n_jobs: int) -> int:
+    """Thread blocks the fleet kernels run a row of ``n_jobs`` on: 1 up to
+    ``BLOCK_JOBS``, else the fewest of 2, 4 and 8 with ``c * BLOCK_JOBS >=
+    n_jobs`` (one thread-block cluster a row; ``csrc/common.cuh::
+    cluster_blocks`` is the same rule).  Raises ``ValueError`` past
+    ``MAX_JOBS``."""
+    if n_jobs > MAX_JOBS:
+        raise ValueError(f"the fleet kernels take at most {MAX_JOBS} jobs per "
+                         f"row (a cluster of 8 blocks of {BLOCK_JOBS}), got "
+                         f"{n_jobs}")
+    return next(c for c in (1, 2, 4, 8) if c * BLOCK_JOBS >= n_jobs)
 
 
 def resolve_device(device=None) -> torch.device:

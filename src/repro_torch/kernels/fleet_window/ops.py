@@ -1,6 +1,12 @@
 """Dispatching wrapper for the fused window-service kernel
 (``kernels/csrc/fleet_window.cu``): CUDA tensors launch it, CPU tensors take
-the plain version (``ref.py``), anything else raises."""
+the plain version (``ref.py``), anything else raises.
+
+On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs: rows of
+up to 8192 run on one thread block, wider rows on a thread-block cluster of
+2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row raises
+``ValueError`` before any launch; CPU tensors run the plain version at any
+width."""
 from __future__ import annotations
 
 import ctypes
@@ -8,7 +14,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import MAX_JOBS, check_f32, check_rates, route
+from repro_torch.kernels.dispatch import (
+    check_f32,
+    check_rates,
+    cluster_size,
+    route,
+)
 from repro_torch.kernels.fleet_window import ref
 
 #: kernel launches made by ``fleet_window_serve`` (never by the plain version)
@@ -26,16 +37,14 @@ def fleet_window_serve(queue, vol_left, budget, rates, backlog_cap, cap_tick,
     fleet axis of any stride (0 for one trace shared by every fleet).
     Returns (queue, vol_left, served_window).  On the card every input but
     the rates must be a contiguous float32 CUDA tensor (the rates as
-    ``dispatch.check_rates`` says) and J <= ``MAX_JOBS``.  ``interpret`` is
-    accepted for the reference's signature and ignored."""
+    ``dispatch.check_rates`` says) and J <= ``dispatch.MAX_JOBS``.
+    ``interpret`` is accepted for the reference's signature and ignored."""
     global launches
     if not route(queue, vol_left, budget, rates, backlog_cap, cap_tick):
         return ref.fleet_window_ref(queue, vol_left, budget, rates,
                                     backlog_cap, cap_tick)
     r, j = queue.shape
-    if j > MAX_JOBS:
-        raise ValueError(f"the window kernel takes at most {MAX_JOBS} jobs "
-                         f"per row, got {j}")
+    cluster_size(j)   # raises past MAX_JOBS
     for name, x in (("queue", queue), ("vol_left", vol_left),
                     ("budget", budget), ("backlog_cap", backlog_cap)):
         check_f32(name, x, (r, j))

@@ -6,6 +6,12 @@ The kernel has one case per built-in policy, picked by the policy class's
 ``device_id`` (``megakernel_case``); a coded policy launches the case of its
 selected member, and per-row codes (a batch of fleets) launch once for each
 distinct code, over that code's rows.
+
+On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs: rows of
+up to 8192 run on one thread block, wider rows on a thread-block cluster of
+2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row raises
+``ValueError`` before any launch; CPU tensors run the plain version at any
+width.
 """
 from __future__ import annotations
 
@@ -19,9 +25,9 @@ from repro_torch.core.policies import AdapTBFPolicy, AIMDPolicy, CodedPolicy
 from repro_torch.core.state import AllocatorState
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (
-    MAX_JOBS,
     check_f32,
     check_rates,
+    cluster_size,
     route,
 )
 from repro_torch.kernels.window_mega import ref
@@ -196,10 +202,7 @@ def mega_window_round(policy, ctx, cap_tick, backlog_cap, queue, vol_left,
                 f"{member.name!r} ({type(member).__name__}): only the "
                 "built-in policies and their subclasses that define nothing "
                 f"but {', '.join(_INPUTS)} run on the card ({_ROADMAP})")
-    if j > MAX_JOBS:
-        raise NotImplementedError(
-            f"the window megakernel takes at most {MAX_JOBS} jobs per row, "
-            f"got {j} ({_ROADMAP})")
+    cluster_size(j)   # raises past MAX_JOBS
     for name, x in (("queue", queue), ("vol_left", vol_left),
                     ("alloc", alloc), ("backlog_cap", backlog_cap),
                     ("nodes", ctx.nodes)):

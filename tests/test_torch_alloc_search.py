@@ -9,7 +9,11 @@ seeded numpy rows: many exact ties, -0.0 beside +0.0, -inf keys, all keys
 
 The reference runs on rows padded to J = 8192 with excluded lanes (-inf
 keys, unmasked jobs) after the real ones, which rank after every real lane
-and take no tokens, so eager JAX compiles each primitive once."""
+and take no tokens, so eager JAX compiles each primitive once.  Rows wider
+than 8192 (8193, 16384, 65536: a cluster of 2, 2 and 8 blocks in the
+kernels) are padded to 65536 and run the models with the cluster split, the
+row's slices counted block by block; their cases put exact ties and -0.0
+beside +0.0 across every slice edge and k on every slice boundary."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,17 +23,26 @@ from test_topk_select import random_case
 from repro.core import remainder as jref
 from repro_torch.core import remainder as tref
 from repro_torch.kernels.adaptbf_alloc import ref as model
+from repro_torch.kernels.dispatch import MAX_JOBS
 
 torch.set_num_threads(1)
 
 PAD = 8192
 WIDTHS = [1, 7, 4095, 4096, 8192]
+WIDE_PAD = MAX_JOBS                 # 65536
+WIDE = [8193, 16384, 65536]         # clusters of 2, 2 and 8 blocks
+WIDE_ROWS = 4                       # one shape a primitive at WIDE_PAD
 
 
-def _pad(x, value):
-    out = np.full(x.shape[:-1] + (PAD,), value, x.dtype)
+def _pad(x, value, pad=PAD):
+    out = np.full(x.shape[:-1] + (pad,), value, x.dtype)
     out[..., :x.shape[-1]] = x
     return out
+
+
+def _edges(j):
+    """The lane where each block's slice of a row of j starts (past 0)."""
+    return [a for a, _ in model._slices(j)[1:]]
 
 
 def _keys(rng, rows, j):
@@ -111,6 +124,52 @@ def test_radix_topk_model_tied_keys_over_many_binades(j):
     assert endings == {True, False}
 
 
+def _wide_keys(rng, j):
+    """Four rows at width j: random eighths with -inf and -0.0 lanes and
+    runs of one value across each slice edge, -0.0 just before and +0.0
+    at the edge; every key tied; fractional keys tied in threes; and keys
+    that grow by slice (each slice one value, -0.0 for the second)."""
+    key = _keys(rng, WIDE_ROWS, j)
+    for e in _edges(j):
+        key[0, e - 3:e + 3] = 0.375
+        key[0, e - 1], key[0, e] = -0.0, 0.0
+    key[1] = 0.5
+    key[2] = np.repeat(rng.random(j // 3 + 1).astype(np.float32), 3)[:j]
+    for q, (a, b) in enumerate(model._slices(j)):
+        key[3, a:b] = -0.0 if q == 1 else np.float32(q)
+    return key
+
+
+@pytest.mark.parametrize("j", WIDE)
+def test_radix_topk_model_bitwise_across_slices(j):
+    """The model with the row split as the kernels' cluster splits it,
+    bitwise with the model on one block, the port's sort and the
+    reference's probe search; k at 1, every slice boundary and one each
+    side of it, the count of finite keys and j - 1."""
+    rng = np.random.default_rng(j + 5)
+    key = _wide_keys(rng, j)
+    padded = jnp.asarray(_pad(key, -np.inf, WIDE_PAD))
+    assert len(model._slices(j)) == (8 if j > 32768 else 2)
+    ks = [1, *(e + d for e in _edges(j) for d in (-1, 0, 1)), j - 1]
+    for kk in ks:
+        k = np.full(WIDE_ROWS, kk, np.int32)
+        k[0] = min(int(_counts(key)[0]), kk)
+        got = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(k))
+        one = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(k),
+                                    blocks=1)
+        port = tref.topk_mask(torch.from_numpy(key), torch.from_numpy(k)[:, None])
+        want = np.asarray(jref.topk_mask(padded, jnp.asarray(k)[:, None]))[:, :j]
+        np.testing.assert_array_equal(got.numpy(), one.numpy(), err_msg=f"k={k}")
+        np.testing.assert_array_equal(got.numpy(), port.numpy(), err_msg=f"k={k}")
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
+    # every tied row selects its first k lanes: k on a slice edge ends the
+    # selection exactly there
+    e = _edges(j)[0]
+    k = np.full(WIDE_ROWS, e, np.int32)
+    got = model.topk_mask_radix(torch.from_numpy(key), torch.from_numpy(k))
+    assert got[1, :e].all() and not got[1, e:].any()
+
+
 def _bit_descent(floored, d_dn):
     """The reference's 25-step descent on exact sums: (p, g(p))."""
     f = floored.astype(np.int64)
@@ -139,19 +198,41 @@ def test_excess_model_matches_bit_descent(j):
     np.testing.assert_array_equal(g_p.numpy(), want_g)
 
 
+@pytest.mark.parametrize("j", WIDE)
+def test_excess_model_across_slices_matches_bit_descent(j):
+    """The excess descent with each candidate's sum split by slice, from a
+    token to every token held, over floors up to 5000; runs of one floor
+    across every slice edge."""
+    rng = np.random.default_rng(j + 1)
+    floored = np.floor(rng.random((6, j)) * rng.choice([2.0, 40.0, 5000.0],
+                                                         (6, 1)))
+    floored[rng.random((6, j)) < 0.3] = 0.0
+    for e in _edges(j):
+        floored[:, e - 2:e + 2] = 7.0
+    total = floored.sum(1)
+    d_dn = np.array([0.0, 1.0, total[2] // 3, total[3] - 1, total[4],
+                     total[5] + 10], np.float32)
+    p, g_p = model.excess_rounds(torch.from_numpy(floored.astype(np.float32)),
+                                 torch.from_numpy(d_dn))
+    want_p, want_g = _bit_descent(floored, d_dn)
+    np.testing.assert_array_equal(p.numpy(), want_p)
+    np.testing.assert_array_equal(g_p.numpy(), want_g)
+
+
 def _integerize_all(raw, rem, budget, mask):
     """The model, the port and the reference on [R, J] rows: bitwise."""
     j = raw.shape[-1]
+    pad = PAD if j <= PAD else WIDE_PAD
     got = model.integerize_model(torch.from_numpy(raw), torch.from_numpy(rem),
                                  torch.from_numpy(budget),
                                  torch.from_numpy(mask))
     port = tref.integerize(torch.from_numpy(raw), torch.from_numpy(rem),
                            torch.from_numpy(budget)[:, None],
                            torch.from_numpy(mask))
-    want = jref.integerize(jnp.asarray(_pad(raw, 0.0)),
-                           jnp.asarray(_pad(rem, 0.0)),
+    want = jref.integerize(jnp.asarray(_pad(raw, 0.0, pad)),
+                           jnp.asarray(_pad(rem, 0.0, pad)),
                            jnp.asarray(budget)[:, None],
-                           jnp.asarray(_pad(mask, False)))
+                           jnp.asarray(_pad(mask, False, pad)))
     for g, p, w, name in zip(got, port, want, ("alloc", "remainder")):
         np.testing.assert_array_equal(g.numpy(), p.numpy(), err_msg=name)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:, :j],
@@ -184,4 +265,26 @@ def test_integerize_model_on_stress_rows():
     budget = np.array([floored[0] + 7, floored[1] + 3 * mask[1].sum() + 5,
                        floored[2] - 9, floored[3] - 1.5 * mask[3].sum(),
                        0.0, 0.0], np.float32)
+    _integerize_all(raw, rem, budget, mask)
+
+
+@pytest.mark.parametrize("j", WIDE)
+def test_integerize_model_across_slices_bitwise(j):
+    """Rows over a cluster: (0) every remainder tied with a leftover that
+    ends on the first slice edge, (1) a random row whose budget is 9 tokens
+    short, (2) tied remainders with an excess that ends on a slice edge,
+    (3) an in-contract random row."""
+    rng = np.random.default_rng(j + 3)
+    e = _edges(j)[0]
+    mask = np.ones((WIDE_ROWS, j), bool)
+    mask[1, rng.random(j) < 0.2] = False
+    raw = np.full((WIDE_ROWS, j), 2.5, np.float32)
+    raw[1] = (rng.random(j) * 40).astype(np.float32)
+    rem = np.zeros((WIDE_ROWS, j), np.float32)
+    rem[1] = (rng.random(j) - 0.5).astype(np.float32)
+    case = random_case(rng, j, True)
+    raw[3], rem[3], mask[3] = case[0], case[1], case[3]
+    floored = np.floor(np.where(mask, raw + rem, 0.0)).clip(0).sum(axis=1)
+    budget = np.array([floored[0] + e, floored[1] - 9, floored[2] - e,
+                       case[2]], np.float32)
     _integerize_all(raw, rem, budget, mask)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at widths that take every lanes-per-thread variant the kernels compile
-(J = 1 to the 8192 maximum) -- the window megakernel for every policy case
-and for coded dispatch -- plus the wrappers' input checks and the kernel
+(J = 1 to 8192, one block a row) and rows over a thread-block cluster of 2,
+4 and 8 blocks (J = 8193 to the 65536 maximum) -- the window megakernel for
+every policy case and for coded dispatch -- plus the wrappers' input checks
+(J = 65537 raises before any launch) and the kernel
 paths of ``simulate_fleet``, and the allocation round and the
 megakernel on rows built to stress the radix select and the excess
 descent; the tenant axis (the fleet kernels over F fleets' rows, the rate
@@ -42,7 +44,7 @@ from repro_torch.core.policies import (
 )
 from repro_torch.core.state import AllocatorState
 from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
-from repro_torch.kernels.dispatch import MAX_JOBS
+from repro_torch.kernels.dispatch import BLOCK_JOBS, MAX_JOBS
 from repro_torch.kernels.fleet_window import ops as fw_ops
 from repro_torch.kernels.window_mega import ops as mega_ops
 from repro_torch.storage import (
@@ -54,7 +56,11 @@ from repro_torch.storage import (
 
 pytestmark = pytest.mark.requires_cuda
 
-WIDTHS = [1, 100, 513, 2048, 4096, MAX_JOBS]   # LPT 1, 1, 2, 4, 8, 16
+# one block a row at LPT 1, 1, 2, 4, 8, 16; then a cluster of 2 (8193 to
+# 16384), 4 (16385 to 32768) and 8 (to 65536) blocks a row, ragged slices
+# included (J % c != 0, slices of J not a multiple of 4)
+WIDE_WIDTHS = [8193, 12289, 16384, 16385, 32768, 40000, MAX_JOBS]
+WIDTHS = [1, 100, 513, 2048, 4096, BLOCK_JOBS, *WIDE_WIDTHS]
 
 
 @pytest.fixture
@@ -144,7 +150,10 @@ def _alloc_stress(j, seed):
     return demand, nodes, record, remainder, prev, cap
 
 
-@pytest.mark.parametrize("j", [1, 4093, 4095, 4096, MAX_JOBS])
+STRESS_WIDTHS = [1, 4093, 4095, 4096, BLOCK_JOBS, *WIDE_WIDTHS]
+
+
+@pytest.mark.parametrize("j", STRESS_WIDTHS)
 def test_alloc_kernel_on_search_stress_rows(cuda, j):
     """Allocations integer-equal to the plain round, record and remainder
     within 1e-3, on rows that drive the radix select through ties, -inf
@@ -196,7 +205,7 @@ def test_alloc_kernel_edge_shapes(cuda, o, j):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
 
 
-@pytest.mark.parametrize("j", [1, 4093, 4095, 4096, MAX_JOBS])
+@pytest.mark.parametrize("j", STRESS_WIDTHS)
 def test_mega_kernel_on_search_stress_rows(cuda, j):
     """The window megakernel's adaptbf case on the same rows (row 2 gets
     no traffic, so it observes no demand), against its plain round."""
@@ -230,7 +239,7 @@ def test_mega_kernel_on_search_stress_rows(cuda, j):
                                    msg=f"leaf {i}")
 
 
-def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda, monkeypatch):
     args = _alloc_case(2, 64, seed=1, dev=cuda)
     with pytest.raises(TypeError, match="float32"):
         alloc_ops.fleet_alloc(args[0].double(), *args[1:])
@@ -238,9 +247,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         alloc_ops.fleet_alloc(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="several devices"):
         alloc_ops.fleet_alloc(args[0].cpu(), *args[1:])
-    wide = _window_case(1, MAX_JOBS + 1, 1, seed=2, dev=cuda)
-    with pytest.raises(ValueError, match=str(MAX_JOBS)):
+    # J = 65537: ValueError naming the limit, before any launch and without
+    # the plain version
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fw_ops.ref, "fleet_window_ref", plain)
+    monkeypatch.setattr(alloc_ops.ref, "fleet_alloc_ref", plain)
+    before = (fw_ops.launches, alloc_ops.launches)
+    wide = _window_case(1, 65537, 1, seed=2, dev=cuda)
+    with pytest.raises(ValueError, match="65536"):
         fw_ops.fleet_window_serve(*wide)
+    wide = _alloc_case(1, 65537, seed=2, dev=cuda)
+    with pytest.raises(ValueError, match="65536"):
+        alloc_ops.fleet_alloc(*wide)
+    assert (fw_ops.launches, alloc_ops.launches) == before
 
 
 MEGA_CASES = ["adaptbf", "static", "nobw", "static_wc", "aimd", "coded0",
@@ -312,20 +333,24 @@ def test_mega_kernel_matches_plain(cuda, name, j):
         args[4:9] = [want[0], want[1], want[8], tuple(want[4:7]), want[7]]
 
 
-def test_mega_raises_for_what_the_kernel_has_no_case_for(cuda):
-    """A policy without a device id of its own and rows past 8192 jobs
-    raise on CUDA tensors, before any launch, and never fall back to the
-    plain round."""
+def test_mega_raises_for_what_the_kernel_has_no_case_for(cuda, monkeypatch):
+    """A policy without a device id of its own (NotImplementedError) and
+    rows past 65536 jobs (ValueError) raise on CUDA tensors, before any
+    launch, and never fall back to the plain round."""
     class Custom(AdapTBFPolicy):
         def step(self, state, obs, ctx):
             return super().step(state, obs, ctx)
 
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain round")
+
+    monkeypatch.setattr(mega_ops.ref, "mega_round_ref", plain)
     args, _ = _mega_round("adaptbf", 64, seed=1, dev=cuda)
     before = mega_ops.launches
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mega_ops.mega_window_round(Custom(), *args[1:])
-    wide, _ = _mega_round("adaptbf", MAX_JOBS + 1, seed=2, dev=cuda)
-    with pytest.raises(NotImplementedError, match=str(MAX_JOBS)):
+    wide, _ = _mega_round("adaptbf", 65537, seed=2, dev=cuda)
+    with pytest.raises(ValueError, match="65536"):
         mega_ops.mega_window_round(*wide)
     bad = list(args)
     bad[8] = AllocatorState(*(x[:, :8].contiguous() for x in args[8]))
@@ -463,7 +488,7 @@ def test_fleet_service_on_the_card_equals_simulate_fleet(cuda, serve, alloc,
 
 # ------------------------------------------------------- the tenant axis
 
-FLEET_WIDTHS = [1, 8, 4097]
+FLEET_WIDTHS = [1, 8, 4097, 12289]
 
 
 def _fleet_rates(n_fleets, o, j, w, layout, seed, dev):

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Whether a CUDA library's kernels compiled to the same machine code as
+another build's: for each kernel of OLD, its SASS instructions
+(``cuobjdump -sass``) against those of the kernel of NEW with the same
+name, after OLD's names are rewritten by the ``--rename`` rules (regex,
+replacement), with the anonymous-namespace tags that nvcc derives from
+each build stripped.
+
+    python tools/sass_diff.py OLD.so NEW.so [--only SUBSTR] \\
+        [--rename 'ILi(\\d+)EE$' 'ILi\\1ELb0EE' ...]
+
+Prints one line a kernel (same, differs, missing) and exits 1 unless every
+selected kernel of OLD is in NEW with the same instructions.  Needs the
+CUDA toolkit's ``cuobjdump`` (next to ``nvcc``)."""
+from __future__ import annotations
+
+import argparse
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+_TAG = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def kernels(lib: Path, cuobjdump: str):
+    """{kernel name, tag stripped: [instruction, ...]} of a library."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _TAG.sub("_GLOBAL__N_", line.split("Function :")[1].strip())
+            out[name] = []
+        elif name is not None:
+            m = _INSN.search(line)
+            if m:
+                out[name].append(m.group(1))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("old", type=Path)
+    ap.add_argument("new", type=Path)
+    ap.add_argument("--only", default="", help="kernels whose name holds it")
+    ap.add_argument("--rename", nargs=2, action="append", default=[],
+                    metavar=("REGEX", "REPL"))
+    args = ap.parse_args(argv)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    old, new = kernels(args.old, cuobjdump), kernels(args.new, cuobjdump)
+    ok = True
+    for name, insns in old.items():
+        if args.only not in name:
+            continue
+        target = name
+        for regex, repl in args.rename:
+            target = re.sub(regex, repl, target)
+        if target not in new:
+            print(f"missing  {name} -> {target}")
+            ok = False
+        elif new[target] != insns:
+            diff = sum(a != b for a, b in zip(insns, new[target]))
+            print(f"differs  {target}: {len(insns)} -> {len(new[target])} "
+                  f"instructions, {diff} differ in the common length")
+            ok = False
+        else:
+            print(f"same     {target}: {len(insns)} instructions")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
