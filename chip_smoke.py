@@ -32,9 +32,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    16-byte boundary), the window service at J of 1, 3 and 8192 and W of
    0 and 1, with budgets of +inf and 0 and backlog caps below the queue.
    Rows over clusters: the stress rows also at J of 16385 and 65536, and
-   at the wide cells' widths (J=16384, clusters of 2; 65536, of 8), O of 1
-   and one past a full wave of clusters: B1 at W of 0, 1 and 10, B2, and
-   B3 for each built-in policy and coded code with a fault round (the
+   at J=16384 (clusters of 2), 32768 (of 4) and 65536 (of 8), O of 1 and
+   one past a full wave of clusters: B1 at W of 0, 1 and 10, B2, and B3
+   for each built-in policy and coded code with a fault round (the
    integer allocations equal).
    LM kernels, at the tolerances of the reference's kernel tests
    (attention float32 2e-5, bfloat16 2e-2; SSD 1e-4, 3e-2): flash
@@ -175,15 +175,19 @@ Phases, each of which raises on failure (the run then exits non-zero):
    ``FleetService.step`` latency (p50, p99 over 60 windows; the window's
    rates on the card or handed over as numpy), the prefill in tokens per
    second on both paths and the engine in generated tokens per second;
-   B1-B3 at the wide cells beside their bounds and plain times, and
-   windows/s of fused/pallas, mega and the plain path there; what a cluster
+   B1-B3 at the wide cells' fixtures beside their bounds and plain times
+   (``time_wide_cell``: allocations equal to the plain versions', two
+   calls bitwise equal), and windows/s of fused/pallas, mega and the plain
+   path there; what a cluster
    reduction costs against a block's (B1 at 8192 lanes a block, one block
    or clusters of 2 and 8 a row);
    the attention backward beside its bound and SDPA's forward+backward
    minus its forward; the SSD backward beside its bound, its plain
    reverse scan and the float32 kernel at the same shape; train tokens per
    second (B x S over the median of the last four steps).
-5. Trace one fused/pallas run, one mega run, one streaming fused/pallas
+5. Trace one fused/pallas run and one mega run (``trace_fleet_cell``;
+   device busy and idle share not measured where the profiler missed
+   some of the run's launches), one streaming fused/pallas
    run, 60 telemetry folds at the main shape, one bfloat16 prefill step,
    one engine run and one bfloat16 train step (with the SSD backward
    kernels' share, its ``record_function`` range, no plain SSD backward
@@ -192,7 +196,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    share and device time by kernel (the fused/pallas run's beside the
    one from before the allocation kernel ran two blocks an SM,
    ``ONE_BLOCK_FUSED_TRACE``; the fold's device time a window beside the
-   service and allocation kernels').
+   service and allocation kernels'); and at each wide cell one fused/pallas
+   run and one mega run of its fleet (``trace_fleet_cell``): B1, B2 and
+   B3's device time a launch inside the fleet's own windows, and the time
+   a window on the host's clock, device busy time and idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is a JSON object with one entry per kernel, and the two
@@ -1776,8 +1783,8 @@ def leaf_errs(torch, label, got, want, atol):
 
 
 def check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, clusters):
-    """Phase 2 for rows over clusters: at the wide cells' widths (J=16384,
-    clusters of 2; J=65536, of 8), at O of 1 and one past a full wave of
+    """Phase 2 for rows over clusters: at J=16384 (clusters of 2), 32768
+    (of 4) and 65536 (of 8), at O of 1 and one past a full wave of
     clusters (each kernel's resident clusters + 1): B1 at W of 0, 1 and 10
     (atol 1e-4; budgets of +inf and 0, backlog caps below the queue); B2
     (allocations equal, record and remainder within 1e-3); B3 for each
@@ -1792,7 +1799,7 @@ def check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, clusters):
              ("adaptbf", "static", "nobw", "static_wc", "aimd")]
     cases += [(f"coded[{name}]", CodedPolicy(DEFAULT_CODED_POLICIES), code)
               for name, code in FLEET_CONTROL_CODES.items()]
-    for j in (16384, 65536):
+    for j in (16384, 32768, 65536):
         c = cluster_size(j)
         for name in worst:
             o_wave = clusters[name][c] + 1
@@ -2019,15 +2026,8 @@ def wide_phase(torch, dev, counts, zero_counts, names, card):
                   f"equal to its own simulate_fleet run")
             del batched, one, t_nodes, t_volume, t_rates
         del mega
-        rates = {}
-        for key, serve, alloc in (("fused/pallas", "fused", "pallas"),
-                                  ("mega/core", "mega", "core")):
-            secs = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                run(serve, alloc)
-                secs.append(time.perf_counter() - t0)
-            rates[key] = n_win / statistics.median(secs)
+        rates = {k: statistics.median(v) for k, v in
+                 fleet_rates(torch, dev, inputs, n_win).items()}
         rates["scan/core"] = n_win / plain_secs
         print(f"{label} windows/s on {card} (kernel paths: median of 3 runs; "
               "plain: its one run): "
@@ -2035,79 +2035,184 @@ def wide_phase(torch, dev, counts, zero_counts, names, card):
         launches = {**fused_launches,
                     "window_mega": mega_launches["window_mega"]}
         out[label] = dict(o=o, j=j, c=c, windows=n_win, rates=rates,
-                          launches=launches)
+                          launches=launches, inputs=inputs)
         del inputs, scn
-        torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
+#: a fleet's kernel paths: (key, serve, alloc, the kernels each window
+#: launches once)
+FLEET_PATHS = (("fused/pallas", "fused", "pallas",
+                ("fleet_window", "adaptbf_alloc")),
+               ("mega/core", "mega", "core", ("window_mega",)))
+
+
+def fleet_rates(torch, dev, inputs, n_win, runs=3):
+    """Windows/s of each kernel path of ``FLEET_PATHS`` on a fleet's
+    inputs: ``runs`` runs of ``n_win`` windows each on the host's clock.
+    Returns {path: [windows/s of each run, fastest first]}."""
+    rates = {}
+    for key, serve, alloc, _ in FLEET_PATHS:
+        secs = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fleet_run(torch, dev, inputs, serve, alloc, n_windows=n_win)
+            secs.append(time.perf_counter() - t0)
+        rates[key] = [n_win / x for x in sorted(secs)]
+    return rates
+
+
+def trace_fleet_cell(torch, dev, label, inputs, o, j, n_win, card):
+    """One run of each kernel path of ``FLEET_PATHS`` on a fleet's inputs
+    under ``torch.profiler`` (``trace``): the device time a launch of each
+    of its kernels inside the fleet's own windows, and the run's time on
+    the host's clock, device busy time and idle share a window.  Each
+    kernel launches once a window, so the profiler must see ``n_win``
+    launches of each: where it saw fewer (it drops a few events), the path
+    is traced once more, and if it is still short its busy time and idle
+    share are None (not measured), since they lack the missed launches.
+    Returns {path: {host_ms_per_window, busy_ms_per_window, idle_share,
+    us_per_launch, launches_seen}}."""
+    out = {}
+    for key, serve, alloc, focus in FLEET_PATHS:
+        for attempt in range(2):
+            got = trace(torch, f"{label} {key}",
+                        lambda: fleet_run(torch, dev, inputs, serve, alloc,
+                                          n_windows=n_win),
+                        what=f"{n_win} windows at O={o} J={j}", focus=focus)
+            if got is None:
+                break
+            seen = {k: n for k, (n, _) in got[2].items()}
+            whole = all(n == n_win for n in seen.values())
+            if whole:
+                break
+            print(f"trace ({label} {key}): the profiler saw {seen} of the "
+                  f"run's {n_win} launches a kernel; "
+                  + ("tracing again" if attempt == 0 else
+                     "device busy and idle share not measured"))
+        if got is None:
+            continue
+        busy, idle, per = got
+        wall = busy / max(1.0 - idle, 1e-9)  # the run's own clock
+        us = {k: 1e3 * t / max(n, 1) for k, (n, t) in per.items()}
+        out[key] = dict(host_ms_per_window=wall / n_win,
+                        busy_ms_per_window=busy / n_win if whole else None,
+                        idle_share=idle if whole else None,
+                        us_per_launch=us, launches_seen=seen)
+        print(f"trace ({label} {key}) on {card}: {wall / n_win:.4f} ms "
+              "a window on the host's clock, "
+              + (f"device busy {busy / n_win:.4f} ms a window, idle share "
+                 f"{idle:.3f}; " if whole else
+                 "device busy and idle share not measured; ")
+              + ", ".join(f"{k} {v:.2f} us a launch ({seen[k]} seen)"
+                          for k, v in us.items()))
+    return out
+
+
+def trace_wide(torch, dev, wide, card):
+    """Phase 5 at the wide cells: ``trace_fleet_cell`` at each.  Frees the
+    cells' inputs; fills ``wide[cell]["trace"]``."""
+    for label, o, j, n_win in WIDE_CELLS:
+        inputs = wide[label].pop("inputs")
+        wide[label]["trace"] = trace_fleet_cell(torch, dev, label, inputs, o,
+                                                j, n_win, card)
+        del inputs
+    torch.cuda.empty_cache()
+
+
+def time_wide_cell(torch, fw_ops, alloc_ops, mega_ops, dev, o, j, label):
+    """B1, B2 and B3 (adaptbf) on one window's seeded fixtures at a wide
+    cell's shape (``window_case``, ``alloc_case`` at a capacity of 50000,
+    whose floors overshoot and run the excess descent, ``mega_case``):
+    allocations equal to the plain versions', two calls of B2 and B3
+    bitwise equal, max |err| of the other fields; then each timed (CUDA
+    events, 20 launches, median of 5; plain: 3 of 3) beside its bound.
+    Returns {kernel: {ms, plain_ms, bound_ms, bound_by, max_abs_err}}."""
+    from repro_torch.core.policies import get_policy
+    host = window_case(o, j, W, seed=11)
+    fw_args = [torch.as_tensor(x, device=dev) for x in host]
+    host = alloc_case(o, j, seed=97, cap=50000.0)
+    al_args = [torch.as_tensor(x, device=dev) for x in host]
+    m_in, rng = mega_case(torch, get_policy("adaptbf"), o, j, W, seed=300,
+                          dev=dev)
+    ctx, cap_tick, backlog, queue, vol, alloc, held, pstate = m_in
+    rates = torch.as_tensor(rng.integers(0, 3, (W, o, j)).astype(
+        np.float32), device=dev)
+    mega_args = (get_policy("adaptbf"), ctx, cap_tick, backlog, queue, vol,
+                 alloc, held, pstate, rates)
+    got = alloc_ops.fleet_alloc(*al_args)
+    want = alloc_ops.fleet_alloc_ref(*al_args)[:3]
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{label}: adaptbf_alloc allocations differ")
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, alloc_ops.fleet_alloc(*al_args))):
+        raise AssertionError(f"{label}: two adaptbf_alloc calls differ")
+    mgot = mega_ops.mega_window_round(*mega_args)
+    mwant = mega_ops.ref.mega_round_ref(*mega_args)
+    if not torch.equal(mgot[8], mwant[8]):
+        raise AssertionError(f"{label}: window_mega allocations differ")
+    flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
+    if not all(torch.equal(a, b) for a, b in zip(
+            flat(mgot), flat(mega_ops.mega_window_round(*mega_args)))):
+        raise AssertionError(f"{label}: two window_mega calls differ")
+    errs = {
+        "fleet_window": leaf_errs(torch, f"{label} fleet_window",
+                                  fw_ops.fleet_window_serve(*fw_args),
+                                  fw_ops.fleet_window_ref(*fw_args), 1e-4),
+        "adaptbf_alloc": leaf_errs(torch, f"{label} adaptbf_alloc",
+                                   got[1:], want[1:], 1e-3),
+        "window_mega": leaf_errs(torch, f"{label} window_mega",
+                                 flat(mgot), flat(mwant), 1e-3)}
+    del got, want, mgot, mwant
+    times = {
+        "fleet_window": (
+            cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20),
+            cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
+                    groups=3), bound_ms(*window_work(o, j, W))),
+        "adaptbf_alloc": (
+            cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20),
+            cuda_ms(lambda: alloc_ops.fleet_alloc_ref(*al_args), reps=3,
+                    groups=3), bound_ms(*alloc_work(o, j))),
+        "window_mega": (
+            cuda_ms(lambda: mega_ops.mega_window_round(*mega_args),
+                    reps=20),
+            cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
+                    reps=3, groups=3), bound_ms(*mega_work(o, j, W)))}
+    return {name: dict(ms=t[0], plain_ms=t[1], bound_ms=t[2][0],
+                       bound_by=t[2][1], max_abs_err=errs[name])
+            for name, t in times.items()}
+
+
 def time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
                       clusters, n_sm):
-    """Phase 4 at the wide cells' shapes: B1, B2 and B3 (adaptbf) on one
-    window's seeded fixtures (``window_case``, ``alloc_case``,
-    ``mega_case``) against their plain versions (max |err|), timed (CUDA
-    events, 20 launches, median of 5; plain: 3 of 3) beside their bounds.
+    """Phase 4 at the wide cells' shapes: ``time_wide_cell`` at each.
     Then what a cluster reduction costs against a block's: B1 with W=50
     ticks (two reductions a tick) at J=8192 on c * n rows (one block a
     row) and at J=8192 c on n rows (clusters of c), the same blocks of the
     same lanes in one wave (n clusters resident at once, c * n SMs at
     most), for c of 2 and 8.  Fills ``wide[cell]``."""
-    from repro_torch.core.policies import get_policy
     for label, o, j, _ in WIDE_CELLS:
-        host = window_case(o, j, W, seed=11)
-        fw_args = [torch.as_tensor(x, device=dev) for x in host]
-        host = alloc_case(o, j, seed=97, cap=50000.0)
-        al_args = [torch.as_tensor(x, device=dev) for x in host]
-        m_in, rng = mega_case(torch, get_policy("adaptbf"), o, j, W, seed=300,
-                              dev=dev)
-        ctx, cap_tick, backlog, queue, vol, alloc, held, pstate = m_in
-        rates = torch.as_tensor(rng.integers(0, 3, (W, o, j)).astype(
-            np.float32), device=dev)
-        mega_args = (get_policy("adaptbf"), ctx, cap_tick, backlog, queue, vol,
-                     alloc, held, pstate, rates)
-        got = alloc_ops.fleet_alloc(*al_args)
-        want = alloc_ops.fleet_alloc_ref(*al_args)[:3]
-        if not torch.equal(got[0], want[0]):
-            raise AssertionError(f"{label}: adaptbf_alloc allocations differ")
-        mgot = mega_ops.mega_window_round(*mega_args)
-        mwant = mega_ops.ref.mega_round_ref(*mega_args)
-        if not torch.equal(mgot[8], mwant[8]):
-            raise AssertionError(f"{label}: window_mega allocations differ")
-        flat = lambda out: [*out[:7], *mega_ops._leaves(out[7]), out[8]]
-        errs = {
-            "fleet_window": leaf_errs(torch, f"{label} fleet_window",
-                                      fw_ops.fleet_window_serve(*fw_args),
-                                      fw_ops.fleet_window_ref(*fw_args), 1e-4),
-            "adaptbf_alloc": leaf_errs(torch, f"{label} adaptbf_alloc",
-                                       got[1:], want[1:], 1e-3),
-            "window_mega": leaf_errs(torch, f"{label} window_mega",
-                                     flat(mgot), flat(mwant), 1e-3)}
-        del got, want, mgot, mwant
-        times = {
-            "fleet_window": (
-                cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20),
-                cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
-                        groups=3), bound_ms(*window_work(o, j, W))),
-            "adaptbf_alloc": (
-                cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20),
-                cuda_ms(lambda: alloc_ops.fleet_alloc_ref(*al_args), reps=3,
-                        groups=3), bound_ms(*alloc_work(o, j))),
-            "window_mega": (
-                cuda_ms(lambda: mega_ops.mega_window_round(*mega_args),
-                        reps=20),
-                cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
-                        reps=3, groups=3), bound_ms(*mega_work(o, j, W)))}
-        wide[label]["kernels"] = {name: dict(
-            ms=t[0], plain_ms=t[1], bound_ms=t[2][0], bound_by=t[2][1],
-            max_abs_err=errs[name]) for name, t in times.items()}
+        wide[label]["kernels"] = k = time_wide_cell(
+            torch, fw_ops, alloc_ops, mega_ops, dev, o, j, label)
         print(f"kernel times at {label} (O={o} J={j} W={W}, clusters of "
               f"{wide[label]['c']}) on {card}: "
-              + "; ".join(f"{name} {t[0]:.4f} ms (plain {t[1]:.4f} ms, bound "
-                          f"{t[2][0]:.4f} ms by {t[2][1]}; max |err| "
-                          f"{errs[name]})" for name, t in times.items()))
-        del fw_args, al_args, mega_args, m_in, rates
-    # a cluster reduction against a block's: the same 16-lane blocks
+              + "; ".join(f"{name} {t['ms']:.4f} ms (plain "
+                          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f}"
+                          f" ms by {t['bound_by']}; max |err| "
+                          f"{t['max_abs_err']})" for name, t in k.items())
+              + "; two calls of adaptbf_alloc and window_mega bitwise equal")
+    wide["reduction_cost"] = cluster_reduction_cost(torch, fw_ops, dev, card,
+                                                    clusters, n_sm)
+
+
+def cluster_reduction_cost(torch, fw_ops, dev, card, clusters, n_sm):
+    """What a cluster reduction costs against a block's: B1 with W=50
+    ticks (two reductions a tick) at J=8192 on c * n rows (one block a
+    row) and at J=8192 c on n rows (clusters of c), the same blocks of the
+    same lanes in one wave (n clusters resident at once, c * n SMs at
+    most), for c of 2 and 8.  Returns {c: (ms one block a row, ms over
+    clusters, us a reduction more, n)}."""
     ticks, cost = 50, {}
     for c in (2, 8):
         n = min(clusters["fleet_window"][c], n_sm // c)
@@ -2119,7 +2224,6 @@ def time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
         tc = cuda_ms(lambda: fw_ops.fleet_window_serve(*wide_in), reps=20)
         cost[c] = (t1, tc, (tc - t1) * 1e3 / (2 * ticks), n)
         del one, wide_in
-    wide["reduction_cost"] = cost
     print(f"a cluster reduction against a block reduction on {card} "
           f"(fleet_window, W={ticks}, {2 * ticks} reductions a launch, the "
           "same blocks of 8192 lanes in one wave): "
@@ -2127,14 +2231,19 @@ def time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
                       f"one block a row, {cost[c][1]:.4f} ms clusters of {c}, "
                       f"{cost[c][2]:.3f} us a reduction more"
                       for c in cost))
+    return cost
 
 
 def wide_entry(wide, name):
-    """A fleet kernel's numbers at the wide cells for the kernel line."""
-    return {"wide": {label: {"cluster": wide[label]["c"],
-                             "launches": wide[label]["launches"][name],
-                             **wide[label]["kernels"][name]}
-                     for label, *_ in WIDE_CELLS}}
+    """A fleet kernel's numbers at the wide cells for the kernel line,
+    with its device time a launch inside the traced fleet run."""
+    run = "mega/core" if name == "window_mega" else "fused/pallas"
+    return {"wide": {label: {
+        "cluster": wide[label]["c"],
+        "launches": wide[label]["launches"][name],
+        **wide[label]["kernels"][name],
+        "trace_us_per_launch": wide[label].get("trace", {}).get(run, {})
+        .get("us_per_launch", {}).get(name)} for label, *_ in WIDE_CELLS}}
 
 
 # ------------------------------------------------------- the LM serving path
@@ -3994,13 +4103,15 @@ def main() -> int:
 
     lap("4 times")
     # 5. where the time goes: one run of each kernel path under the profiler
-    fused = trace(torch, "fused/pallas", lambda: run("fused", "pallas"),
-                  focus=("fleet_window", "adaptbf_alloc"))
-    if fused:
-        print(f"trace (fused/pallas): device busy {fused[0]:.2f} ms, idle "
-              f"share {fused[1]:.3f}; with the allocation at one block an SM "
+    main_trace = trace_fleet_cell(torch, dev, "main cell", inputs, O, J,
+                                  N_WINDOWS, card)
+    busy = main_trace.get("fused/pallas", {}).get("busy_ms_per_window")
+    busy = None if busy is None else busy * N_WINDOWS
+    if busy is not None:
+        print(f"trace (fused/pallas): device busy {busy:.2f} ms, idle "
+              f"share {main_trace['fused/pallas']['idle_share']:.3f}; with "
+              f"the allocation at one block an SM "
               f"{ONE_BLOCK_FUSED_TRACE[0]} ms, {ONE_BLOCK_FUSED_TRACE[1]}")
-    trace(torch, "mega", lambda: run("mega", "core"), focus=("window_mega",))
     streaming = trace(torch, "fused/pallas, streaming",
                       lambda: run("fused", "pallas", telemetry="streaming"),
                       focus=("fleet_window", "adaptbf_alloc"))
@@ -4028,7 +4139,9 @@ def main() -> int:
               f"{t2 / max(n2, 1):.4f} ms a launch; streaming fused/pallas "
               f"device busy {streaming[0]:.2f} ms, idle share "
               f"{streaming[1]:.3f} (trajectory: "
-              f"{fused[0] if fused else float('nan'):.2f} ms)")
+              f"{busy if busy is not None else float('nan'):.2f} ms)")
+
+    trace_wide(torch, dev, wide, card)
 
     lap("5 traces")
     kernels = [

@@ -30,8 +30,9 @@ def fleet_alloc_ref(demand, nodes, record, remainder, alloc_prev, capacity,
 # Rows are [R, J] float32.  A row runs on ``blocks`` thread blocks (default:
 # the kernels' rule, ``dispatch.cluster_size``), block q counting the slice
 # of S = ceil(J / blocks) lanes from q * S, as a cluster runs it: the
-# searches sum the slices' counts in rank order, and a tied lane's index
-# rank adds the tied lanes of the lower slices.
+# searches sum the slices' counts, and a tied lane's index rank adds the
+# tied lanes of the lower slices, read from their last radix pass's counts
+# (what the kernel adds into each higher rank's lower-ranks table).
 
 _U32 = 0xFFFFFFFF
 
@@ -65,7 +66,8 @@ def topk_mask_radix(key: torch.Tensor, k, blocks=None) -> torch.Tensor:
     threshold are selected by a prefix count.  key [R, J], k [R] ints;
     each histogram is the sum of the row's blocks' (``_slices``), and the
     prefix count runs slice by slice, each slice's offset the tied lanes of
-    the slices before it."""
+    the slices before it: the sum of their last pass's counts at the
+    threshold's last digit."""
     u = _order_u32(key.to(torch.float32))
     rows, j = u.shape
     slices = _slices(j, blocks)
@@ -81,11 +83,10 @@ def topk_mask_radix(key: torch.Tensor, k, blocks=None) -> torch.Tensor:
         for pas in range(4):
             shift = 24 - 8 * pas
             hi = 0 if pas == 0 else (_U32 << (shift + 8)) & _U32
-            hist = torch.zeros(256, dtype=torch.int64)
-            for a, b in slices:
-                us = ur[a:b]
-                hist += torch.bincount((us[(us & hi) == pre] >> shift) & 255,
-                                       minlength=256)
+            per_slice = [torch.bincount((ur[a:b][(ur[a:b] & hi) == pre]
+                                         >> shift) & 255, minlength=256)
+                         for a, b in slices]
+            hist = sum(per_slice)
             at_least = hist.flip(0).cumsum(0).flip(0)   # count(digit >= d)
             above = at_least - hist
             d = int(((above < krem) & (krem <= at_least)).nonzero()[0])
@@ -98,10 +99,10 @@ def topk_mask_radix(key: torch.Tensor, k, blocks=None) -> torch.Tensor:
             tied = ur == pre
             rank = torch.empty(j, dtype=torch.int64)
             lower = 0   # tied lanes of the lower slices
-            for a, b in slices:
+            for (a, b), counts in zip(slices, per_slice):
                 within = torch.cumsum(tied[a:b].to(torch.int64), 0)
                 rank[a:b] = lower + within - 1
-                lower += int(within[-1])
+                lower += int(counts[pre & 255])
             sel[r] = (ur > pre) | (tied & (rank < krem))
     return sel
 

@@ -40,6 +40,12 @@
 // (alloc_round.cuh); one block an SM at 16 lanes a thread.  Rows of
 // J <= 8192 run the one-block case, unchanged.
 //
+// What crosses the cluster: each block pushes its partials into every
+// peer's shared memory before a cluster barrier and reads only its own
+// after it; the DSMEM bytes a block writes a reduction and a search pass,
+// at c = 2, 4 and 8, are given beside the code (common.cuh: reductions;
+// alloc_round.cuh: the top-k search and the excess descent).
+//
 // A batch of F independent fleets (storage/tenants.py) is F * O rows of one
 // launch: the round reads no rates and nothing of a row's place, so a row
 // gives the same bits launched alone or in a batch.

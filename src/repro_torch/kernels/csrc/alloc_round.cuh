@@ -30,16 +30,33 @@
 // round count p.
 //
 // A row over a cluster (common.cuh, ClusterRed) runs the same searches
-// with every barrier the cluster's: each block counts its slice into its
-// own tables, and after the barrier every warp sums the c blocks' tables
-// through distributed shared memory (integers: exact in any order, so
-// every thread finds the same digit, threshold and p); the tied lanes of
-// lower ranks come first in index order, so a tied lane's rank adds the
-// tied counts of the lower ranks' tables.  The tables follow the
-// reductions' two-set rule: a block rewrites a table only after a cluster
-// barrier that every peer reaches after its last read of it (a search's
-// histograms two searches on, past the next distribution's first
-// reduction; a pass's candidates two passes on).
+// with every barrier the cluster's, and shares only block totals, pushed
+// into every block before the barrier, so what crosses the cluster does
+// not grow with the warps a block:
+//   - a radix pass: each block counts its slice into its own histogram
+//     (shared atomics), then after a __syncthreads adds each nonzero bin
+//     into the row table of every block (atomicAdd on the peer's shared
+//     address: red.shared::cluster), and in the last pass also into the
+//     lower-ranks table of every higher rank; after the cluster barrier
+//     every warp scans its own block's row table.  Integer counts: exact in
+//     any order, so every thread finds the same digit.  At most 1 KiB to
+//     each of the c blocks a pass (2, 4, 8 KiB at c = 2, 4, 8), the last
+//     pass at most (2c - 1 - rank) KiB (3, 7, 15 KiB at rank 0);
+//   - the tied lanes' rank: lanes of lower ranks come first in index order,
+//     and their count is the lower-ranks table at the threshold's last
+//     digit, already in the block's shared memory: the tie stage's barrier
+//     is the block's own, and it sends nothing across the cluster;
+//   - an excess pass: warp 0 sums the block's 16 warps' 32 candidate sums
+//     after a __syncthreads and writes them into slot `rank` of every
+//     block; after the barrier each lane sums its candidate's c slots in
+//     rank order (exact integers).  256 B to each block a pass (512 B, 1 KiB,
+//     2 KiB at c = 2, 4, 8).
+// The tables follow the reductions' two-set rule: peers add into a table
+// set only after a cluster barrier that every block reaches after its last
+// read of it and after zeroing it (a search's row and lower-ranks tables
+// are zeroed one search ahead, past the next distribution's first
+// reduction; RowBlock<true> zeroes the first set), and a pass's candidate
+// slots are rewritten two passes on.
 //
 // Registers.  A row's lanes are spread 8 a thread at J = 4096, so every
 // float[LPT] array the round keeps alive across a barrier costs 8
@@ -268,21 +285,25 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
 }
 
 // The cluster overloads below repeat the one-block searches above with the
-// cluster's barriers and DSMEM reads.  They are kept apart so that the
-// one-block code stays as it was: sharing the text through template
+// cluster's barriers and pushed block totals.  They are kept apart so that
+// the one-block code stays as it was: sharing the text through template
 // branches moved ptxas's register allocation and spills (PERF.md).
 //
-// topk_mask for a row over a cluster: the same search with every barrier
-// the cluster's.  Each block counts its own lanes (below n_jobs, its
-// slice) into its own tables; every warp sums the c blocks' tables through
-// DSMEM; a tied lane's rank adds the tied lanes of the lower ranks.
+// topk_mask for a row over a cluster: each block counts its own lanes
+// (below n_jobs, its slice) and adds its counts into every block's row
+// table; every warp scans its own block's; a tied lane's rank adds the
+// tied lanes of the lower ranks (the lower-ranks table).
 template <int LPT>
 __device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
                                               int n_jobs, ClusterRed& r) {
   Scratch& s = *r.s;
+  ClusterScratch& cs = *r.cs;
   const int set = r.searches++ & 1;
-  for (int k2 = threadIdx.x; k2 < 4 * 256; k2 += THREADS)
+  for (int k2 = threadIdx.x; k2 < 4 * 256; k2 += THREADS) {
     (&s.hist[set ^ 1][0][0])[k2] = 0;
+    (&cs.hist[set ^ 1][0][0])[k2] = 0;
+  }
+  for (int k2 = threadIdx.x; k2 < 256; k2 += THREADS) cs.lower[set ^ 1][k2] = 0;
   uint32_t in = 0;  // this block's lanes below n_jobs
 #pragma unroll
   for (int i = 0; i < LPT; ++i) in |= static_cast<uint32_t>(lane_of(i) < n_jobs) << i;
@@ -302,23 +323,29 @@ __device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
   for (int pass = 0; pass < 4; ++pass) {
     const int shift = 24 - 8 * pass;
     int* const hist = s.hist[set][pass];
+    int* const row = cs.hist[set][pass];
     const unsigned hi = pass == 0 ? 0u : 0xFFFFFFFFu << (shift + 8);
 #pragma unroll
     for (int i = 0; i < LPT; ++i)
       if (bit(in, i) && (u[i] & hi) == pre)
         atomicAdd(&hist[(u[i] >> shift) & 255u], 1);
+    __syncthreads();
+    // bin m % 256 of this block into the tables of block m / 256
+    for (int m = threadIdx.x; m < r.blocks * 256; m += THREADS) {
+      const int q = m >> 8, bin = m & 255;
+      const int v = hist[bin];
+      if (v != 0) {
+        atomicAdd(peer(&row[bin], q), v);
+        if (pass == 3 && q > r.rank) atomicAdd(peer(&cs.lower[set][bin], q), v);
+      }
+    }
     cluster_sync();
     int b[8], tot = 0;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) b[e] = 0;
-#pragma unroll 1
-    for (int q = 0; q < r.blocks; ++q) {
-      const int* const h = peer(hist, q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) b[e] += h[8 * lane + e];
+    for (int e = 0; e < 8; ++e) {
+      b[e] = row[8 * lane + e];
+      tot += b[e];
     }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) tot += b[e];
     int incl = tot;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -341,9 +368,7 @@ __device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
     d = __shfl_sync(0xffffffffu, d, src);
     krem -= __shfl_sync(0xffffffffu, above, src);
     pre |= static_cast<unsigned>(d) << shift;
-    n_tied = 0;
-#pragma unroll 1
-    for (int q = 0; q < r.blocks; ++q) n_tied += peer(hist, q)[d];
+    n_tied = row[d];
     if (n_tied == krem) {
       const unsigned mask = 0xFFFFFFFFu << shift;
       uint32_t sel = 0;
@@ -359,16 +384,10 @@ __device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
     const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
     if (lane == 0) s.tie[i][warp] = __popc(tied);
   }
-  cluster_sync();
-  int lower = 0;  // tied lanes of the lower ranks
-#pragma unroll 1
-  for (int q = 0; q < r.rank; ++q) {
-    const int* const t = &peer(r.s, q)->tie[0][0];
-    for (int m = lane; m < LPT * WARPS; m += 32) lower += t[m];
-  }
+  __syncthreads();
   const unsigned below = (1u << lane) - 1u;
   uint32_t sel = 0;
-  int base = warp_count(lower);
+  int base = cs.lower[set][pre & 255u];  // tied lanes of the lower ranks
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
     const unsigned tied = __ballot_sync(0xffffffffu, bit(in, i) && u[i] == pre);
@@ -383,7 +402,8 @@ __device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
 }
 
 // excess_rounds for a row over a cluster: each pass's candidate sums are
-// the c blocks' tables summed through DSMEM after the cluster barrier.
+// the block's (warp 0 over its 16 warps), pushed into slot `rank` of every
+// block, then the c slots summed in rank order after the cluster barrier.
 template <int LPT>
 __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
                                               float d_dn, int& p, float& g_p,
@@ -399,6 +419,7 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
   for (int pass = 0; pass < 5; ++pass) {
     const int shift = 20 - 5 * pass;
     unsigned long long(*const cand)[32] = s.cand[pass & 1];
+    unsigned long long(*const slots)[32] = r.cs->cand[pass & 1];
 #pragma unroll
     for (int grp = 0; grp < 4; ++grp) {
       unsigned v[8];
@@ -432,14 +453,18 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
       w += __shfl_xor_sync(0xffffffffu, w, 1);
       if ((lane & 3) == 0) cand[warp][grp * 8 + (lane >> 2)] = w;
     }
+    __syncthreads();
+    if (warp == 0) {
+      unsigned long long mine = 0;
+#pragma unroll
+      for (int k = 0; k < WARPS; ++k) mine += cand[k][lane];
+#pragma unroll 1
+      for (int q = 0; q < r.blocks; ++q) *peer(&slots[r.rank][lane], q) = mine;
+    }
     cluster_sync();
     unsigned long long tot = 0;
 #pragma unroll 1
-    for (int q = 0; q < r.blocks; ++q) {
-      unsigned long long(*const cq)[32] = peer(cand, q);
-#pragma unroll
-      for (int k = 0; k < WARPS; ++k) tot += cq[k][lane];
-    }
+    for (int q = 0; q < r.blocks; ++q) tot += slots[q][lane];
     const float gc = __ull2float_rn(tot);
     const int best = 31 - __clz(__ballot_sync(0xffffffffu, gc <= d_dn));
     g_p = __shfl_sync(0xffffffffu, gc, best);

@@ -18,19 +18,29 @@
 // blocks (RowBlock<true>; c = cluster_blocks(J), the fewest of 2, 4 and 8
 // with c * 8192 >= J), co-scheduled on one GPC.  Block rank q owns the
 // slice of S = ceil(J / c) lanes from q * S, laid out in it as a row of its
-// own (so lane index order is rank, then lane slot, warp, lane).  Each
-// reduction is still one barrier, now the cluster's (barrier.cluster
-// arrive.release / wait.acquire): every warp writes its partial into its
-// own block's slot set n & 1 as above, and after the barrier every thread
-// reads the c x WARPS slots of the cluster through distributed shared
-// memory in a fixed order (lane l: slots l, l + 32, ... of the rank-major
-// list) and sums them with the same butterfly, so every thread of every
-// block gets the same total and cluster-uniform branches stay uniform.  The
-// two-set argument carries over, a block's slot set being read by its peers
-// only between the barrier of reduction n and their arrival at the barrier
-// of reduction n + 1.  A block's shared memory must outlive its peers'
-// reads of it: each block waits at one more cluster barrier before it
-// exits (RowBlock<true>::done), after which no peer reads it.
+// own (so lane index order is rank, then lane slot, warp, lane).  Peers
+// share partials by push: in a reduction each warp writes its partial
+// into slot (rank, warp) of every block's ClusterScratch through
+// distributed shared memory (DSMEM), and one cluster barrier
+// (arrive.release / wait.acquire) publishes them; after it every thread
+// sums the c x WARPS slots of its own block's shared memory in a fixed
+// order (lane l: slots l, l + 32, ... of the rank-major list, then a
+// butterfly), so every thread of every block gets the same total and
+// cluster-uniform branches stay uniform.  A block thus sends its 16 slots
+// to each of the c blocks: c x 256 B of DSMEM a block a reduction (512 B,
+// 1 KiB, 2 KiB at c = 2, 4, 8), whatever the number of warps reading them.
+// The two-set argument carries over:
+// the peers write a block's slot set n & 1 in reduction n before its
+// barrier, the block reads it after that barrier and before it arrives at
+// the next, and no peer writes the set again before it has passed that
+// next barrier.  A peer's shared memory is written only once it has
+// started: each block arrives (relaxed) at a cluster barrier as it starts
+// (RowBlock<true>) and waits for it just before its first push, so the
+// wait overlaps the row's loads (PERF.md compares it with a whole barrier
+// at the start).  Every other barrier publishes data read right after it,
+// so it stays whole.  Each block waits at one last cluster barrier before
+// it exits (RowBlock<true>::done), after which no peer touches its shared
+// memory.
 //
 // Float row sums accumulate in double and round once to float, as the plain
 // PyTorch versions do (kernels/numerics.py::row_sum).  The kernel reduces in
@@ -81,11 +91,24 @@ struct Red {
   int searches;
 };
 
-// The reductions of a row over a cluster: as Red, with this block's rank,
-// the cluster's blocks and the whole row's jobs (the block's own lanes are
-// its slice).
+// What the blocks of a row over a cluster write into each other's shared
+// memory (only RowBlock<true> declares it, so the one-block instances keep
+// their shared memory and code).  Slot or table set n & 1, as in Scratch.
+struct ClusterScratch {
+  double f[2][MAX_CLUSTER * WARPS][2];  // [set][rank * WARPS + warp][sum]
+  int i[2][MAX_CLUSTER * WARPS];        // [set][rank * WARPS + warp]
+  // the allocation round's searches (alloc_round.cuh)
+  int hist[2][4][256];          // the row's digit counts: every rank adds its own
+  int lower[2][256];            // last pass: the lower ranks' counts
+  unsigned long long cand[2][MAX_CLUSTER][32];  // each block's candidate sums
+};
+
+// The reductions of a row over a cluster: as Red, with the tables the
+// cluster shares, this block's rank, the cluster's blocks and the whole
+// row's jobs (the block's own lanes are its slice).
 struct ClusterRed {
   Scratch* s;
+  ClusterScratch* cs;
   int n;
   int searches;
   int rank;
@@ -95,6 +118,16 @@ struct ClusterRed {
 
 __device__ __forceinline__ void cluster_sync() {
   cooperative_groups::this_cluster().sync();
+}
+
+// The two halves of a cluster barrier: arrive without publishing anything,
+// and wait (acquire).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // The address p of this block's shared memory in the block of cluster rank
@@ -128,21 +161,31 @@ template <>
 struct RowBlock<true> {
   ClusterRed red;
   int first, n;
+  // Arrives at the start barrier, which the first reduction (or done())
+  // waits for: no block writes a peer's shared memory before the peer has
+  // started.  Zeroes the search tables' first set (alloc_round.cuh), which
+  // peers add into only after a later barrier.
   __device__ __forceinline__ RowBlock(Scratch& s, int n_jobs) {
+    __shared__ ClusterScratch cs;
+    cluster_arrive_relaxed();
     const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
     const int c = static_cast<int>(cl.num_blocks());
     const int q = static_cast<int>(cl.block_rank());
     const int slice = (n_jobs + c - 1) / c;
-    red = ClusterRed{&s, 0, 0, q, c, n_jobs};
+    for (int k = threadIdx.x; k < 4 * 256; k += THREADS) (&cs.hist[0][0][0])[k] = 0;
+    for (int k = threadIdx.x; k < 256; k += THREADS) cs.lower[0][k] = 0;
+    red = ClusterRed{&s, &cs, 0, 0, q, c, n_jobs};
     first = q * slice;
     n = min(slice, n_jobs - first);
   }
   __device__ __forceinline__ static unsigned index() {
     return blockIdx.x / cooperative_groups::this_cluster().num_blocks();
   }
-  // peers read this block's reduction slots and search tables after each
-  // barrier until they reach the next one: wait for all of them first
-  __device__ __forceinline__ void done() { cluster_sync(); }
+  // no peer writes this block's shared memory once all have arrived here
+  __device__ __forceinline__ void done() {
+    if (red.n == 0) cluster_wait();  // no reduction waited for the start
+    cluster_sync();
+  }
 };
 
 // The kernel's dynamic shared memory (the allocation round's lane arrays,
@@ -198,31 +241,35 @@ __device__ __forceinline__ void block_reduce(double (&f)[2], int& c, Red& r) {
 }
 
 // The same over a cluster (an overload, so the one-block code above stays
-// as it was): the cluster's barrier, then slot m of the rank-major list of
-// the c x WARPS slots (block m / WARPS, warp m % WARPS) to lane m % 32, in
-// increasing m.
+// as it was): lane q of each warp writes the warp's partial into slot
+// rank * WARPS + warp of block q; the cluster's barrier; then slot m of the
+// rank-major list of the c x WARPS slots to lane m % 32, in increasing m.
+// The first reduction first waits for every peer to have started
+// (RowBlock<true>).
 template <int NF, int NI>
 __device__ __forceinline__ void block_reduce(double (&f)[2], int& c,
                                              ClusterRed& r) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (r.n == 0) cluster_wait();
   const int set = r.n++ & 1;
 #pragma unroll
   for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
   if (NI) c = warp_count(c);
-  if (lane == 0) {
+  if (lane < r.blocks) {
+    ClusterScratch* const to = peer(r.cs, lane);
+    const int m = r.rank * WARPS + warp;
 #pragma unroll
-    for (int k = 0; k < NF; ++k) r.s->f[set][warp][k] = f[k];
-    if (NI) r.s->i[set][warp] = c;
+    for (int k = 0; k < NF; ++k) to->f[set][m][k] = f[k];
+    if (NI) to->i[set][m] = c;
   }
   cluster_sync();
   double g[2] = {0.0, 0.0};
   int gc = 0;
 #pragma unroll 1
   for (int m = lane; m < r.blocks * WARPS; m += 32) {
-    const Scratch* ps = peer(r.s, m / WARPS);
 #pragma unroll
-    for (int k = 0; k < NF; ++k) g[k] += ps->f[set][m % WARPS][k];
-    if (NI) gc += ps->i[set][m % WARPS];
+    for (int k = 0; k < NF; ++k) g[k] += r.cs->f[set][m][k];
+    if (NI) gc += r.cs->i[set][m];
   }
 #pragma unroll
   for (int k = 0; k < NF; ++k) f[k] = warp_sum(g[k]);

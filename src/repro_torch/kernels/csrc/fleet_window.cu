@@ -29,8 +29,9 @@
 // Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
 // c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>): each block serves
 // its slice of the row with the same loop, its rate rows offset by the
-// slice, and the tick's row sums are the cluster's.  Rows of J <= 8192 run
-// the one-block case, unchanged.
+// slice, and the tick's row sums are the cluster's (each warp's partial
+// pushed into every block before the cluster barrier: common.cuh).  Rows
+// of J <= 8192 run the one-block case, unchanged.
 //
 // A batch of F independent fleets (storage/tenants.py) is F * O rows in one
 // launch: block r serves row o = r % O of fleet f = r / O, whose rates start

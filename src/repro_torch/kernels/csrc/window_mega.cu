@@ -47,6 +47,12 @@
 // 256 x 16384 (PERF.md).  Rows of J <= 8192 run the one-block cases,
 // unchanged.
 //
+// What crosses the cluster: each block pushes its partials into every
+// peer's shared memory before a cluster barrier and reads only its own
+// after it; the DSMEM bytes a block writes a reduction and a search pass,
+// at c = 2, 4 and 8, are given beside the code (common.cuh: reductions;
+// alloc_round.cuh: the top-k search and the excess descent).
+//
 // A batch of F independent fleets (storage/tenants.py): F * O rows, the
 // rates of row o = f * O + r at (f * rate_fleet_rows + r) * J floats (0 rows
 // a fleet for one shared trace), ticks O * J apart, as in fleet_window.cu.

@@ -10,8 +10,9 @@ seeded numpy rows: many exact ties, -0.0 beside +0.0, -inf keys, all keys
 The reference runs on rows padded to J = 8192 with excluded lanes (-inf
 keys, unmasked jobs) after the real ones, which rank after every real lane
 and take no tokens, so eager JAX compiles each primitive once.  Rows wider
-than 8192 (8193, 16384, 65536: a cluster of 2, 2 and 8 blocks in the
-kernels) are padded to 65536 and run the models with the cluster split, the
+than 8192 (8193, 16384, 32768, 40000, 65536: a cluster of 2, 2, 4, 8 and 8
+blocks in the kernels, 40000 in slices of 5000) are padded to 65536 and run
+the models with the cluster split, the
 row's slices counted block by block; their cases put exact ties and -0.0
 beside +0.0 across every slice edge and k on every slice boundary."""
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ torch.set_num_threads(1)
 PAD = 8192
 WIDTHS = [1, 7, 4095, 4096, 8192]
 WIDE_PAD = MAX_JOBS                 # 65536
-WIDE = [8193, 16384, 65536]         # clusters of 2, 2 and 8 blocks
+WIDE = [8193, 16384, 32768, 40000, 65536]  # clusters of 2, 2, 4, 8, 8 blocks
 WIDE_ROWS = 4                       # one shape a primitive at WIDE_PAD
 
 
@@ -149,7 +150,8 @@ def test_radix_topk_model_bitwise_across_slices(j):
     rng = np.random.default_rng(j + 5)
     key = _wide_keys(rng, j)
     padded = jnp.asarray(_pad(key, -np.inf, WIDE_PAD))
-    assert len(model._slices(j)) == (8 if j > 32768 else 2)
+    assert len(model._slices(j)) == {8193: 2, 16384: 2, 32768: 4,
+                                     40000: 8, 65536: 8}[j]
     ks = [1, *(e + d for e in _edges(j) for d in (-1, 0, 1)), j - 1]
     for kk in ks:
         k = np.full(WIDE_ROWS, kk, np.int32)

@@ -205,16 +205,15 @@ def test_alloc_kernel_edge_shapes(cuda, o, j):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
 
 
-@pytest.mark.parametrize("j", STRESS_WIDTHS)
-def test_mega_kernel_on_search_stress_rows(cuda, j):
-    """The window megakernel's adaptbf case on the same rows (row 2 gets
-    no traffic, so it observes no demand), against its plain round."""
+def _mega_stress_args(j, dev):
+    """The window megakernel's adaptbf round on ``_alloc_stress`` rows (row
+    2 gets no traffic, so it observes no demand)."""
     demand, nodes, record, remainder, prev, cap = _alloc_stress(j, j + 1)
     rng = np.random.default_rng(j)
     o, w = 6, 10
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
     cap_tick = t(cap / w)
     ctx = PolicyContext(nodes=t(nodes), cap_w=cap_tick * w)
@@ -223,13 +222,14 @@ def test_mega_kernel_on_search_stress_rows(cuda, j):
     queue[2] = 0.0
     rates[:, 2] = 0.0
     alloc = t(rng.integers(0, 20, (o, j)))
-    zeros = torch.zeros((o, j), device=cuda)
-    args = [get_policy("adaptbf"), ctx, cap_tick,
+    zeros = torch.zeros((o, j), device=dev)
+    return [get_policy("adaptbf"), ctx, cap_tick,
             t(rng.choice([16.0, 64.0], (o, j))), t(queue),
             t(np.full((o, j), np.inf)), alloc, (zeros, zeros, alloc),
             AllocatorState(t(record), t(remainder), t(prev)), t(rates)]
-    got = mega_ops.mega_window_round(*args)
-    want = mega_ops.ref.mega_round_ref(*args)
+
+
+def _mega_close(got, want):
     assert torch.equal(got[8], want[8])
     for i, (g, w_) in enumerate(zip(_mega_leaves(got), _mega_leaves(want),
                                     strict=True)):
@@ -237,6 +237,42 @@ def test_mega_kernel_on_search_stress_rows(cuda, j):
         fin = w_.isfinite()
         torch.testing.assert_close(g[fin], w_[fin], rtol=0, atol=1e-3,
                                    msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("j", STRESS_WIDTHS)
+def test_mega_kernel_on_search_stress_rows(cuda, j):
+    """The window megakernel's adaptbf case on the same rows (row 2 gets
+    no traffic, so it observes no demand), against its plain round."""
+    args = _mega_stress_args(j, cuda)
+    _mega_close(mega_ops.mega_window_round(*args),
+                mega_ops.ref.mega_round_ref(*args))
+
+
+@pytest.mark.parametrize("j", WIDE_WIDTHS)
+def test_cluster_rows_bitwise_and_repeatable(cuda, j):
+    """Rows over a cluster of 2, 4 or 8 blocks (ragged slices included), on
+    the search stress rows: every remainder tied (exact ties across every
+    slice edge), -0.0 beside +0.0, a zero budget over carried remainders
+    whose floors overshoot it (the excess descent runs, over several
+    rounds), J - 1 tokens over J equal shares (k = count - 1 among ties
+    that cross every edge), and a random row.  B2 and B3's adaptbf case:
+    the integer allocation equal to the plain version's (``torch.equal``),
+    every other field within its bound, and two back-to-back calls bitwise
+    equal in every output."""
+    args = [torch.as_tensor(x, device=cuda) for x in _alloc_stress(j, j)]
+    got = alloc_ops.fleet_alloc(*args)
+    again = alloc_ops.fleet_alloc(*args)
+    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("record", "remainder"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    margs = _mega_stress_args(j, cuda)
+    mgot = mega_ops.mega_window_round(*margs)
+    magain = mega_ops.mega_window_round(*margs)
+    _mega_close(mgot, mega_ops.ref.mega_round_ref(*margs))
+    assert all(torch.equal(g, a) for g, a in
+               zip(_mega_leaves(mgot), _mega_leaves(magain), strict=True))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, monkeypatch):
