@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
    for the three fleet kernels' instances over thread-block clusters (rows
    of 8192 < J <= 65536), the same and the clusters of 2, 4 and 8 blocks
-   resident on the card (``cudaOccupancyMaxActiveClusters``).
+   resident on the card (``cudaOccupancyMaxActiveClusters``); for B2's and
+   B3's warp-row instances (J <= 32, one warp a row, 16 rows a block), the
+   same and their blocks an SM.  An empty kernel (``launch_floor.cu``) is
+   built beside them.
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
    J=4096 jobs, W=10 ticks per window): the allocation over chained
@@ -31,7 +34,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    full wave at one and at two blocks an SM) and J=4093 (rate rows off a
    16-byte boundary), the window service at J of 1, 3 and 8192 and W of
    0 and 1, with budgets of +inf and 0 and backlog caps below the queue.
-   Rows over clusters: the stress rows also at J of 16385 and 65536, and
+   Warp rows: the stress rows also at J of 8 and 32, and B2 and B3 (every
+   policy case and coded code, a fault round) at J of 1, 8 and 32 over 17
+   and 4096 rows.  Rows over clusters: the stress rows also at J of 16385
+   and 65536, and
    at J=16384 (clusters of 2), 32768 (of 4) and 65536 (of 8), O of 1 and
    one past a full wave of clusters: B1 at W of 0, 1 and 10, B2, and B3
    for each built-in policy and coded code with a fault round (the
@@ -104,9 +110,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
    of the trace; 4 fleets in trajectory mode with a batched fault plan,
    bitwise the same way; and many small tenants (O=4, J=8, 20 windows, F
    of 16, 256 and 1024): F=1024 bitwise the per-fleet loop with its
-   launch counts, windows/s batched and as a per-fleet loop, and the
-   three fleet kernels' time a launch at F*O rows.  Sharding on
-   ``torch.distributed`` (``shard_phase``): the fleet cell under
+   launch counts (B2 and B3 on their warp-row instances, by the C
+   entries' counts by row layout), windows/s batched and as a per-fleet
+   loop, and the three fleet kernels' time a launch at F*O rows: through
+   the wrappers, and by their C entries (the wrappers' captured launches
+   replayed, their host work left out) beside B2's and B3's one-block
+   instances at the same shapes (the layout before the warp rows; outputs
+   bitwise the warp rows') and an empty kernel over the warp rows' grid.
+   Sharding on ``torch.distributed`` (``shard_phase``): the fleet cell under
    ``partition="ost_shard"`` with NCCL at one rank (fused/pallas,
    trajectory) and with gloo at 2 and 4 ranks sharing ``cuda:0``
    (fused/pallas and mega in both telemetry modes, coded mega, an outage
@@ -257,14 +268,16 @@ def _without_params(name: str) -> str:
     return name
 
 
-def ptxas_of(log: Path, marker: str):
+def ptxas_of(log: Path, marker):
     """(registers, spill store bytes, spill load bytes, static shared
-    bytes) of the first kernel whose mangled name holds ``marker`` in an
-    nvcc ``-Xptxas -v`` log."""
+    bytes) of the first kernel whose mangled name holds ``marker`` (a
+    string, or a tuple of strings it holds all of) in an nvcc ``-Xptxas
+    -v`` log."""
+    marks = (marker,) if isinstance(marker, str) else marker
     lines = log.read_text().splitlines()
     for k, line in enumerate(lines):
         entry = re.search(r"entry function '(\w+)'", line)
-        if not entry or marker not in entry.group(1):
+        if not entry or not all(m in entry.group(1) for m in marks):
             continue
         regs = stores = loads = smem = 0
         for info in lines[k + 1:k + 6]:
@@ -544,7 +557,8 @@ def alloc_stress_case(j, seed):
 
 def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
     """B2 and B3 (adaptbf) against their plain versions on the stress rows
-    at J of 1, 4093, 4095, 4096 and 8192 and over clusters at 16385 and
+    at J of 1, 8 and 32 (warp rows), 4093, 4095, 4096 and 8192 and over
+    clusters at 16385 and
     65536 (ties straddling every slice edge): the integer allocation equal
     (``torch.equal``), record and remainder and every other megakernel
     leaf within atol 1e-3.  The megakernel's row 2 gets no traffic, so it
@@ -557,7 +571,7 @@ def check_alloc_stress(torch, alloc_ops, mega_ops, dev):
                                device=dev)
 
     worst = 0.0
-    for j in (1, 4093, 4095, 4096, 8192, 16385, 65536):
+    for j in (1, 8, 32, 4093, 4095, 4096, 8192, 16385, 65536):
         host = alloc_stress_case(j, seed=j)
         args = [t(x) for x in host]
         got = alloc_ops.fleet_alloc(*args)
@@ -1136,6 +1150,54 @@ TENANT_TRAJ_F = 4                 # fleets of the trajectory check
 SMALL = dict(o=4, j=8, windows=20, fleets=(16, 256, 1024), loop_cap=256)
 
 
+def warp_rows(lib="adaptbf_alloc"):
+    """Rows a block of a fleet library's warp-row instance, from its C
+    entry (``csrc/common.cuh``: WARP_ROWS)."""
+    from repro_torch.kernels import _build
+    return _build.load(f"{lib}_warp_rows", [], lib=lib)()
+
+
+def small_tenant_inputs(torch, dev):
+    """The small tenants' shared trace and each fleet's nodes and volumes:
+    (rates [T, O, J], capacity [O], nodes [F, O, J], volume [F, O, J]) for
+    the largest F of ``SMALL["fleets"]`` (a batch of F fleets takes the
+    first F), made from seeds."""
+    from repro_torch.storage import random_fleet
+    o, j, n_win = SMALL["o"], SMALL["j"], SMALL["windows"]
+    base = random_fleet(0, n_ost=o, n_jobs=j, duration_s=n_win * W * 0.01)
+    rates = torch.as_tensor(base.issue_rate, device=dev)
+    cap = torch.as_tensor(base.capacity_per_tick, device=dev)
+    rng = np.random.default_rng(7)
+    n_max = max(SMALL["fleets"])
+    nodes = torch.as_tensor(
+        rng.integers(1, 32, (n_max, o, j)).astype(np.float32), device=dev)
+    volume = torch.as_tensor(np.where(
+        rng.random((n_max, o, j)) < 0.2, 500.0, np.inf).astype(np.float32),
+        device=dev)
+    return rates, cap, nodes, volume
+
+
+def small_tenant_rate(torch, dev, cfg, inputs, n_fleets, runs=3):
+    """Fleet-windows/s of one batched ``simulate_tenants`` run of the first
+    ``n_fleets`` small tenants (``small_tenant_inputs``) under ``cfg``:
+    one run to warm up, then the median of ``runs`` on the host's clock."""
+    from repro_torch.storage import simulate_tenants
+    rates, cap, nodes, volume = inputs
+
+    def batched():
+        simulate_tenants(cfg, nodes[:n_fleets], rates, volume[:n_fleets],
+                         cap, device=dev)
+        torch.cuda.synchronize()
+
+    batched()
+    secs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        batched()
+        secs.append(time.perf_counter() - t0)
+    return n_fleets * SMALL["windows"] / statistics.median(secs)
+
+
 def tenant_leaves_equal(torch, batched, one, f: int, label: str) -> None:
     """Every tensor leaf of fleet ``f`` of a batched result equals the
     per-fleet result's, bitwise and in dtype; raises otherwise."""
@@ -1149,11 +1211,11 @@ def tenant_leaves_equal(torch, batched, one, f: int, label: str) -> None:
                                      f"from its own simulate_fleet in {path}")
 
 
-def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
-    """(B1, B2, B3 adaptbf) milliseconds a launch over ``n_fleets`` fleets'
-    rows (CUDA events, 20 launches, median of 5): one window's shared
-    [W, O, J] rates read through a stride-0 fleet axis, the fleets' [F, O,
-    J] nodes, seeded queues, volumes, budgets and demand."""
+def fleet_launch_calls(torch, dev, n_fleets, rates_w, cap, nodes):
+    """(B1, B2, B3 adaptbf) calls of the wrappers over ``n_fleets`` fleets'
+    rows: one window's shared [W, O, J] rates read through a stride-0
+    fleet axis, the fleets' [F, O, J] nodes, seeded queues, volumes,
+    budgets and demand.  Returns (the three calls, the tensors they read)."""
     from repro_torch.core.policies import PolicyContext, get_policy
     from repro_torch.core.state import init_fleet_state
     from repro_torch.kernels.adaptbf_alloc import ops as alloc_ops
@@ -1177,14 +1239,127 @@ def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
     state = init_fleet_state(r, j, device=dev)
     ctx = PolicyContext(nodes=nodes, cap_w=cap_r * W)
     pol = get_policy("adaptbf")
-    return (
-        cuda_ms(lambda: fw_ops.fleet_window_serve(
-            queue, vol, budget, rates_f, backlog, cap_r), reps=20),
-        cuda_ms(lambda: alloc_ops.fleet_alloc(
-            demand, nodes, *state, cap_r * W), reps=20),
-        cuda_ms(lambda: mega_ops.mega_window_round(
-            pol, ctx, cap_r, backlog, queue, vol, budget,
-            (demand, demand, budget), state, rates_f), reps=20))
+    cap_w = cap_r * W
+    calls = (lambda: fw_ops.fleet_window_serve(queue, vol, budget, rates_f,
+                                               backlog, cap_r),
+             lambda: alloc_ops.fleet_alloc(demand, nodes, *state, cap_w),
+             lambda: mega_ops.mega_window_round(
+                 pol, ctx, cap_r, backlog, queue, vol, budget,
+                 (demand, demand, budget), state, rates_f))
+    return calls, (queue, vol, budget, rates_f, backlog, cap_r, demand,
+                   nodes, *state, cap_w)
+
+
+def time_fleet_launches(torch, dev, n_fleets, rates_w, cap, nodes):
+    """(B1, B2, B3 adaptbf) milliseconds a call of the wrappers over
+    ``n_fleets`` fleets' rows (``fleet_launch_calls``; CUDA events, 20
+    calls, median of 5)."""
+    calls, _ = fleet_launch_calls(torch, dev, n_fleets, rates_w, cap, nodes)
+    return tuple(cuda_ms(call, reps=20) for call in calls)
+
+
+def layout_launches(lib):
+    """A fleet library's launches by row layout [warp, block, cluster],
+    counted by its C entry where it picks the instance."""
+    from repro_torch.kernels import _build
+    fn = _build.load(f"{lib}_layout_launches", [ctypes.c_int], lib=lib)
+    return [fn(layout) for layout in (1, 2, 3)]
+
+
+def tensors_of(tree):
+    """The tensors of a result: tuples (named too) and lists walked in
+    order."""
+    if isinstance(tree, (tuple, list)):
+        return [x for item in tree for x in tensors_of(item)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
+def captured(call):
+    """The C entry launches ``call()`` makes through ``_build.launch``:
+    [(entry, argtypes, arguments)], made once, and ``call``'s result, which
+    holds the buffers the arguments point at."""
+    from repro_torch.kernels import _build
+    made, real = [], _build.launch
+
+    def record(name, argtypes, *args):
+        made.append((name, argtypes, args))
+        real(name, argtypes, *args)
+
+    _build.launch = record
+    try:
+        out = call()
+    finally:
+        _build.launch = real
+    return made, out
+
+
+def replay(made, suffix=""):
+    """A function that repeats the captured launches by their C entries
+    (``entry + suffix``, same arguments), without the wrappers' host work;
+    raises if a launch fails."""
+    from repro_torch.kernels import _build
+    fns = [(_build.load(name + suffix, argtypes, lib=name), args)
+           for name, argtypes, args in made]
+
+    def go():
+        for fn, args in fns:
+            err = fn(*args)
+            if err != 0:
+                raise RuntimeError(f"replayed launch failed: CUDA error {err}")
+    return go
+
+
+def time_narrow_launches(torch, dev, n_fleets, rates_w, cap, nodes):
+    """A launch of B1, B2 and B3 (adaptbf) over ``n_fleets`` narrow fleets'
+    rows by its C entry (``captured``, ``replay``: CUDA events, 20 launches,
+    median of 5, the wrappers' host work left out; a ctypes call still
+    costs a few microseconds of host time, which the empty kernel's time
+    shows): the layout the wrappers launch (B2 and B3: one warp a row),
+    B2's and B3's one-block instances (``*_one_block``: a block of 512
+    threads a row, what the parent launched), and an empty kernel over the
+    warp rows' grid (``launch_floor.cu``: the practical floor of a launch).
+    Each wrapper call must make exactly one launch, of its own kernel.
+    Returns {name: ms}; B2's and B3's one-block outputs are held bitwise
+    against the warp rows': the outputs are filled with NaN before the
+    one-block launch, so each value compared is one it wrote."""
+    from repro_torch.kernels import _build
+    calls, inputs = fleet_launch_calls(torch, dev, n_fleets, rates_w, cap,
+                                       nodes)
+    read = {x.data_ptr() for x in inputs}
+    out = {}
+    for name, call in zip(("fleet_window", "adaptbf_alloc", "window_mega"),
+                          calls):
+        made, res = captured(call)
+        if [entry for entry, *_ in made] != [name]:
+            raise AssertionError(f"{name}: the wrapper's launches by C entry "
+                                 f"were {[entry for entry, *_ in made]}, not "
+                                 "one of its own")
+        out[name] = cuda_ms(replay(made), reps=20)
+        if name != "fleet_window":
+            written = list({x.data_ptr(): x for x in tensors_of(res)
+                            if x.data_ptr() not in read}.values())
+            warp = [x.clone() for x in written]
+            for x in written:
+                x.fill_(float("nan"))
+            replay(made, "_one_block")()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(warp, written, strict=True)):
+                raise AssertionError(f"{name}: the one-block instance differs "
+                                     "from the warp rows")
+            out[f"{name}_one_block"] = cuda_ms(replay(made, "_one_block"),
+                                               reps=20)
+    floor = _build.load("launch_floor", [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p])
+    rows_a_block = warp_rows()
+    blocks = -(-n_fleets * nodes.shape[-2] // rows_a_block)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        if floor(blocks, rows_a_block * 32, stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+    out["empty"] = cuda_ms(empty, reps=20)
+    return out
 
 
 def wide_tenant_inputs(scn, n_fleets, o=O):
@@ -1220,13 +1395,13 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
     (3) Many small tenants (O=4, J=8, 20 windows, shared trace, streaming
     adaptbf, ``benchmarks/tenant_scaling.py``'s shape): at F=1024, each
     fleet bitwise its own ``simulate_fleet`` run and B1 and B2 (or B3)
-    once a window; at F of 16, 256 and 1024, aggregate windows/s of the
+    once a window, B2 (B3) on its warp-row instance (``layout_launches``);
+    at F of 16, 256 and 1024, aggregate windows/s of the
     batched run and of the per-fleet loop (capped at 256 fleets,
     extrapolated above), and B1/B2/B3's time a launch at F*O rows.
     Returns what phase 4 prints."""
     from repro_torch.storage import (FaultPlan, FleetConfig, faults,
-                                     random_fleet, simulate_fleet,
-                                     simulate_tenants)
+                                     simulate_fleet, simulate_tenants)
     out = {}
     trace_bytes = inputs["rates"].numel() * 4
     paths = {"fused/pallas": ("fused", "pallas"), "mega/pallas": ("mega",
@@ -1354,43 +1529,40 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
 
     # (3) many small tenants
     o, j, n_win = SMALL["o"], SMALL["j"], SMALL["windows"]
-    base = random_fleet(0, n_ost=o, n_jobs=j, duration_s=n_win * W * 0.01)
-    rates = torch.as_tensor(base.issue_rate, device=dev)
-    cap = torch.as_tensor(base.capacity_per_tick, device=dev)
-    rng = np.random.default_rng(7)
+    small_in = small_tenant_inputs(torch, dev)
+    rates, cap, nodes_all, volume_all = small_in
     n_max = max(SMALL["fleets"])
-    nodes_all = torch.as_tensor(
-        rng.integers(1, 32, (n_max, o, j)).astype(np.float32), device=dev)
-    volume_all = torch.as_tensor(np.where(
-        rng.random((n_max, o, j)) < 0.2, 500.0, np.inf).astype(np.float32),
-        device=dev)
     small = {}
     for label, (serve, alloc) in paths.items():
         cfg = FleetConfig(serve_backend=serve, alloc_backend=alloc,
                           telemetry="streaming")
-        # the largest batch (F*O rows of J=8) against the per-fleet loop
+        # the largest batch (F*O rows of J=8) against the per-fleet loop;
+        # B2 (or B3) on its warp-row instance every window
         n_f = n_max
+        lib = "window_mega" if serve == "mega" else "adaptbf_alloc"
         zero_counts()
+        warp_before = layout_launches(lib)
         res = simulate_tenants(cfg, nodes_all, rates, volume_all, cap,
                                device=dev)
         torch.cuda.synchronize()
         got = counts()
+        warp = [a - b for a, b in zip(layout_launches(lib), warp_before)]
         if got != expect(serve, 1, n_win):
             raise AssertionError(f"small tenants {label}: launches {got}")
+        if warp != [n_win, 0, 0]:
+            raise AssertionError(f"small tenants {label}: {lib} launches by "
+                                 f"row layout (warp, block, cluster) {warp}")
         for f in range(n_f):
             tenant_leaves_equal(torch, res, simulate_fleet(
                 cfg, nodes_all[f], rates, volume_all[f], cap, device=dev),
                 f, f"small {label}")
         del res
         print(f"small tenants ({label}, streaming adaptbf, O={o} J={j}, "
-              f"{n_win} windows) F={n_f}: launches {got}; every fleet "
-              "bitwise equal to its own simulate_fleet run")
+              f"{n_win} windows) F={n_f}: launches {got}, {lib}'s by row "
+              f"layout (warp, block, cluster) {warp}; every fleet bitwise "
+              "equal to its own simulate_fleet run")
         for n_f in SMALL["fleets"]:
             nodes, volume = nodes_all[:n_f], volume_all[:n_f]
-
-            def batched():
-                simulate_tenants(cfg, nodes, rates, volume, cap, device=dev)
-                torch.cuda.synchronize()
 
             def loop(k):
                 for f in range(k):
@@ -1398,13 +1570,8 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
                                    device=dev)
                 torch.cuda.synchronize()
 
-            batched()
-            secs = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                batched()
-                secs.append(time.perf_counter() - t0)
-            entry = {"batched": n_f * n_win / statistics.median(secs)}
+            entry = {"batched": small_tenant_rate(torch, dev, cfg, small_in,
+                                                  n_f)}
             if label == "fused/pallas":
                 k = min(n_f, SMALL["loop_cap"])
                 loop(1)
@@ -1413,9 +1580,14 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
                 entry["loop"] = k * n_win / (time.perf_counter() - t0)
                 entry["extrapolated"] = k < n_f
             small[(label, n_f)] = entry
-    # B1/B2/B3's time a launch at F*O rows of J=8 (CUDA events)
+    # B1/B2/B3's time a launch at F*O rows of J=8 (CUDA events): through
+    # the wrappers, and by their C entries beside B2's and B3's one-block
+    # instances and an empty launch
     launch_ms = {n_f: time_fleet_launches(torch, dev, n_f, rates[:W], cap,
                                           nodes_all[:n_f])
+                 for n_f in SMALL["fleets"]}
+    narrow_ms = {n_f: time_narrow_launches(torch, dev, n_f, rates[:W], cap,
+                                           nodes_all[:n_f])
                  for n_f in SMALL["fleets"]}
     for (label, n_f), e in small.items():
         loop_txt = ""
@@ -1426,32 +1598,56 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
         print(f"small tenants ({label}, streaming adaptbf, O={o} J={j}, "
               f"{n_win} windows) F={n_f}: batched {e['batched']:.1f} "
               f"windows/s{loop_txt} on {card}")
+    rows_a_block = warp_rows()
     for n_f, (b1, b2, b3) in launch_ms.items():
         r = n_f * o
         bounds = [bound_ms(*work)[0] for work in (
             window_work(r, j, W, rate_rows=o), alloc_work(r, j),
             mega_work(r, j, W, rate_rows=o))]
-        print(f"small tenants: a launch at F*O={r} rows of J={j}: "
-              f"fleet_window {b1:.4f} ms (bound {bounds[0]:.5f}), "
-              f"adaptbf_alloc {b2:.4f} ms (bound {bounds[1]:.5f}), "
-              f"window_mega (adaptbf) {b3:.4f} ms (bound {bounds[2]:.5f}) "
-              f"(CUDA events, 20 launches, median of 5) on {card}; a "
-              f"512-thread block holds J={j} jobs: {512 - j} of 512 threads "
-              "idle")
-    out["small"], out["launch_ms"] = small, launch_ms
+        t = narrow_ms[n_f]
+        print(f"small tenants: a launch at F*O={r} rows of J={j} by its C "
+              f"entry (CUDA events, 20 launches, median of 5; bound beside): "
+              f"fleet_window {t['fleet_window']:.5f} ms (bound "
+              f"{bounds[0]:.7f}; one block of 512 threads a row, {512 - j} "
+              f"idle), adaptbf_alloc {t['adaptbf_alloc']:.5f} ms (bound "
+              f"{bounds[1]:.7f}; one warp a row, {rows_a_block} rows a block; "
+              f"the one-block instance {t['adaptbf_alloc_one_block']:.5f} ms, "
+              f"{t['adaptbf_alloc_one_block'] / t['adaptbf_alloc']:.2f}x), "
+              f"window_mega (adaptbf) {t['window_mega']:.5f} ms (bound "
+              f"{bounds[2]:.7f}; one warp a row; the one-block instance "
+              f"{t['window_mega_one_block']:.5f} ms, "
+              f"{t['window_mega_one_block'] / t['window_mega']:.2f}x); an "
+              f"empty kernel over {-(-r // rows_a_block)} blocks of "
+              f"{rows_a_block * 32} threads {t['empty']:.5f} ms; through the "
+              f"wrappers {b1:.4f}, {b2:.4f}, {b3:.4f} ms on {card}")
+    out["small"], out["launch_ms"], out["narrow_ms"] = small, launch_ms, narrow_ms
     return out
 
 
 def tenant_entry(tenants, name: str, k: int) -> dict:
     """A fleet kernel's tenant numbers for the kernels line: its launches
-    in the 16-fleet streaming runs and its time a launch by rows x jobs (the
-    wide fleets' 4096 x 4096 and the small tenants' F*O x 8)."""
+    in the 16-fleet streaming runs and its time a call of the wrapper by
+    rows x jobs (the wide fleets' 4096 x 4096 and the small tenants' F*O x
+    8); at the small tenants also its time a launch by its C entry, B2's
+    and B3's one-block instances' and the empty kernel's."""
     ms = {f"{TENANT_F * O}x{J}": tenants["wide_ms"][k]}
     ms.update({f"{n_f * SMALL['o']}x{SMALL['j']}": t[k]
                for n_f, t in tenants["launch_ms"].items()})
-    return {"tenant_launches": sum(tenants[f"launches_{p}"][name]
-                                   for p in ("fused/pallas", "mega/pallas")),
-            "tenant_ms_by_rows_x_jobs": ms}
+    small = {f"{n_f * SMALL['o']}x{SMALL['j']}": t
+             for n_f, t in tenants["narrow_ms"].items()}
+    entry = {"tenant_launches": sum(tenants[f"launches_{p}"][name]
+                                    for p in ("fused/pallas", "mega/pallas")),
+             "tenant_ms_by_rows_x_jobs": ms,
+             "narrow_entry_ms_by_rows_x_jobs": {
+                 key: t[name] for key, t in small.items()},
+             "empty_launch_ms_by_rows_x_jobs": {
+                 key: t["empty"] for key, t in small.items()}}
+    if name != "fleet_window":
+        entry["narrow_layout"] = (f"one warp a row, {warp_rows(name)} rows "
+                                  "a block")
+        entry["one_block_entry_ms_by_rows_x_jobs"] = {
+            key: t[f"{name}_one_block"] for key, t in small.items()}
+    return entry
 
 
 # ---------------------------------------------------------- sharding
@@ -1733,8 +1929,10 @@ WIDE_CELLS = [("wide-16k", 256, 16384, N_WINDOWS), ("wide-64k", 64, 65536, 20)]
 WIDE_TENANT_F, WIDE_TENANT_O, WIDE_TENANT_CODES = 4, 64, [0, 1, 2, 3]
 #: the wide kernel instances (16 lanes a thread, a cluster a row)
 WIDE_MARKERS = {"fleet_window": "fleet_window_kernelILi16ELb1EE",
-                "adaptbf_alloc": "adaptbf_alloc_kernelILi16ELb1EE",
-                "window_mega": "window_mega_kernelILi16ELi0ELb0ELb1EE"}
+                "adaptbf_alloc": ("adaptbf_alloc_kernelILi16E",
+                                  "RowBlockILb1E"),
+                "window_mega": ("window_mega_kernelILi16ELi0ELb0E",
+                                "RowBlockILb1E")}
 
 
 def wide_build_summary(libs, n_sm):
@@ -1764,6 +1962,31 @@ def wide_build_summary(libs, n_sm):
               + ", ".join(f"c={c}: {n} ({n * c} of {n_sm} SMs)"
                           for c, n in per_c.items()))
     return out
+
+
+def narrow_build_summary(libs, n_sm, occupancy):
+    """Phase 1 for narrow rows (J <= 32): ptxas's registers, spills and
+    static shared memory of B2's and B3's (adaptbf) warp-row instances, the
+    dynamic shared memory a block and the blocks of ``warp_rows`` rows
+    resident on an SM, into ``occupancy`` as ``<name>_narrow``."""
+    from repro_torch.kernels import _build
+    for name, marker in (("adaptbf_alloc", ("adaptbf_alloc_kernelILi1E",
+                                            "RowWarp")),
+                         ("window_mega", ("window_mega_kernelILi1ELi0ELb0E",
+                                          "RowWarp"))):
+        regs, stores, loads, smem = ptxas_of(libs[name].with_suffix(".log"),
+                                             marker)
+        blocks, dyn = _build.occupancy(name, SMALL["j"])
+        if blocks < 1:
+            raise AssertionError(f"{name}: no block of warp rows fits an SM")
+        occupancy[f"{name}_narrow"] = blocks
+        rows = warp_rows(name)
+        print(f"{name} at J={SMALL['j']} (one warp a row, {rows} rows a "
+              f"block of {rows * 32} threads): {regs} registers, "
+              f"{stores} B spill stores, {loads} B spill loads, {smem} B "
+              f"static + {dyn} B dynamic shared memory a block; {blocks} "
+              f"blocks an SM, {blocks * rows * n_sm} rows a wave on "
+              f"{n_sm} SMs")
 
 
 def leaf_errs(torch, label, got, want, atol):
@@ -1842,6 +2065,46 @@ def check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, clusters):
                   + (", every policy case, a fault round" if name ==
                      "window_mega" else "")
                   + f": max |err| {worst[name]}")
+    return worst
+
+
+def check_narrow_kernels(torch, alloc_ops, mega_ops, dev):
+    """Phase 2 for narrow rows (one warp a row, ``warp_rows`` rows a
+    block): at J of 1, 8 (the small tenants') and 32, over 17 rows (the
+    last block part-filled) and 4096 (the small tenants' 1024 fleets of 4):
+    B2 (allocations equal, record and remainder within 1e-3) and B3 for
+    each built-in policy and coded dispatch (each code), one round and one
+    round with a fault row (every leaf within 1e-3, adaptbf's allocation
+    equal).  Returns the largest error of each."""
+    from repro_torch.core.policies import CodedPolicy, get_policy
+    from repro_torch.storage import DEFAULT_CODED_POLICIES, FLEET_CONTROL_CODES
+    worst = {"adaptbf_alloc": 0.0, "window_mega": 0.0}
+    cases = [(name, get_policy(name), None) for name in
+             ("adaptbf", "static", "nobw", "static_wc", "aimd")]
+    cases += [(f"coded[{name}]", CodedPolicy(DEFAULT_CODED_POLICIES), code)
+              for name, code in FLEET_CONTROL_CODES.items()]
+    for j in (1, SMALL["j"], 32):
+        for o in (17, 1024 * SMALL["o"]):
+            host = list(alloc_case(o, j, seed=o * 7 + j))
+            host[3] = (np.random.default_rng(o).random((o, j)) - 0.5
+                       ).astype(np.float32)
+            args = [torch.as_tensor(x, device=dev) for x in host]
+            got = alloc_ops.fleet_alloc(*args)
+            want = alloc_ops.fleet_alloc_ref(*args)[:3]
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"adaptbf_alloc O={o} J={j}: "
+                                     "allocations differ")
+            worst["adaptbf_alloc"] = max(worst["adaptbf_alloc"], leaf_errs(
+                torch, f"adaptbf_alloc O={o} J={j}", got[1:], want[1:], 1e-3))
+            for k, (label, policy, code) in enumerate(cases):
+                worst["window_mega"] = max(worst["window_mega"], check_mega_case(
+                    torch, mega_ops, policy, code, o, j, seed=500 + k, dev=dev,
+                    label=f"window_mega {label} O={o} J={j}",
+                    exact=label == "adaptbf"))
+        print(f"adaptbf_alloc and window_mega (every policy case, a fault "
+              f"round) on warp rows vs plain at J={j}, O of 17 and "
+              f"{1024 * SMALL['o']}: allocations equal, max |err| "
+              f"{worst['adaptbf_alloc']}, {worst['window_mega']} (atol 1e-3)")
     return worst
 
 
@@ -2046,6 +2309,16 @@ def wide_phase(torch, dev, counts, zero_counts, names, card):
 FLEET_PATHS = (("fused/pallas", "fused", "pallas",
                 ("fleet_window", "adaptbf_alloc")),
                ("mega/core", "mega", "core", ("window_mega",)))
+
+
+def fleet_kernel_ms(fw_ops, alloc_ops, mega_ops, fw_args, al_args,
+                    mega_args):
+    """B1, B2 and B3 (adaptbf)'s milliseconds a call of the wrappers on
+    phase 2's fixtures (``check_window_kernel``, ``check_alloc_kernel``,
+    ``check_mega_kernel``; CUDA events, 20 calls, median of 5)."""
+    return (cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20),
+            cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20),
+            cuda_ms(lambda: mega_ops.mega_window_round(*mega_args), reps=20))
 
 
 def fleet_rates(torch, dev, inputs, n_win, runs=3):
@@ -3743,9 +4016,9 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(names)
-    print(f"build: {time.perf_counter() - t0:.1f} s ({len(names)} kernels, "
-          "one nvcc each, in parallel)")
+    libs = _build.build([*names, "launch_floor"])
+    print(f"build: {time.perf_counter() - t0:.1f} s ({len(names)} kernels "
+          "and an empty one, one nvcc each, in parallel)")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for lib, label, mark in (("flash_attention", "bfloat16", "Li80E"),
                              ("flash_attention_bwd", "bfloat16", "Li80E"),
@@ -3793,8 +4066,9 @@ def main() -> int:
     occupancy = {}
     for name, marker in (
             ("fleet_window", "fleet_window_kernelILi8ELb0EE"),
-            ("adaptbf_alloc", "adaptbf_alloc_kernelILi8ELb0EE"),
-            ("window_mega", "window_mega_kernelILi8ELi0ELb0ELb0EE")):
+            ("adaptbf_alloc", ("adaptbf_alloc_kernelILi8E", "RowBlockILb0E")),
+            ("window_mega", ("window_mega_kernelILi8ELi0ELb0E",
+                             "RowBlockILb0E"))):
         regs, stores, loads, smem = ptxas_of(
             libs[name].with_suffix(".log"), marker)
         blocks, dyn = _build.occupancy(name, J)
@@ -3805,6 +4079,7 @@ def main() -> int:
               f"blocks an SM, {blocks * n_sm} rows a wave on {n_sm} SMs "
               f"(O={O}: {-(-O // max(blocks * n_sm, 1))} wave(s))")
     clusters = wide_build_summary(libs, n_sm)
+    narrow_build_summary(libs, n_sm, occupancy)
 
     # the bfloat16 SSD backward's kernels at the training shape (N = 64)
     for kernel, entry in (("ssd_bwd_walk_tcILi64E", "ssd_bwd_walk_occupancy"),
@@ -3833,6 +4108,9 @@ def main() -> int:
     al_err, mega_err = max(al_err, stress_err), max(mega_err, stress_err)
     wide_err = check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev,
                                   clusters)
+    narrow_err = check_narrow_kernels(torch, alloc_ops, mega_ops, dev)
+    al_err = max(al_err, narrow_err["adaptbf_alloc"])
+    mega_err = max(mega_err, narrow_err["window_mega"])
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
     fd_args, fd_err, fd_long = check_decode_kernel(torch, attn_ops, dev)
     ssd_args, ssd_err = check_ssd_kernel(torch, ssd_ops, dev)
@@ -3959,13 +4237,12 @@ def main() -> int:
 
     lap("3h rows over clusters")
     # 4. times -----------------------------------------------------------
-    fw_ms = cuda_ms(lambda: fw_ops.fleet_window_serve(*fw_args), reps=20)
+    fw_ms, al_ms, mega_ms = fleet_kernel_ms(fw_ops, alloc_ops, mega_ops,
+                                            fw_args, al_args, mega_args)
     fw_plain = cuda_ms(lambda: fw_ops.fleet_window_ref(*fw_args), reps=3,
                        groups=3)
-    al_ms = cuda_ms(lambda: alloc_ops.fleet_alloc(*al_args), reps=20)
     al_plain = cuda_ms(lambda: alloc_ops.fleet_alloc_ref(*al_args), reps=3,
                        groups=3)
-    mega_ms = cuda_ms(lambda: mega_ops.mega_window_round(*mega_args), reps=20)
     mega_plain = cuda_ms(lambda: mega_ops.ref.mega_round_ref(*mega_args),
                          reps=3, groups=3)
     fa_ms = cuda_ms(lambda: attn_ops.attention(*fa_args), reps=20)
@@ -4162,6 +4439,7 @@ def main() -> int:
          "ms": al_ms, "plain_ms": al_plain, "bound_ms": al_b,
          "bound_by": al_by, "library_ms": None,
          "blocks_per_sm": occupancy["adaptbf_alloc"],
+         "narrow_blocks_per_sm": occupancy["adaptbf_alloc_narrow"],
          **tenant_entry(tenants, "adaptbf_alloc", 1),
          "shard_launches_per_rank": shards["adaptbf_alloc"],
          **wide_entry(wide, "adaptbf_alloc")},
@@ -4172,6 +4450,7 @@ def main() -> int:
          "ms": mega_ms, "plain_ms": mega_plain, "bound_ms": mega_b,
          "bound_by": mega_by, "library_ms": None,
          "blocks_per_sm": occupancy["window_mega"],
+         "narrow_blocks_per_sm": occupancy["window_mega_narrow"],
          **tenant_entry(tenants, "window_mega", 2),
          "shard_launches_per_rank": shards["window_mega"],
          **wide_entry(wide, "window_mega")},

@@ -1,14 +1,18 @@
 """Plain version of the allocation kernel: the core allocator itself.  The
 CUDA kernel must match it (integer tokens, identical tie-breaking).  Below
-it, test-only plain models of the kernel's radix select and excess descent
-(``tests/test_torch_alloc_search.py``)."""
+it, test-only plain models of the kernel's searches: the radix select and
+excess descent of a block or cluster row, the direct rank and shuffled
+descent of a warp row (``tests/test_torch_alloc_search.py``,
+``tests/test_torch_narrow_rows.py``)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core.adaptbf import fleet_allocate
 from repro_torch.core.state import AllocatorState
-from repro_torch.kernels.dispatch import cluster_size
+from repro_torch.kernels.dispatch import WARP_JOBS, cluster_size, row_layout
 
 
 def fleet_alloc_ref(demand, nodes, record, remainder, alloc_prev, capacity,
@@ -133,10 +137,73 @@ def excess_rounds(floored: torch.Tensor, d_dn: torch.Tensor, blocks=None):
     return p, g_p
 
 
-def integerize_model(raw, remainder, budget, mask, blocks=None):
+# The searches on a warp row (J <= ``dispatch.WARP_JOBS``: lane l holds job
+# l), as ``alloc_round.cuh``'s ``WarpRed`` overloads run them.
+
+
+def topk_mask_rank(key: torch.Tensor, k) -> torch.Tensor:
+    """The top-k membership of a warp row, as the kernel finds it: k <= 0
+    selects nothing and k >= J every lane; otherwise lane l's rank is the
+    count of lanes m < J whose order-mapped key is larger than l's, or
+    equal with m < l (the lanes read one at a time, m = 0, 1, ...), and
+    the lane is selected when its rank is below k.  key [R, J], k [R]."""
+    u = _order_u32(key.to(torch.float32))
+    rows, j = u.shape
+    ks = torch.as_tensor(k).reshape(-1).expand(rows).tolist()
+    sel = torch.zeros((rows, j), dtype=torch.bool)
+    lane = torch.arange(j)
+    for r, kr in enumerate(ks):
+        if kr <= 0:
+            continue
+        if kr >= j:
+            sel[r] = True
+            continue
+        rank = torch.zeros(j, dtype=torch.int64)
+        for m in range(j):
+            um = u[r, m]
+            rank += (um > u[r]) | ((um == u[r]) & (m < lane))
+        sel[r] = rank < int(kr)
+    return sel
+
+
+def excess_rounds_warp(floored: torch.Tensor, d_dn: torch.Tensor):
+    """The excess descent on a warp row, as the kernel runs it: the 5 passes
+    of ``excess_rounds``, candidate p + c 2^shift on lane c, its sum of
+    min(f_m, candidate) over the lanes m up to the last with a nonzero
+    floor, in lane order (exact), rounded once to float32.  Returns
+    (p [R] int64, g_p [R] float32)."""
+    f = torch.clamp_max(floored.to(torch.float32), 2.0**25).to(torch.int64)
+    rows, j = f.shape
+    p = torch.zeros(rows, dtype=torch.int64)
+    g_p = torch.zeros(rows, dtype=torch.float32)
+    lanes = torch.arange(32, dtype=torch.int64)
+    for r in range(rows):
+        nonzero = (f[r] != 0).nonzero()
+        n = int(nonzero[-1]) + 1 if len(nonzero) else 0
+        pr, gr = 0, torch.tensor(0.0)
+        for pas in range(5):
+            shift = 20 - 5 * pas
+            cand = pr + (lanes << shift)                   # lane c: candidate c
+            total = torch.zeros(32, dtype=torch.int64)
+            for m in range(n):
+                total += torch.minimum(f[r, m], cand)
+            gc = total.to(torch.float32)
+            best = int((gc <= d_dn[r]).nonzero()[-1])      # highest ballot bit
+            gr = gc[best]
+            pr += best << shift
+        p[r], g_p[r] = pr, gr
+    return p, g_p
+
+
+def integerize_model(raw, remainder, budget, mask, blocks=None, warp=False):
     """``core/remainder.py::integerize`` with the kernel's searches in place
     of the bit descent and the sort: rows [R, J], budget [R] or [R, 1],
-    each row over ``blocks`` blocks (``_slices``)."""
+    each row over ``blocks`` blocks (``_slices``), or with ``warp`` on one
+    warp (``topk_mask_rank``, ``excess_rounds_warp``: the kernels' layout
+    at J <= ``dispatch.WARP_JOBS``; ``ValueError`` past it)."""
+    if warp and row_layout(raw.shape[-1]) != "warp":
+        raise ValueError(f"a warp row holds at most {WARP_JOBS} jobs, not "
+                         f"{raw.shape[-1]}")
     budget = torch.as_tensor(budget, dtype=torch.float32).reshape(-1, 1)
     zero = torch.zeros_like(raw)
     x = torch.where(mask, raw + remainder, zero)
@@ -150,8 +217,9 @@ def integerize_model(raw, remainder, budget, mask, blocks=None):
     q = torch.div(d_up, torch.clamp_min(n_masked, 1), rounding_mode="floor")
     k_up = d_up - q * n_masked
     d_dn = torch.clamp_min(-delta, 0.0)
-    p, g_p = excess_rounds(torch.where(mask, floored, zero), d_dn[:, 0],
-                           blocks)
+    descent = excess_rounds_warp if warp else functools.partial(
+        excess_rounds, blocks=blocks)
+    p, g_p = descent(torch.where(mask, floored, zero), d_dn[:, 0])
     # rows that do not overshoot never run the descent (p = 0, g(p) = 0)
     down = delta[:, 0] < 0
     p = torch.where(down, p, torch.zeros_like(p))
@@ -163,7 +231,8 @@ def integerize_model(raw, remainder, budget, mask, blocks=None):
     neg_inf = torch.full_like(raw, -torch.inf)
     key = torch.where(is_up, torch.where(mask, rem, neg_inf),
                       torch.where(elig, rem, neg_inf))
-    sel = topk_mask_radix(key, torch.where(is_up, k_up, k_dn)[:, 0], blocks)
+    k = torch.where(is_up, k_up, k_dn)[:, 0]
+    sel = topk_mask_rank(key, k) if warp else topk_mask_radix(key, k, blocks)
     bump_up = q.to(torch.float32) * mask.to(torch.float32) + (sel & mask).to(
         torch.float32)
     bump_dn = torch.minimum(torch.where(mask, floored, zero), p_f) + (

@@ -34,11 +34,23 @@
 // ptxas's registers and spills: PERF.md.  Rows wider than 4096 run one
 // block an SM.
 //
+// Rows of at most 32 jobs (common.cuh: WARP_J; the small tenants' J=8) run
+// one warp a row, WARP_ROWS = 16 rows a block (RowWarp): the row's
+// reductions are warp butterflies, the top-k search a direct rank over
+// shuffles and the excess descent's sums shuffled lane by lane
+// (alloc_round.cuh's WarpRed overloads), with no barrier anywhere, so a
+// block's rows run apart and a warp past the last row returns at once.  A
+// block of 512 threads a row left 504 threads of an 8-job row idle and
+// cost a chain of ~25 block barriers a row, in ~16 waves at 4096 rows;
+// 4096 warp rows are 256 blocks, one wave.  16 rows a block was measured
+// against 4 (PERF.md).  The one-block instance stays for J of 33 to 8192
+// (adaptbf_alloc_one_block launches it at any J <= 8192, to time the two).
+//
 // Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
 // c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>), each block the
 // round over its slice with the cluster's reductions and searches
 // (alloc_round.cuh); one block an SM at 16 lanes a thread.  Rows of
-// J <= 8192 run the one-block case, unchanged.
+// 33 to 8192 jobs run the one-block case, unchanged.
 //
 // What crosses the cluster: each block pushes its partials into every
 // peer's shared memory before a cluster barrier and reads only its own
@@ -67,8 +79,15 @@ __host__ __device__ constexpr int smem_bytes() {
   return SmemRound<LPT>::BYTES + LPT * THREADS * 4;
 }
 
-template <int LPT, bool WIDE>
-__global__ void __launch_bounds__(THREADS, LPT <= 8 ? 2 : 1)
+// Row: RowBlock<false> (one block a row), RowBlock<true> (a cluster) or
+// RowWarp<WARP_ROWS> (one warp a row at LPT 1; held to 64 registers, 1024
+// threads an SM, as the one-block rows at LPT <= 8).  Only the warp rows
+// take the row count (Rows: int; empty otherwise, so the other instances
+// keep their parameters and machine code).
+template <int LPT, class Row, class... Rows>
+__global__ void __launch_bounds__(Row::THREADS,
+                                  Row::WARP ? 1024 / Row::THREADS
+                                            : (LPT <= 8 ? 2 : 1))
 adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      const float* __restrict__ nodes_g,
                      const float* __restrict__ record_g,
@@ -78,10 +97,13 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
                      float* __restrict__ alloc_out,
                      float* __restrict__ record_out,
                      float* __restrict__ remainder_out,
-                     int n_jobs, float u_max) {
+                     int n_jobs, float u_max, Rows... n_rows) {
+  if constexpr (Row::WARP) {
+    if (Row::outside(n_rows...)) return;  // a warp past the last row
+  }
   __shared__ Scratch s;
-  RowBlock<WIDE> rb(s, n_jobs);
-  search_init(s);
+  Row rb(s, n_jobs);
+  if constexpr (!Row::WARP) search_init(s);
   const int n = rb.n;  // this block's lanes, from lane rb.first of the row
   const size_t row = static_cast<size_t>(rb.index()) * n_jobs + rb.first;
 
@@ -105,6 +127,36 @@ adaptbf_alloc_kernel(const float* __restrict__ demand_g,
   rb.done();
 }
 
+LayoutLaunches layout_launches;
+
+// The launch at row width n_jobs: its layout by row_layout, or the one-block
+// layout at any J <= MAX_J when `narrow` is false.
+int launch(const float* demand, const float* nodes, const float* record,
+           const float* remainder, const float* alloc_prev,
+           const float* capacity, float* alloc_out, float* record_out,
+           float* remainder_out, int n_ost, int n_jobs, float u_max,
+           cudaStream_t st, bool narrow) {
+  const int c = cluster_blocks(n_jobs);
+  if (c == 0 || n_ost < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (narrow && row_layout(n_jobs) == ROW_WARP)
+    return static_cast<int>(layout_launches.count(ROW_WARP,
+        launch_warp_rows<adaptbf_alloc_kernel<1, RowWarp<WARP_ROWS>, int>,
+                         smem_bytes<1>(), WARP_ROWS>(
+            n_ost, st, demand, nodes, record, remainder, alloc_prev, capacity,
+            alloc_out, record_out, remainder_out, n_jobs, u_max, n_ost)));
+  if (c > 1)
+    return static_cast<int>(layout_launches.count(ROW_CLUSTER,
+        launch_clusters<adaptbf_alloc_kernel<MAX_LPT, RowBlock<true>>,
+                        smem_bytes<MAX_LPT>()>(
+            n_ost, c, st, demand, nodes, record, remainder, alloc_prev,
+            capacity, alloc_out, record_out, remainder_out, n_jobs, u_max)));
+  REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(layout_launches.count(ROW_BLOCK,
+      launch_rows<adaptbf_alloc_kernel<LPT, RowBlock<false>>, smem_bytes<LPT>()>(
+          n_ost, st, demand, nodes, record, remainder, alloc_prev, capacity,
+          alloc_out, record_out, remainder_out, n_jobs, u_max))));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // demand/nodes/record/remainder/alloc_prev: [O, J]; capacity: [O]; outputs
@@ -117,35 +169,55 @@ extern "C" int adaptbf_alloc(const float* demand, const float* nodes,
                              float* alloc_out, float* record_out,
                              float* remainder_out, int n_ost, int n_jobs,
                              float u_max, void* stream) {
-  const int c = cluster_blocks(n_jobs);
-  if (c == 0 || n_ost < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (c > 1)
-    return static_cast<int>(
-        launch_clusters<adaptbf_alloc_kernel<MAX_LPT, true>,
-                        smem_bytes<MAX_LPT>()>(
-            n_ost, c, st, demand, nodes, record, remainder, alloc_prev,
-            capacity, alloc_out, record_out, remainder_out, n_jobs, u_max));
-  REPRO_DISPATCH_LPT(n_jobs, return static_cast<int>(
-      launch_rows<adaptbf_alloc_kernel<LPT, false>, smem_bytes<LPT>()>(
-          n_ost, st, demand, nodes, record, remainder, alloc_prev, capacity,
-          alloc_out, record_out, remainder_out, n_jobs, u_max)));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(demand, nodes, record, remainder, alloc_prev, capacity,
+                alloc_out, record_out, remainder_out, n_ost, n_jobs, u_max,
+                static_cast<cudaStream_t>(stream), true);
 }
 
-// Blocks of the kernel resident on an SM at row width n_jobs, or past
-// MAX_J the clusters resident on the card (-1 on error); its dynamic shared
-// memory a block into *smem.
+// adaptbf_alloc with rows of J <= WARP_J on the one-block instance (a block
+// of THREADS a row) instead of their warp rows: what ran them before the
+// warp layout, for timing the two in one process (chip_smoke.py).  The
+// wrappers never call it.
+extern "C" int adaptbf_alloc_one_block(const float* demand, const float* nodes,
+                                       const float* record,
+                                       const float* remainder,
+                                       const float* alloc_prev,
+                                       const float* capacity, float* alloc_out,
+                                       float* record_out, float* remainder_out,
+                                       int n_ost, int n_jobs, float u_max,
+                                       void* stream) {
+  return launch(demand, nodes, record, remainder, alloc_prev, capacity,
+                alloc_out, record_out, remainder_out, n_ost, n_jobs, u_max,
+                static_cast<cudaStream_t>(stream), false);
+}
+
+// The launches this library has made in row layout `layout` (ROW_WARP,
+// ROW_BLOCK or ROW_CLUSTER of common.cuh; -1 for another value).
+extern "C" int adaptbf_alloc_layout_launches(int layout) {
+  return layout_launches.get(layout);
+}
+
+// Rows a block of the warp-row instance (common.cuh: WARP_ROWS).
+extern "C" int adaptbf_alloc_warp_rows() { return WARP_ROWS; }
+
+// Blocks of the kernel resident on an SM at row width n_jobs (of WARP_ROWS
+// warp rows each at J <= WARP_J), or past MAX_J the clusters resident on
+// the card (-1 on error); its dynamic shared memory a block into *smem.
 extern "C" int adaptbf_alloc_occupancy(int n_jobs, int* smem) {
   const int c = cluster_blocks(n_jobs);
   if (c == 0) return -1;
+  if (row_layout(n_jobs) == ROW_WARP) {
+    *smem = smem_bytes<1>();
+    return warp_blocks_per_sm<adaptbf_alloc_kernel<1, RowWarp<WARP_ROWS>, int>,
+                              smem_bytes<1>(), WARP_ROWS>();
+  }
   if (c > 1) {
     *smem = smem_bytes<MAX_LPT>();
-    return clusters_per_card<adaptbf_alloc_kernel<MAX_LPT, true>,
+    return clusters_per_card<adaptbf_alloc_kernel<MAX_LPT, RowBlock<true>>,
                              smem_bytes<MAX_LPT>()>(c);
   }
   REPRO_DISPATCH_LPT(n_jobs, *smem = smem_bytes<LPT>();
-                     return blocks_per_sm<adaptbf_alloc_kernel<LPT, false>,
+                     return blocks_per_sm<adaptbf_alloc_kernel<LPT, RowBlock<false>>,
                                           smem_bytes<LPT>()>());
   return -1;
 }

@@ -51,6 +51,13 @@
 //     block; after the barrier each lane sums its candidate's c slots in
 //     rank order (exact integers).  256 B to each block a pass (512 B, 1 KiB,
 //     2 KiB at c = 2, 4, 8).
+// A row on one warp (J <= WARP_J, common.cuh's RowWarp; WarpRed) runs
+// its searches on shuffles alone: topk_mask is a direct rank, each lane
+// counting the lanes whose key is larger or equal at a lower index (one
+// pass over the row's lanes), and the excess descent's five passes sum each
+// candidate's min(fl, c) lane by lane by shuffle (at most 32 terms below
+// 2^25: exact), so the searches find the same unique answers.
+//
 // The tables follow the reductions' two-set rule: peers add into a table
 // set only after a cluster barrier that every block reaches after its last
 // read of it and after zeroing it (a search's row and lower-ranks tables
@@ -466,6 +473,65 @@ __device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
 #pragma unroll 1
     for (int q = 0; q < r.blocks; ++q) tot += slots[q][lane];
     const float gc = __ull2float_rn(tot);
+    const int best = 31 - __clz(__ballot_sync(0xffffffffu, gc <= d_dn));
+    g_p = __shfl_sync(0xffffffffu, gc, best);
+    p += best << shift;
+  }
+}
+
+// The searches on a warp row (WarpRed: J <= WARP_J, lane l holds job l,
+// LPT = 1): warp shuffles only, no shared memory and no barrier.
+//
+// topk_mask as a direct rank: the lane's rank in the order (larger key
+// first, ties to the lower index) is the count of the row's lanes whose
+// order-mapped key is larger, or equal at a lower index, read one lane at
+// a time by shuffle; the lane is selected when its rank is below k.  One
+// pass, the same unique answer as the radix select.
+// n_jobs counts lanes from the warp row's first (RowWarp: -32 * warp).
+template <int LPT>
+__device__ __forceinline__ uint32_t topk_mask(const float (&key)[LPT], int k,
+                                              int n_jobs, WarpRed& r) {
+  static_assert(LPT == 1, "a warp row holds one lane a thread");
+  const int lane = threadIdx.x & 31;
+  const int n = n_jobs + r.first;  // the row's jobs
+  const uint32_t in = lane < n;
+  if (k <= 0 || k >= n) return k > 0 ? in : 0u;  // nothing, or every lane
+  const float kv = key[0] == 0.0f ? 0.0f : key[0];  // -0.0 ties +0.0
+  const int bits = __float_as_int(kv);
+  const unsigned u = static_cast<unsigned>(bits >= 0 ? bits : bits ^ 0x7FFFFFFF) ^
+                     0x80000000u;
+  int rank = 0;
+#pragma unroll 4
+  for (int m = 0; m < n; ++m) {
+    const unsigned um = __shfl_sync(0xffffffffu, u, m);
+    rank += um > u || (um == u && m < lane);
+  }
+  return in & static_cast<uint32_t>(rank < k);
+}
+
+// excess_rounds on a warp row: the five 5-bit passes of the one-block
+// descent, candidate c = p + c 2^shift on lane c, its sum of min(fl, c)
+// over the lanes up to the last nonzero floor, read one at a time by
+// shuffle (exact: at most 32 terms below 2^25), rounded once to float.
+template <int LPT>
+__device__ __forceinline__ void excess_rounds(const float (&fl)[LPT],
+                                              float d_dn, int& p, float& g_p,
+                                              WarpRed&) {
+  static_assert(LPT == 1, "a warp row holds one lane a thread");
+  const int lane = threadIdx.x & 31;
+  const unsigned f = static_cast<unsigned>(fminf(fl[0], TWO25));
+  // lanes up to the last nonzero floor (lanes past the row's jobs hold 0)
+  const int n_lanes = 32 - __clz(__ballot_sync(0xffffffffu, f != 0u));
+  p = 0;
+  g_p = 0.0f;
+#pragma unroll 1
+  for (int pass = 0; pass < 5; ++pass) {
+    const int shift = 20 - 5 * pass;
+    const unsigned c = static_cast<unsigned>(p) + (static_cast<unsigned>(lane) << shift);
+    unsigned sum = 0;
+#pragma unroll 4
+    for (int m = 0; m < n_lanes; ++m) sum += min(__shfl_sync(0xffffffffu, f, m), c);
+    const float gc = __uint2float_rn(sum);
     const int best = 31 - __clz(__ballot_sync(0xffffffffu, gc <= d_dn));
     g_p = __shfl_sync(0xffffffffu, gc, best);
     p += best << shift;

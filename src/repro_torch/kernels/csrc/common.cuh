@@ -1,5 +1,7 @@
 // Shared pieces of the per-row kernels (fleet_window.cu, adaptbf_alloc.cu,
-// window_mega.cu; serve.cuh and alloc_round.cuh build on them).
+// window_mega.cu; serve.cuh and alloc_round.cuh build on them).  A row runs
+// on one warp (J <= 32, RowWarp; B2 and B3), one block (J <= 8192,
+// RowBlock<false>) or a cluster (J <= 65536, RowBlock<true>): row_layout.
 //
 // A row of J <= 8192 jobs runs on one thread block (RowBlock<false>): thread
 // t owns the lanes j = t + i * THREADS (i < LPT) of the row in registers;
@@ -42,6 +44,21 @@
 // it exits (RowBlock<true>::done), after which no peer touches its shared
 // memory.
 //
+// A narrow row (J <= WARP_J = 32) runs on one warp (RowWarp<ROWS>): warp w
+// of block b is row slot b * ROWS + w and lane l holds job l (one lane a
+// thread).  The warp presents its row as a slice from lane first = -32 w
+// of n = J + 32 w lanes, so that thread t's lane t - 32 w sits at
+// row + lane_of(0) as in a block's row: the one-block code (serve.cuh,
+// alloc_round.cuh's round, the kernels' loads and stores) runs on it
+// unchanged, its lane tests j < n true exactly for the row's J lanes.  A
+// reduction is the warp butterfly alone (WarpRed): no shared
+// slot and no barrier anywhere on the path, since warps past the last row
+// return at once and the rows of a block diverge.  The butterfly gives every
+// lane the same total (each step adds the same two partials, in either
+// order), and for J <= 32 it is the sum the one-block layout formed in its
+// first warp (the other warps' slots add 0.0), so the two layouts agree
+// bitwise.
+//
 // Float row sums accumulate in double and round once to float, as the plain
 // PyTorch versions do (kernels/numerics.py::row_sum).  The kernel reduces in
 // another order, so the double sums may differ in their last bit and, near a
@@ -61,6 +78,8 @@ constexpr int MAX_LPT = 16;         // lanes per thread: J <= 8192 a block
 constexpr int MAX_J = THREADS * MAX_LPT;
 constexpr int MAX_CLUSTER = 8;      // the portable cluster size
 constexpr int MAX_ROW_J = MAX_CLUSTER * MAX_J;  // 65536 jobs a row
+constexpr int WARP_J = 32;          // rows of up to 32 jobs: one warp a row
+constexpr int WARP_ROWS = 16;      // warp rows a block (16 against 4: PERF.md)
 
 // Blocks a row of n_jobs runs on: 1 up to MAX_J, else the fewest of 2, 4
 // and 8 with c * MAX_J >= n_jobs; 0 past MAX_ROW_J or below 1 (the host's
@@ -71,6 +90,18 @@ __host__ __device__ constexpr int cluster_blocks(int n_jobs) {
          : n_jobs <= 2 * MAX_J ? 2
          : n_jobs <= 4 * MAX_J ? 4
          : n_jobs <= MAX_ROW_J ? 8 : 0;
+}
+
+// The layout a row of n_jobs runs on: one warp up to WARP_J, one block up
+// to MAX_J, else a cluster (cluster_blocks); ROW_NONE past MAX_ROW_J or
+// below 1 (the host's rule: kernels/dispatch.py::row_layout).
+enum RowLayout : int { ROW_NONE = 0, ROW_WARP = 1, ROW_BLOCK = 2, ROW_CLUSTER = 3 };
+
+__host__ __device__ constexpr int row_layout(int n_jobs) {
+  return n_jobs < 1 ? ROW_NONE
+         : n_jobs <= WARP_J ? ROW_WARP
+         : n_jobs <= MAX_J ? ROW_BLOCK
+         : n_jobs <= MAX_ROW_J ? ROW_CLUSTER : ROW_NONE;
 }
 
 struct Scratch {
@@ -116,6 +147,14 @@ struct ClusterRed {
   int row_jobs;
 };
 
+// The reductions and searches of a row on one warp: warp butterflies and
+// shuffles only (a type of its own, so that every helper picks the warp
+// overloads); `first`, the row's first lane in the warp's thread
+// numbering (-32 * warp: RowWarp).
+struct WarpRed {
+  int first;
+};
+
 __device__ __forceinline__ void cluster_sync() {
   cooperative_groups::this_cluster().sync();
 }
@@ -148,6 +187,8 @@ struct RowBlock;
 
 template <>
 struct RowBlock<false> {
+  static constexpr int THREADS = repro::THREADS;
+  static constexpr bool WARP = false, CLUSTER = false;
   static constexpr int first = 0;
   Red red;
   int n;
@@ -159,6 +200,8 @@ struct RowBlock<false> {
 
 template <>
 struct RowBlock<true> {
+  static constexpr int THREADS = repro::THREADS;
+  static constexpr bool WARP = false, CLUSTER = true;
   ClusterRed red;
   int first, n;
   // Arrives at the start barrier, which the first reduction (or done())
@@ -186,6 +229,34 @@ struct RowBlock<true> {
     if (red.n == 0) cluster_wait();  // no reduction waited for the start
     cluster_sync();
   }
+};
+
+// A warp's place: warp w of block b is row slot b * ROWS + w and holds all
+// J <= WARP_J lanes, lane l job l; a block of ROWS warps.  As a slice its
+// first lane is -32 w and it has n = J + 32 w lanes (thread t holds lane
+// t + first), so the one-block code's row + t addresses job t - 32 w and
+// its test t < n keeps lanes l < J.  The grid rounds the rows up to whole
+// blocks: outside(rows) is true for a warp past the last row, which the
+// kernel returns on before anything else (it waits for no one: no barrier
+// on the path).  The Scratch handed over is unused.
+template <int ROWS>
+struct RowWarp {
+  static_assert(ROWS * 32 <= repro::THREADS,
+                "SmemLanes strides its lanes by THREADS threads");
+  static constexpr int THREADS = ROWS * 32;
+  static constexpr bool WARP = true, CLUSTER = false;
+  WarpRed red;
+  int first, n;
+  __device__ __forceinline__ RowWarp(Scratch&, int n_jobs)
+      : red{-static_cast<int>(threadIdx.x & ~31u)},
+        first(red.first), n(n_jobs - first) {}
+  __device__ __forceinline__ static unsigned index() {
+    return blockIdx.x * ROWS + (threadIdx.x >> 5);
+  }
+  __device__ __forceinline__ static bool outside(int rows) {
+    return index() >= static_cast<unsigned>(rows);
+  }
+  __device__ __forceinline__ void done() {}
 };
 
 // The kernel's dynamic shared memory (the allocation round's lane arrays,
@@ -276,6 +347,14 @@ __device__ __forceinline__ void block_reduce(double (&f)[2], int& c,
   if (NI) c = warp_count(gc);
 }
 
+// The same on a warp row: the butterflies alone, every lane with the total.
+template <int NF, int NI>
+__device__ __forceinline__ void block_reduce(double (&f)[2], int& c, WarpRed&) {
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = warp_sum(f[k]);
+  if (NI) c = warp_count(c);
+}
+
 // Row-wide sum of per-thread double partials, rounded once to float.
 template <class R>
 __device__ __forceinline__ float block_sum(double x, R& r) {
@@ -345,6 +424,29 @@ struct ClusterLaunch {
   }
 };
 
+// Launches by row layout (index ROW_WARP, ROW_BLOCK, ROW_CLUSTER), counted
+// on the host where a kernel's C entry picks the instance: each library
+// keeps its own counts and exports them (<name>_layout_launches), so a test
+// sees which instance a call ran.
+struct LayoutLaunches {
+  int n[4] = {0, 0, 0, 0};
+  cudaError_t count(int layout, cudaError_t err) {
+    if (err == cudaSuccess) ++n[layout];
+    return err;
+  }
+  int get(int layout) const { return layout > 0 && layout < 4 ? n[layout] : -1; }
+};
+
+// Launch K, a kernel of one warp a row in blocks of ROWS warps, over `rows`
+// rows on stream s; the launch's cudaError_t.
+template <auto K, int SMEM, int ROWS, class... Args>
+cudaError_t launch_warp_rows(int rows, cudaStream_t s, Args... args) {
+  const cudaError_t err = allow_smem<K, SMEM>();
+  if (err != cudaSuccess) return err;
+  K<<<(rows + ROWS - 1) / ROWS, ROWS * 32, SMEM, s>>>(args...);
+  return cudaGetLastError();
+}
+
 // Launch K over `rows` clusters of c blocks on stream s; the launch's
 // cudaError_t.
 template <auto K, int SMEM, class... Args>
@@ -363,6 +465,17 @@ int blocks_per_sm() {
   int blocks = -1;
   if (allow_smem<K, SMEM>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, K, THREADS,
+                                                    SMEM) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Blocks of K (ROWS warps each) resident on one SM (-1 on error).
+template <auto K, int SMEM, int ROWS>
+int warp_blocks_per_sm() {
+  int blocks = -1;
+  if (allow_smem<K, SMEM>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, K, ROWS * 32,
                                                     SMEM) != cudaSuccess)
     return -1;
   return blocks;

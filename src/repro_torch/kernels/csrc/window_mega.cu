@@ -38,14 +38,23 @@
 // registers, and faster (ptxas and the measured times: PERF.md).
 //
 // Rows wider than 8192 jobs (up to 65536) run on a thread-block cluster of
-// c = 2, 4 or 8 blocks a row (common.cuh: RowBlock<true>; template case
-// WIDE): each block runs the round over its slice of the row, its rate,
-// state and output rows offset by the slice, with the cluster's reductions
-// and searches.  A block of 16 lanes a thread fits one an SM (its round's
-// 128 KB of lanes), so the wide case drops the two-block register cap:
-// held to 64 registers it spilled 1.7 KB a thread and ran 1.3193 ms at
-// 256 x 16384 (PERF.md).  Rows of J <= 8192 run the one-block cases,
-// unchanged.
+// c = 2, 4 or 8 blocks a row (common.cuh: template case Row =
+// RowBlock<true>): each block runs the round over its slice of the row,
+// its rate, state and output rows offset by the slice, with the cluster's
+// reductions and searches.  A block of 16 lanes a thread fits one an SM
+// (its round's 128 KB of lanes), so the wide case drops the two-block
+// register cap: held to 64 registers it spilled 1.7 KB a thread and ran
+// 1.3193 ms at 256 x 16384 (PERF.md).  Rows of 33 to 8192 jobs run the
+// one-block cases (Row = RowBlock<false>), unchanged.
+//
+// Rows of at most 32 jobs (common.cuh: WARP_J) run one warp a row,
+// WARP_ROWS = 16 rows a block (RowWarp; template case Row): the ticks'
+// and the round's reductions are warp butterflies and the searches
+// shuffles (serve.cuh, alloc_round.cuh), with no barrier anywhere; a warp
+// past the last row (or past the last of a code's listed rows) returns at
+// once.  Every policy case and both FLEETS cases have a warp instance.
+// window_mega_one_block launches the one-block instances at any J <= 8192,
+// to time the two (PERF.md).
 //
 // What crosses the cluster: each block pushes its partials into every
 // peer's shared memory before a cluster barrier and reads only its own
@@ -165,12 +174,19 @@ __device__ __forceinline__ float nodes_sum(const float* __restrict__ nodes_row,
   return block_sum(part, s);
 }
 
-template <int LPT, int POLICY, bool FLEETS, bool WIDE>
-__global__ void __launch_bounds__(THREADS, WIDE ? 1 : 2)
+// Row: RowBlock<false> (one block a row), RowBlock<true> (a cluster) or
+// RowWarp<WARP_ROWS> (one warp a row at LPT 1; held to 64 registers, 1024
+// threads an SM, as the one-block rows).
+template <int LPT, int POLICY, bool FLEETS, class Row>
+__global__ void __launch_bounds__(Row::THREADS,
+                                  Row::WARP ? 1024 / Row::THREADS
+                                            : (Row::CLUSTER ? 1 : 2))
 window_mega_kernel(const MegaParams p) {
+  if constexpr (Row::WARP) {
+    if (Row::outside(p.n_rows)) return;  // a warp past the last row
+  }
   __shared__ Scratch scratch;
-  if constexpr (POLICY == POLICY_ADAPTBF) search_init(scratch);
-  using Row = RowBlock<WIDE>;
+  if constexpr (POLICY == POLICY_ADAPTBF && !Row::WARP) search_init(scratch);
   const int o = FLEETS && p.rows != nullptr ? p.rows[Row::index()]
                                             : static_cast<int>(Row::index());
   const int n_jobs = p.n_jobs;  // the row's jobs (its stride)
@@ -347,63 +363,102 @@ constexpr int smem_bytes() {
   return POLICY == POLICY_ADAPTBF ? SmemRound<LPT>::BYTES : LPT * THREADS * 4;
 }
 
+LayoutLaunches layout_launches;
+
+// The launch of one case: its layout by row_layout, or the one-block
+// layout at any J <= MAX_J when `narrow` is false.
 template <int POLICY, bool FLEETS>
-cudaError_t launch_case(const MegaParams& p, cudaStream_t s) {
+cudaError_t launch_case(const MegaParams& p, cudaStream_t s, bool narrow) {
+  if (narrow && row_layout(p.n_jobs) == ROW_WARP)
+    return layout_launches.count(ROW_WARP, launch_warp_rows<
+        window_mega_kernel<1, POLICY, FLEETS, RowWarp<WARP_ROWS>>,
+        smem_bytes<1, POLICY>(), WARP_ROWS>(p.n_rows, s, p));
   const int c = cluster_blocks(p.n_jobs);
   if (c > 1)
-    return launch_clusters<window_mega_kernel<MAX_LPT, POLICY, FLEETS, true>,
-                           smem_bytes<MAX_LPT, POLICY>()>(p.n_rows, c, s, p);
+    return layout_launches.count(ROW_CLUSTER, launch_clusters<
+        window_mega_kernel<MAX_LPT, POLICY, FLEETS, RowBlock<true>>,
+        smem_bytes<MAX_LPT, POLICY>()>(p.n_rows, c, s, p));
   REPRO_DISPATCH_LPT(
-      p.n_jobs, return launch_rows<window_mega_kernel<LPT, POLICY, FLEETS, false>,
-                                   smem_bytes<LPT, POLICY>()>(p.n_rows, s, p));
+      p.n_jobs,
+      return layout_launches.count(ROW_BLOCK, launch_rows<
+          window_mega_kernel<LPT, POLICY, FLEETS, RowBlock<false>>,
+          smem_bytes<LPT, POLICY>()>(p.n_rows, s, p)));
   return cudaErrorInvalidValue;
 }
 
 template <int POLICY>
-cudaError_t launch(const MegaParams& p, cudaStream_t s) {
+cudaError_t launch(const MegaParams& p, cudaStream_t s, bool narrow) {
   if (p.rows != nullptr || p.rows_per_fleet != p.n_ost)
-    return launch_case<POLICY, true>(p, s);
-  return launch_case<POLICY, false>(p, s);
+    return launch_case<POLICY, true>(p, s, narrow);
+  return launch_case<POLICY, false>(p, s, narrow);
+}
+
+int launch_round(const MegaParams& p, cudaStream_t s, bool narrow) {
+  if (cluster_blocks(p.n_jobs) == 0 || p.n_ost < 1 || p.n_ticks < 0 ||
+      p.n_rows < 1 || p.rows_per_fleet < 1 || p.n_ost % p.rows_per_fleet ||
+      p.rate_fleet_rows < 0 || (p.rows == nullptr && p.n_rows != p.n_ost))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (p.policy) {
+    case POLICY_ADAPTBF: return static_cast<int>(launch<POLICY_ADAPTBF>(p, s, narrow));
+    case POLICY_STATIC: return static_cast<int>(launch<POLICY_STATIC>(p, s, narrow));
+    case POLICY_NOBW: return static_cast<int>(launch<POLICY_NOBW>(p, s, narrow));
+    case POLICY_STATIC_WC:
+      return static_cast<int>(launch<POLICY_STATIC_WC>(p, s, narrow));
+    case POLICY_AIMD: return static_cast<int>(launch<POLICY_AIMD>(p, s, narrow));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // One control round for every OST row (or the rows listed in p.rows); rows
-// of up to MAX_ROW_J jobs (a cluster a row past MAX_J).  Launches on
-// `stream`, does not synchronise, allocates nothing; returns the launch's
-// cudaError_t.
+// of up to MAX_ROW_J jobs (one warp a row to WARP_J, a block to MAX_J, a
+// cluster past it).  Launches on `stream`, does not synchronise, allocates
+// nothing; returns the launch's cudaError_t.
 extern "C" int window_mega(const MegaParams* params, void* stream) {
-  const MegaParams& p = *params;
-  if (cluster_blocks(p.n_jobs) == 0 || p.n_ost < 1 || p.n_ticks < 0 ||
-      p.n_rows < 1 || p.rows_per_fleet < 1 || p.n_ost % p.rows_per_fleet ||
-      p.rate_fleet_rows < 0 || (p.rows == nullptr && p.n_rows != p.n_ost))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.policy) {
-    case POLICY_ADAPTBF: return static_cast<int>(launch<POLICY_ADAPTBF>(p, s));
-    case POLICY_STATIC: return static_cast<int>(launch<POLICY_STATIC>(p, s));
-    case POLICY_NOBW: return static_cast<int>(launch<POLICY_NOBW>(p, s));
-    case POLICY_STATIC_WC: return static_cast<int>(launch<POLICY_STATIC_WC>(p, s));
-    case POLICY_AIMD: return static_cast<int>(launch<POLICY_AIMD>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_round(*params, static_cast<cudaStream_t>(stream), true);
 }
 
-// Blocks of the adaptbf case resident on an SM at row width n_jobs, or past
-// MAX_J the clusters resident on the card (-1 on error); its dynamic shared
-// memory a block into *smem.
+// window_mega with rows of J <= WARP_J on the one-block instances (a block
+// of THREADS a row) instead of their warp rows: what ran them before the
+// warp layout, for timing the two in one process (chip_smoke.py).  The
+// wrappers never call it.
+extern "C" int window_mega_one_block(const MegaParams* params, void* stream) {
+  return launch_round(*params, static_cast<cudaStream_t>(stream), false);
+}
+
+// The launches this library has made in row layout `layout` (ROW_WARP,
+// ROW_BLOCK or ROW_CLUSTER of common.cuh; -1 for another value).
+extern "C" int window_mega_layout_launches(int layout) {
+  return layout_launches.get(layout);
+}
+
+// Rows a block of the warp-row instance (common.cuh: WARP_ROWS).
+extern "C" int window_mega_warp_rows() { return WARP_ROWS; }
+
+// Blocks of the adaptbf case resident on an SM at row width n_jobs (of
+// WARP_ROWS warp rows each at J <= WARP_J), or past MAX_J the clusters
+// resident on the card (-1 on error); its dynamic shared memory a block
+// into *smem.
 extern "C" int window_mega_occupancy(int n_jobs, int* smem) {
   const int c = cluster_blocks(n_jobs);
   if (c == 0) return -1;
+  if (row_layout(n_jobs) == ROW_WARP) {
+    *smem = smem_bytes<1, POLICY_ADAPTBF>();
+    return warp_blocks_per_sm<
+        window_mega_kernel<1, POLICY_ADAPTBF, false, RowWarp<WARP_ROWS>>,
+        smem_bytes<1, POLICY_ADAPTBF>(), WARP_ROWS>();
+  }
   if (c > 1) {
     *smem = smem_bytes<MAX_LPT, POLICY_ADAPTBF>();
     return clusters_per_card<
-        window_mega_kernel<MAX_LPT, POLICY_ADAPTBF, false, true>,
+        window_mega_kernel<MAX_LPT, POLICY_ADAPTBF, false, RowBlock<true>>,
         smem_bytes<MAX_LPT, POLICY_ADAPTBF>()>(c);
   }
   REPRO_DISPATCH_LPT(
       n_jobs, *smem = smem_bytes<LPT, POLICY_ADAPTBF>();
-      return blocks_per_sm<window_mega_kernel<LPT, POLICY_ADAPTBF, false, false>,
-                           smem_bytes<LPT, POLICY_ADAPTBF>()>());
+      return blocks_per_sm<
+          window_mega_kernel<LPT, POLICY_ADAPTBF, false, RowBlock<false>>,
+          smem_bytes<LPT, POLICY_ADAPTBF>()>());
   return -1;
 }

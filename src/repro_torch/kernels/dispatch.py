@@ -9,12 +9,25 @@ from __future__ import annotations
 
 import torch
 
+#: the widest row one warp takes, a lane a job (``csrc/common.cuh``: WARP_J)
+WARP_JOBS = 32
 #: the widest row one thread block takes: 512 threads x 16 lanes per thread
 #: (``csrc/common.cuh``: THREADS * MAX_LPT)
 BLOCK_JOBS = 8192
 #: the widest row the fleet kernels take: a cluster of 8 blocks, the
 #: portable cluster size (``csrc/common.cuh``: MAX_ROW_J)
 MAX_JOBS = 8 * BLOCK_JOBS
+
+
+def row_layout(n_jobs: int) -> str:
+    """What B2 and B3 run a row of ``n_jobs`` on: ``"warp"`` up to
+    ``WARP_JOBS`` (one warp a row, several rows a block), ``"block"`` up to
+    ``BLOCK_JOBS``, else ``"cluster"`` (``csrc/common.cuh::row_layout`` is
+    the same rule; B1 runs a narrow row on one block).  Raises
+    ``ValueError`` past ``MAX_JOBS``."""
+    if cluster_size(n_jobs) > 1:
+        return "cluster"
+    return "warp" if n_jobs <= WARP_JOBS else "block"
 
 
 def cluster_size(n_jobs: int) -> int:

@@ -8,8 +8,9 @@ selected member, and per-row codes (a batch of fleets) launch once for each
 distinct code, over that code's rows.
 
 On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs: rows of
-up to 8192 run on one thread block, wider rows on a thread-block cluster of
-2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row raises
+up to 32 run on one warp, 16 rows a block, rows of up to 8192 on one thread
+block, wider rows on a thread-block cluster of 2, 4 or 8 blocks
+(``dispatch.row_layout``, ``dispatch.cluster_size``).  A wider row raises
 ``ValueError`` before any launch; CPU tensors run the plain version at any
 width.
 """

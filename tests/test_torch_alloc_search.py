@@ -6,6 +6,9 @@ against the port's ``core/remainder.py`` (sort-based top-k, 25-step bit
 descent) and the reference's ``repro.core.remainder`` (probe searches), on
 seeded numpy rows: many exact ties, -0.0 beside +0.0, -inf keys, all keys
 -inf, a zero budget, and k at 0, 1 and around the count of finite keys.
+``integerize_model`` runs each row on one block, or (cases ``warp-J``) at
+J <= 32 on one warp, the kernels' narrow layout, with the warp row's
+searches (``topk_mask_rank``, ``excess_rounds_warp``).
 
 The reference runs on rows padded to J = 8192 with excluded lanes (-inf
 keys, unmasked jobs) after the real ones, which rank after every real lane
@@ -24,12 +27,13 @@ from test_topk_select import random_case
 from repro.core import remainder as jref
 from repro_torch.core import remainder as tref
 from repro_torch.kernels.adaptbf_alloc import ref as model
-from repro_torch.kernels.dispatch import MAX_JOBS
+from repro_torch.kernels.dispatch import MAX_JOBS, WARP_JOBS
 
 torch.set_num_threads(1)
 
 PAD = 8192
-WIDTHS = [1, 7, 4095, 4096, 8192]
+WIDTHS = [1, 7, 8, 31, 32, 4095, 4096, 8192]
+NARROW = [j for j in WIDTHS if j <= WARP_JOBS]   # rows a warp runs
 WIDE_PAD = MAX_JOBS                 # 65536
 WIDE = [8193, 16384, 32768, 40000, 65536]  # clusters of 2, 2, 4, 8, 8 blocks
 WIDE_ROWS = 4                       # one shape a primitive at WIDE_PAD
@@ -221,13 +225,14 @@ def test_excess_model_across_slices_matches_bit_descent(j):
     np.testing.assert_array_equal(g_p.numpy(), want_g)
 
 
-def _integerize_all(raw, rem, budget, mask):
-    """The model, the port and the reference on [R, J] rows: bitwise."""
+def _integerize_all(raw, rem, budget, mask, warp=False):
+    """The model (on one warp a row with ``warp``), the port and the
+    reference on [R, J] rows: bitwise."""
     j = raw.shape[-1]
     pad = PAD if j <= PAD else WIDE_PAD
     got = model.integerize_model(torch.from_numpy(raw), torch.from_numpy(rem),
                                  torch.from_numpy(budget),
-                                 torch.from_numpy(mask))
+                                 torch.from_numpy(mask), warp=warp)
     port = tref.integerize(torch.from_numpy(raw), torch.from_numpy(rem),
                            torch.from_numpy(budget)[:, None],
                            torch.from_numpy(mask))
@@ -241,8 +246,11 @@ def _integerize_all(raw, rem, budget, mask):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("j", WIDTHS)
-def test_integerize_model_bitwise(j):
+@pytest.mark.parametrize("j,warp", [(j, False) for j in WIDTHS]
+                         + [(j, True) for j in NARROW],
+                         ids=[str(j) for j in WIDTHS]
+                         + [f"warp-{j}" for j in NARROW])
+def test_integerize_model_bitwise(j, warp):
     """In-contract rows and rows whose budget is off by up to 50 tokens
     (leftover and excess), with negative carried remainders."""
     rng = np.random.default_rng(j * 5 + 3)
@@ -250,7 +258,7 @@ def test_integerize_model_bitwise(j):
              (True, True, False, False, False)]
     raw, rem, budget, mask = (np.stack([c[i] for c in cases])
                               for i in range(4))
-    _integerize_all(raw, rem, budget.astype(np.float32), mask)
+    _integerize_all(raw, rem, budget.astype(np.float32), mask, warp)
 
 
 def test_integerize_model_on_stress_rows():
@@ -268,6 +276,34 @@ def test_integerize_model_on_stress_rows():
                        floored[2] - 9, floored[3] - 1.5 * mask[3].sum(),
                        0.0, 0.0], np.float32)
     _integerize_all(raw, rem, budget, mask)
+
+
+@pytest.mark.parametrize("j", NARROW)
+def test_integerize_warp_model_on_stress_rows(j):
+    """On one warp a row: (0) every remainder tied with a one-token
+    leftover, (1) a leftover of several rounds over a negative carry, (2)
+    an excess of a few tokens among ties, (3) an excess of several rounds,
+    (4) nothing masked, (5) a zero budget over carried remainders."""
+    rng = np.random.default_rng(j + 53)
+    mask = rng.random((6, j)) < 0.8
+    mask[:, 0] = True
+    mask[4] = False
+    raw = np.where(mask, 2.5, 0.0).astype(np.float32)
+    rem = np.zeros((6, j), np.float32)
+    rem[1] = -0.75
+    rem[5] = np.where(mask[5], 3.5, 0.0)
+    floored = np.floor(np.where(mask, raw + rem, 0.0)).clip(0).sum(axis=1)
+    n = mask.sum(axis=1)
+    budget = np.array([floored[0] + 1, floored[1] + 3 * n[1] + 5,
+                       floored[2] - 2, floored[3] - 1.5 * n[3], 0.0, 0.0],
+                      np.float32)
+    _integerize_all(raw, rem, budget, mask, warp=True)
+
+
+def test_integerize_warp_model_takes_at_most_32_jobs():
+    row = torch.zeros((1, WARP_JOBS + 1))
+    with pytest.raises(ValueError, match="32"):
+        model.integerize_model(row, row, torch.zeros(1), row > 0, warp=True)
 
 
 @pytest.mark.parametrize("j", WIDE)

@@ -24,7 +24,11 @@ only, gstate only, S = 1, P = 16 with N = 128, 32 chunks of carry, S =
 profiler's kernel names and its TMA checks, both bitwise across two
 calls, and a trainer's crash and restore bitwise on the card; the MoE
 block (bitwise across two calls, the CPU's experts and output) and the
-MoE and frontend smoke models' attention launches.
+MoE and frontend smoke models' attention launches.  Narrow rows (J <= 32,
+one warp a row in B2 and B3): every policy case, coded fleets with an
+out-of-range code and faults, the search stress rows, 1 to 4096 rows, and
+each library's launches by row layout (the warp-row instances, never the
+plain versions).
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -150,7 +154,9 @@ def _alloc_stress(j, seed):
     return demand, nodes, record, remainder, prev, cap
 
 
-STRESS_WIDTHS = [1, 4093, 4095, 4096, BLOCK_JOBS, *WIDE_WIDTHS]
+# 1 to 32: one warp a row in B2 and B3; 33: the first one-block width
+STRESS_WIDTHS = [1, 7, 8, 31, 32, 33, 4093, 4095, 4096, BLOCK_JOBS,
+                 *WIDE_WIDTHS]
 
 
 @pytest.mark.parametrize("j", STRESS_WIDTHS)
@@ -304,12 +310,14 @@ MEGA_CASES = ["adaptbf", "static", "nobw", "static_wc", "aimd", "coded0",
               "coded2"]
 
 
-def _mega_round(name, j, seed, dev):
-    """An evolved round at width j: integer allocations with stopped rules,
-    nonzero records and fractional remainders (adaptbf), carried rates and
-    unruled rows (aimd); coded over the default members."""
+def _mega_round(name, j, seed, dev, o=3):
+    """An evolved round of o rows at width j: integer allocations with
+    stopped rules, nonzero records and fractional remainders (adaptbf),
+    carried rates and unruled rows (aimd); coded over the default members.
+    The fault columns lose row 0's telemetry and take row 1 down (every
+    third row from there when o > 3)."""
     rng = np.random.default_rng(seed)
-    o, w = 3, 10
+    w = 10
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -341,7 +349,7 @@ def _mega_round(name, j, seed, dev):
             t(np.where(rng.random((o, j)) < 0.3, np.inf, 150.0)), alloc,
             (zeros, zeros, alloc), pstate,
             t(rng.integers(0, 4, (w, o, j)))]
-    faults = (t([0.0, 1.0, 1.0]), t([1.0, 0.0, 1.0]))
+    faults = (t(np.resize([0.0, 1.0, 1.0], o)), t(np.resize([1.0, 0.0, 1.0], o)))
     return args, faults
 
 
@@ -731,6 +739,114 @@ def test_simulate_tenants_on_the_card_equals_per_fleet_loop(
             if torch.is_tensor(x):
                 assert got[path].device.type == "cuda", path
                 assert torch.equal(got[path][i], x), (i, path)
+
+
+# ----------------------------------------------------------- narrow rows
+# J <= 32: B2 and B3 run one warp a row, 16 rows a block (33: the first
+# one-block width); 17 rows leave the last block part-filled
+NARROW_WIDTHS = [1, 7, 8, 31, 32, 33]
+NARROW_ROWS = [1, 17, 64, 4096]
+
+
+@pytest.mark.parametrize("o", NARROW_ROWS)
+@pytest.mark.parametrize("j", NARROW_WIDTHS)
+def test_narrow_alloc_matches_plain(cuda, j, o):
+    """B2 on o random rows: the integer allocation equal to the plain
+    round's, record and remainder within 1e-3, one launch a call."""
+    args = _alloc_case(o, j, seed=o * 100 + j, dev=cuda)
+    before = alloc_ops.launches
+    got = alloc_ops.fleet_alloc(*args)
+    assert alloc_ops.launches == before + 1
+    want = alloc_ops.fleet_alloc_ref(*args)[:3]
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("record", "remainder"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("o", NARROW_ROWS)
+@pytest.mark.parametrize("j", NARROW_WIDTHS)
+@pytest.mark.parametrize("name", MEGA_CASES)
+def test_narrow_mega_matches_plain(cuda, name, j, o):
+    """B3 for every policy case and coded, one round and then a round with
+    lost telemetry and down rows, over o rows: the allocation equal to the
+    plain round's, every other leaf within 1e-3."""
+    args, faults = _mega_round(name, j, seed=o * 100 + j, dev=cuda, o=o)
+    for extra in ((), faults):
+        before = mega_ops.launches
+        got = mega_ops.mega_window_round(*args, *extra)
+        assert mega_ops.launches == before + 1
+        want = mega_ops.ref.mega_round_ref(*args, *extra)
+        _mega_close(got, want)
+        args[4:9] = [want[0], want[1], want[8], tuple(want[4:7]), want[7]]
+
+
+@pytest.mark.parametrize("j", NARROW_WIDTHS)
+def test_narrow_coded_fleets_with_faults(cuda, j):
+    """Five fleets of 4 rows under per-fleet codes, one out of range, with
+    lost telemetry and down rows: one launch a distinct code, against the
+    plain round, each fleet bitwise its own launch."""
+    codes = (0, 2, 7, 1, 2)
+    args, code_rows = _fleet_mega_round(codes, j, "shared", seed=j, dev=cuda)
+    r = 4 * len(codes)
+    telem = torch.ones(r, device=cuda)
+    up = torch.ones(r, device=cuda)
+    telem[::3] = 0.0
+    up[1::4] = 0.0
+    before = mega_ops.launches
+    got = mega_ops.mega_window_round(*args, telem, up, code_rows=code_rows)
+    assert mega_ops.launches == before + len(set(codes))
+    want = mega_ops.ref.mega_round_ref(*args, telem, up)
+    for i, (g, x) in enumerate(zip(_mega_leaves(got), _mega_leaves(want),
+                                   strict=True)):
+        assert torch.equal(g.isfinite(), x.isfinite()), i
+        fin = x.isfinite()
+        torch.testing.assert_close(g[fin], x[fin], rtol=0, atol=1e-3,
+                                   msg=f"leaf {i}")
+    for f, code in enumerate(codes):
+        rows = slice(f * 4, (f + 1) * 4)
+        alone = mega_ops.mega_window_round(*_fleet_slice(args, f, 4, code),
+                                           telem[rows], up[rows])
+        for i, (g, a) in enumerate(zip(_mega_leaves(got), _mega_leaves(alone),
+                                       strict=True)):
+            assert torch.equal(g[rows], a), (f, i)
+
+
+def _layout_launches(lib):
+    """A fleet library's launches by row layout (warp, block, cluster),
+    counted by its C entry where it picks the instance."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.load(f"{lib}_layout_launches", [ctypes.c_int], lib=lib)
+    return [fn(layout) for layout in (1, 2, 3)]
+
+
+def test_narrow_rows_launch_the_warp_instances(cuda, monkeypatch):
+    """A CUDA tensor at J <= 32 launches B2's and B3's warp-row instances
+    (each library's count of warp-row launches moves once a call, every
+    policy case and coded), never the plain versions; J = 33 launches the
+    one-block instances."""
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(alloc_ops.ref, "fleet_alloc_ref", plain)
+    monkeypatch.setattr(mega_ops.ref, "mega_round_ref", plain)
+    for j in (1, 8, 32, 33):
+        calls = [_mega_round(name, j, seed=j, dev=cuda, o=17)[0]
+                 for name in MEGA_CASES]
+        args = _alloc_case(17, j, seed=j, dev=cuda)
+        before = [_layout_launches(lib) for lib in ("adaptbf_alloc",
+                                                    "window_mega")]
+        alloc_ops.fleet_alloc(*args)
+        for margs in calls:
+            mega_ops.mega_window_round(*margs)
+        after = [_layout_launches(lib) for lib in ("adaptbf_alloc",
+                                                   "window_mega")]
+        moved = [[a - b for a, b in zip(x, y)] for x, y in zip(after, before)]
+        n = len(MEGA_CASES)
+        want = ([[1, 0, 0], [n, 0, 0]] if j <= 32
+                else [[0, 1, 0], [0, n, 0]])
+        assert moved == want, (j, moved)
 
 
 # ------------------------------------------------------------ LM kernels

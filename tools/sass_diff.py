@@ -8,10 +8,16 @@ each build stripped.
 
     python tools/sass_diff.py OLD.so NEW.so [--only SUBSTR] \\
         [--rename 'ILi(\\d+)EE$' 'ILi\\1ELb0EE' ...]
+    python tools/sass_diff.py OLD.so NEW.so --demangle \\
+        --rename ',\\(bool\\)([01])>$' ',repro::RowBlock<(bool)\\1>>'
 
 Prints one line a kernel (same, differs, missing) and exits 1 unless every
-selected kernel of OLD is in NEW with the same instructions.  Needs the
-CUDA toolkit's ``cuobjdump`` (next to ``nvcc``)."""
+selected kernel of OLD is in NEW with the same instructions.  With
+``--demangle`` kernels are matched by their demangled names (``cu++filt``)
+without the parameter list and without spaces, so a kernel whose template
+argument changed type or that gained a parameter is matched by a rename of
+its template arguments alone.  Needs the CUDA toolkit's ``cuobjdump`` and
+``cu++filt`` (next to ``nvcc``)."""
 from __future__ import annotations
 
 import argparse
@@ -25,20 +31,43 @@ _TAG = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
-def kernels(lib: Path, cuobjdump: str):
-    """{kernel name, tag stripped: [instruction, ...]} of a library."""
+def kernels(lib: Path, cuobjdump: str, strip: bool = True):
+    """{kernel name, tag stripped unless ``strip`` is false: [instruction,
+    ...]} of a library."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     out, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = _TAG.sub("_GLOBAL__N_", line.split("Function :")[1].strip())
+            name = line.split("Function :")[1].strip()
+            if strip:
+                name = _TAG.sub("_GLOBAL__N_", name)
             out[name] = []
         elif name is not None:
             m = _INSN.search(line)
             if m:
                 out[name].append(m.group(1))
     return out
+
+
+def demangled(names, cufilt: str):
+    """{mangled: demangled name without its parameter list or spaces}."""
+    names = list(names)
+    out = subprocess.run([cufilt], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    short = {}
+    for name, full in zip(names, out):
+        depth, cut = 0, len(full)
+        if full.endswith(")"):
+            for i in range(len(full) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(full[i], 0)
+                if depth == 0:
+                    cut = i
+                    break
+        # an empty trailing parameter pack may print as a bare comma
+        short[name] = re.sub(r",>", ">", re.sub(r"\s+", "", full[:cut])
+                             ).removeprefix("void")
+    return short
 
 
 def main(argv=None) -> int:
@@ -48,10 +77,17 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="", help="kernels whose name holds it")
     ap.add_argument("--rename", nargs=2, action="append", default=[],
                     metavar=("REGEX", "REPL"))
+    ap.add_argument("--demangle", action="store_true",
+                    help="match by demangled names without parameters")
     args = ap.parse_args(argv)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
-    old, new = kernels(args.old, cuobjdump), kernels(args.new, cuobjdump)
+    strip = not args.demangle   # demangled, the tags read "anonymous namespace"
+    old, new = (kernels(lib, cuobjdump, strip) for lib in (args.old, args.new))
+    if args.demangle:
+        cufilt = str(Path(nvcc).parent / "cu++filt")
+        old, new = ({demangled(lib, cufilt)[k]: v for k, v in lib.items()}
+                    for lib in (old, new))
     ok = True
     for name, insns in old.items():
         if args.only not in name:
@@ -60,7 +96,10 @@ def main(argv=None) -> int:
         for regex, repl in args.rename:
             target = re.sub(regex, repl, target)
         if target not in new:
-            print(f"missing  {name} -> {target}")
+            base = target.split("<")[0]
+            near = [n for n in new if n.split("<")[0] == base][:3]
+            print(f"missing  {name} -> {target}"
+                  + (f" (NEW has {', '.join(near)}, ...)" if near else ""))
             ok = False
         elif new[target] != insns:
             diff = sum(a != b for a, b in zip(insns, new[target]))
