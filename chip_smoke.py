@@ -16,9 +16,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
    for the three fleet kernels' instances over thread-block clusters (rows
    of 8192 < J <= 65536), the same and the clusters of 2, 4 and 8 blocks
-   resident on the card (``cudaOccupancyMaxActiveClusters``); for B2's and
-   B3's warp-row instances (J <= 32, one warp a row, 16 rows a block), the
-   same and their blocks an SM.  An empty kernel (``launch_floor.cu``) is
+   resident on the card (``cudaOccupancyMaxActiveClusters``); for B1's,
+   B2's and B3's warp-row instances (J <= 32, one warp a row, 16 rows a
+   block), the same and their blocks an SM.  An empty kernel (``launch_floor.cu``) is
    built beside them.
 2. Hold each kernel against its plain PyTorch version on the card, on
    seeded fixtures at the main paths' shapes.  Fleet kernels (O=256 OSTs,
@@ -33,10 +33,13 @@ Phases, each of which raises on failure (the run then exits non-zero):
    service and the allocation also at O of 1, 133 and 265 (one past a
    full wave at one and at two blocks an SM) and J=4093 (rate rows off a
    16-byte boundary), the window service at J of 1, 3 and 8192 and W of
-   0 and 1, with budgets of +inf and 0 and backlog caps below the queue.
-   Warp rows: the stress rows also at J of 8 and 32, and B2 and B3 (every
-   policy case and coded code, a fault round) at J of 1, 8 and 32 over 17
-   and 4096 rows.  Rows over clusters: the stress rows also at J of 16385
+   0 and 1, with budgets of +inf and 0 and backlog caps below the queue,
+   and at capacities that phase 1 fits, that it overflows in every tick
+   and with every lane ruled (the share of row-ticks that formed the
+   second row sum printed, 1 and 0 in the last two).
+   Warp rows: the stress rows also at J of 8 and 32, and B1 (bitwise its
+   one-block instance), B2 and B3 (every policy case and coded code, a
+   fault round) at J of 1, 8 and 32 over 17 and 4096 rows.  Rows over clusters: the stress rows also at J of 16385
    and 65536, and
    at J=16384 (clusters of 2), 32768 (of 4) and 65536 (of 8), O of 1 and
    one past a full wave of clusters: B1 at W of 0, 1 and 10, B2, and B3
@@ -110,13 +113,13 @@ Phases, each of which raises on failure (the run then exits non-zero):
    of the trace; 4 fleets in trajectory mode with a batched fault plan,
    bitwise the same way; and many small tenants (O=4, J=8, 20 windows, F
    of 16, 256 and 1024): F=1024 bitwise the per-fleet loop with its
-   launch counts (B2 and B3 on their warp-row instances, by the C
+   launch counts (B1, B2 and B3 on their warp-row instances, by the C
    entries' counts by row layout), windows/s batched and as a per-fleet
    loop, and the three fleet kernels' time a launch at F*O rows: through
    the wrappers, and by their C entries (the wrappers' captured launches
-   replayed, their host work left out) beside B2's and B3's one-block
-   instances at the same shapes (the layout before the warp rows; outputs
-   bitwise the warp rows') and an empty kernel over the warp rows' grid.
+   replayed, their host work left out) beside their one-block instances
+   at the same shapes (the layout before the warp rows; outputs bitwise
+   the warp rows') and an empty kernel over the warp rows' grid.
    Sharding on ``torch.distributed`` (``shard_phase``): the fleet cell under
    ``partition="ost_shard"`` with NCCL at one rank (fused/pallas,
    trajectory) and with gloo at 2 and 4 ranks sharing ``cuda:0``
@@ -189,7 +192,10 @@ Phases, each of which raises on failure (the run then exits non-zero):
    B1-B3 at the wide cells' fixtures beside their bounds and plain times
    (``time_wide_cell``: allocations equal to the plain versions', two
    calls bitwise equal), and windows/s of fused/pallas, mega and the plain
-   path there; what a cluster
+   path there; B1 at J=4096 (256 and 4096 rows) and at the wide cells
+   beside the share of row-ticks whose tick formed its second row sum,
+   counted from the plain path on the timed fixture and over the cell's
+   own fleet run (``s1_sum_phase``); what a cluster
    reduction costs against a block's (B1 at 8192 lanes a block, one block
    or clusters of 2 and 8 a row);
    the attention backward beside its bound and SDPA's forward+backward
@@ -358,16 +364,19 @@ def cuda_ms(fn, reps: int, groups: int = 5, warmup: int = 2) -> float:
     return statistics.median(per_call)
 
 
-def window_work(o, j, w, rate_rows=None):
+def window_work(o, j, w, rate_rows=None, s1_share=1.0):
     """(bytes, operations) one window's service must move and do: every
     input read once ([W, O, J] rates, four [O, J] arrays, [O] capacity),
-    every output written once (three [O, J]); about 24 float operations per
-    lane per tick (issue 6, phase 1 8, phase 2 6, update 4).
+    every output written once (three [O, J]); about 22 float operations per
+    lane per tick (issue 6, phase 1 8, phase 2 4, update 4), and 2 more
+    (a conversion and an add) in the share ``s1_share`` of row-ticks that
+    form the second row sum (``s1_sum_share``; 1: every row-tick).
     ``rate_rows``: the rows of distinct rates (default ``o``); a batch of
     fleets sharing one trace reads its O rows once, through a stride-0
     fleet axis, however many fleets' rows it serves."""
     rate_rows = o if rate_rows is None else rate_rows
-    return 4 * (w * rate_rows * j + 7 * o * j + o), 24 * w * o * j
+    return (4 * (w * rate_rows * j + 7 * o * j + o),
+            (22 + 2 * s1_share) * w * o * j)
 
 
 def alloc_work(o, j):
@@ -646,27 +655,50 @@ def check_window_kernel(torch, fw_ops, dev):
     return args, err
 
 
+def s1_sum_share(fw_ops, args) -> float:
+    """The share of a window's row-ticks whose tick forms its second row
+    sum, sum(s1) (phase 1 overflows the capacity while an unruled job
+    waits: ``ref.serve_tick_model``), counted by the plain model on B1's
+    inputs ``args``."""
+    _, formed = fw_ops.ref.fleet_window_model(*args)
+    return float(formed.float().mean()) if formed.numel() else 0.0
+
+
 def check_window_edges(torch, fw_ops, dev):
     """B1 against its plain version at the edges of its design: O of 1,
     133 and 265 (one past a full wave at one and at two blocks an SM), J
     of 1, 3, 4093 (not a multiple of 4: rows off a 16-byte boundary) and
-    8192, W of 0 and 1, and capacities large enough
-    that phase 1 fits them (its scale exactly 1); each
-    with budgets of +inf (half the lanes) and 0 (every 7th) and backlog
-    caps below the queue (every 5th).  atol 1e-4, equal finite masks.
-    Returns the largest error."""
-    cases = [(1, J, W, 1), (133, J, W, 1), (265, J, W, 1), (O, 1, W, 1),
-             (O, 3, W, 1), (O, 4093, W, 1), (O, 8192, W, 1), (O, J, 0, 1),
-             (O, J, 1, 1), (O, J, W, 10000)]
+    8192, W of 0 and 1, capacities large enough
+    that phase 1 fits them (its scale exactly 1), capacities so small
+    that phase 1 overflows them in every tick (the tick forms sum(s1) in
+    every row-tick), and every lane ruled (no unruled job waits: sum(s1)
+    formed in none); each with budgets of +inf (half the lanes, but where
+    every lane is ruled) and 0 (every 7th) and backlog caps below the
+    queue (every 5th).  atol 1e-4, equal finite masks; the share of
+    row-ticks that formed sum(s1) (``s1_sum_share``) printed and held to 1
+    and 0 in the two cases built for it.  Returns the largest error."""
+    cases = [(1, J, W, 1, ""), (133, J, W, 1, ""), (265, J, W, 1, ""),
+             (O, 1, W, 1, ""), (O, 3, W, 1, ""), (O, 4093, W, 1, ""),
+             (O, 8192, W, 1, ""), (O, J, 0, 1, ""), (O, J, 1, 1, ""),
+             (O, J, W, 10000, ""), (O, J, W, 0.01, "overflow"),
+             (O, J, W, 1, "all ruled")]
     worst = 0.0
-    for o, j, w, cap_scale in cases:
+    for o, j, w, cap_scale, kind in cases:
         queue, vol, budget, rates, backlog, cap = window_case(
             o, j, w, seed=o + j + w)
+        if kind == "all ruled":
+            budget = np.where(np.isinf(budget), 7.0, budget).astype(
+                np.float32)
         budget[:, ::7] = 0.0
         backlog[:, ::5] = queue[:, ::5] * 0.5
-        cap = cap * cap_scale
+        cap = (cap * cap_scale).astype(np.float32)
         args = [torch.as_tensor(x, device=dev)
                 for x in (queue, vol, budget, rates, backlog, cap)]
+        share = s1_sum_share(fw_ops, args)
+        want_share = {"overflow": 1.0, "all ruled": 0.0}.get(kind)
+        if want_share is not None and share != want_share:
+            raise AssertionError(f"fleet_window O={o} J={j} W={w} {kind}: "
+                                 f"sum(s1) formed in {share} of row-ticks")
         got = fw_ops.fleet_window_serve(*args)
         want = fw_ops.fleet_window_ref(*args)
         err = 0.0
@@ -683,8 +715,9 @@ def check_window_edges(torch, fw_ops, dev):
             err = max(err, e)
         worst = max(worst, err)
         print(f"fleet_window kernel vs plain at O={o} J={j} W={w}, capacity "
-              f"x{cap_scale} (+inf and 0 budgets, caps below the queue): max "
-              f"|err| {err} (atol 1e-4)")
+              f"x{cap_scale}{', ' + kind if kind else ''} (+inf and 0 "
+              f"budgets, caps below the queue): max |err| {err} (atol 1e-4); "
+              f"sum(s1) formed in {share:.4f} of row-ticks")
     return worst
 
 
@@ -1309,19 +1342,37 @@ def replay(made, suffix=""):
     return go
 
 
+def one_block_bitwise(torch, name, made, written):
+    """Replay the captured launches ``made`` by their one-block entries
+    (``*_one_block``) into the same outputs ``written``, filled with NaN
+    first so that each value compared is one the replay wrote; raises
+    unless every output equals what the warp rows wrote, bit for bit."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    warp = [x.clone() for x in written]
+    for x in written:
+        x.fill_(float("nan"))
+    replay(made, "_one_block")()
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(warp, written, strict=True)):
+        raise AssertionError(f"{name}: the one-block instance differs from "
+                             "the warp rows")
+
+
 def time_narrow_launches(torch, dev, n_fleets, rates_w, cap, nodes):
     """A launch of B1, B2 and B3 (adaptbf) over ``n_fleets`` narrow fleets'
     rows by its C entry (``captured``, ``replay``: CUDA events, 20 launches,
     median of 5, the wrappers' host work left out; a ctypes call still
     costs a few microseconds of host time, which the empty kernel's time
-    shows): the layout the wrappers launch (B2 and B3: one warp a row),
-    B2's and B3's one-block instances (``*_one_block``: a block of 512
-    threads a row, what the parent launched), and an empty kernel over the
-    warp rows' grid (``launch_floor.cu``: the practical floor of a launch).
+    shows): the layout the wrappers launch (one warp a row), the one-block
+    instances (``*_one_block``: a block of 512 threads a row, what ran
+    these rows before the warp layout), and an empty kernel over the warp
+    rows' grid (``launch_floor.cu``: the practical floor of a launch).
     Each wrapper call must make exactly one launch, of its own kernel.
-    Returns {name: ms}; B2's and B3's one-block outputs are held bitwise
-    against the warp rows': the outputs are filled with NaN before the
-    one-block launch, so each value compared is one it wrote."""
+    Returns {name: ms}; the one-block outputs are held bitwise against the
+    warp rows' (``one_block_bitwise``)."""
     from repro_torch.kernels import _build
     calls, inputs = fleet_launch_calls(torch, dev, n_fleets, rates_w, cap,
                                        nodes)
@@ -1335,20 +1386,11 @@ def time_narrow_launches(torch, dev, n_fleets, rates_w, cap, nodes):
                                  f"were {[entry for entry, *_ in made]}, not "
                                  "one of its own")
         out[name] = cuda_ms(replay(made), reps=20)
-        if name != "fleet_window":
-            written = list({x.data_ptr(): x for x in tensors_of(res)
-                            if x.data_ptr() not in read}.values())
-            warp = [x.clone() for x in written]
-            for x in written:
-                x.fill_(float("nan"))
-            replay(made, "_one_block")()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in
-                       zip(warp, written, strict=True)):
-                raise AssertionError(f"{name}: the one-block instance differs "
-                                     "from the warp rows")
-            out[f"{name}_one_block"] = cuda_ms(replay(made, "_one_block"),
-                                               reps=20)
+        one_block_bitwise(torch, name, made, list(
+            {x.data_ptr(): x for x in tensors_of(res)
+             if x.data_ptr() not in read}.values()))
+        out[f"{name}_one_block"] = cuda_ms(replay(made, "_one_block"),
+                                           reps=20)
     floor = _build.load("launch_floor", [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p])
     rows_a_block = warp_rows()
@@ -1395,7 +1437,7 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
     (3) Many small tenants (O=4, J=8, 20 windows, shared trace, streaming
     adaptbf, ``benchmarks/tenant_scaling.py``'s shape): at F=1024, each
     fleet bitwise its own ``simulate_fleet`` run and B1 and B2 (or B3)
-    once a window, B2 (B3) on its warp-row instance (``layout_launches``);
+    once a window, each on its warp-row instance (``layout_launches``);
     at F of 16, 256 and 1024, aggregate windows/s of the
     batched run and of the per-fleet loop (capped at 256 fleets,
     extrapolated above), and B1/B2/B3's time a launch at F*O rows.
@@ -1537,20 +1579,22 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
         cfg = FleetConfig(serve_backend=serve, alloc_backend=alloc,
                           telemetry="streaming")
         # the largest batch (F*O rows of J=8) against the per-fleet loop;
-        # B2 (or B3) on its warp-row instance every window
+        # B1 and B2 (or B3) on their warp-row instances every window
         n_f = n_max
-        lib = "window_mega" if serve == "mega" else "adaptbf_alloc"
+        libs = (("window_mega",) if serve == "mega"
+                else ("fleet_window", "adaptbf_alloc"))
         zero_counts()
-        warp_before = layout_launches(lib)
+        warp_before = [layout_launches(lib) for lib in libs]
         res = simulate_tenants(cfg, nodes_all, rates, volume_all, cap,
                                device=dev)
         torch.cuda.synchronize()
         got = counts()
-        warp = [a - b for a, b in zip(layout_launches(lib), warp_before)]
+        warp = [[a - b for a, b in zip(layout_launches(lib), was)]
+                for lib, was in zip(libs, warp_before)]
         if got != expect(serve, 1, n_win):
             raise AssertionError(f"small tenants {label}: launches {got}")
-        if warp != [n_win, 0, 0]:
-            raise AssertionError(f"small tenants {label}: {lib} launches by "
+        if warp != [[n_win, 0, 0]] * len(libs):
+            raise AssertionError(f"small tenants {label}: {libs} launches by "
                                  f"row layout (warp, block, cluster) {warp}")
         for f in range(n_f):
             tenant_leaves_equal(torch, res, simulate_fleet(
@@ -1558,9 +1602,10 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
                 f, f"small {label}")
         del res
         print(f"small tenants ({label}, streaming adaptbf, O={o} J={j}, "
-              f"{n_win} windows) F={n_f}: launches {got}, {lib}'s by row "
-              f"layout (warp, block, cluster) {warp}; every fleet bitwise "
-              "equal to its own simulate_fleet run")
+              f"{n_win} windows) F={n_f}: launches {got}, "
+              + ", ".join(f"{lib}'s by row layout (warp, block, cluster) {w}"
+                          for lib, w in zip(libs, warp))
+              + "; every fleet bitwise equal to its own simulate_fleet run")
         for n_f in SMALL["fleets"]:
             nodes, volume = nodes_all[:n_f], volume_all[:n_f]
 
@@ -1606,17 +1651,16 @@ def tenant_phase(torch, dev, inputs, scn, counts, zero_counts, names, card):
             mega_work(r, j, W, rate_rows=o))]
         t = narrow_ms[n_f]
         print(f"small tenants: a launch at F*O={r} rows of J={j} by its C "
-              f"entry (CUDA events, 20 launches, median of 5; bound beside): "
-              f"fleet_window {t['fleet_window']:.5f} ms (bound "
-              f"{bounds[0]:.7f}; one block of 512 threads a row, {512 - j} "
-              f"idle), adaptbf_alloc {t['adaptbf_alloc']:.5f} ms (bound "
-              f"{bounds[1]:.7f}; one warp a row, {rows_a_block} rows a block; "
-              f"the one-block instance {t['adaptbf_alloc_one_block']:.5f} ms, "
-              f"{t['adaptbf_alloc_one_block'] / t['adaptbf_alloc']:.2f}x), "
-              f"window_mega (adaptbf) {t['window_mega']:.5f} ms (bound "
-              f"{bounds[2]:.7f}; one warp a row; the one-block instance "
-              f"{t['window_mega_one_block']:.5f} ms, "
-              f"{t['window_mega_one_block'] / t['window_mega']:.2f}x); an "
+              f"entry (CUDA events, 20 launches, median of 5; bound beside; "
+              f"one warp a row, {rows_a_block} rows a block, beside the "
+              f"one-block instance): "
+              + ", ".join(
+                  f"{name} {t[name]:.5f} ms (bound {b:.7f}; the one-block "
+                  f"instance {t[name + '_one_block']:.5f} ms, "
+                  f"{t[name + '_one_block'] / t[name]:.2f}x)"
+                  for name, b in zip(("fleet_window", "adaptbf_alloc",
+                                      "window_mega"), bounds))
+              + "; an "
               f"empty kernel over {-(-r // rows_a_block)} blocks of "
               f"{rows_a_block * 32} threads {t['empty']:.5f} ms; through the "
               f"wrappers {b1:.4f}, {b2:.4f}, {b3:.4f} ms on {card}")
@@ -1628,8 +1672,8 @@ def tenant_entry(tenants, name: str, k: int) -> dict:
     """A fleet kernel's tenant numbers for the kernels line: its launches
     in the 16-fleet streaming runs and its time a call of the wrapper by
     rows x jobs (the wide fleets' 4096 x 4096 and the small tenants' F*O x
-    8); at the small tenants also its time a launch by its C entry, B2's
-    and B3's one-block instances' and the empty kernel's."""
+    8); at the small tenants also its time a launch by its C entry, its
+    one-block instance's and the empty kernel's."""
     ms = {f"{TENANT_F * O}x{J}": tenants["wide_ms"][k]}
     ms.update({f"{n_f * SMALL['o']}x{SMALL['j']}": t[k]
                for n_f, t in tenants["launch_ms"].items()})
@@ -1642,11 +1686,9 @@ def tenant_entry(tenants, name: str, k: int) -> dict:
                  key: t[name] for key, t in small.items()},
              "empty_launch_ms_by_rows_x_jobs": {
                  key: t["empty"] for key, t in small.items()}}
-    if name != "fleet_window":
-        entry["narrow_layout"] = (f"one warp a row, {warp_rows(name)} rows "
-                                  "a block")
-        entry["one_block_entry_ms_by_rows_x_jobs"] = {
-            key: t[f"{name}_one_block"] for key, t in small.items()}
+    entry["narrow_layout"] = f"one warp a row, {warp_rows(name)} rows a block"
+    entry["one_block_entry_ms_by_rows_x_jobs"] = {
+        key: t[f"{name}_one_block"] for key, t in small.items()}
     return entry
 
 
@@ -1928,7 +1970,8 @@ WIDE_CELLS = [("wide-16k", 256, 16384, N_WINDOWS), ("wide-64k", 64, 65536, 20)]
 #: default trio and one out of range)
 WIDE_TENANT_F, WIDE_TENANT_O, WIDE_TENANT_CODES = 4, 64, [0, 1, 2, 3]
 #: the wide kernel instances (16 lanes a thread, a cluster a row)
-WIDE_MARKERS = {"fleet_window": "fleet_window_kernelILi16ELb1EE",
+WIDE_MARKERS = {"fleet_window": ("fleet_window_kernelILi16E",
+                                 "RowBlockILb1E"),
                 "adaptbf_alloc": ("adaptbf_alloc_kernelILi16E",
                                   "RowBlockILb1E"),
                 "window_mega": ("window_mega_kernelILi16ELi0ELb0E",
@@ -1966,11 +2009,14 @@ def wide_build_summary(libs, n_sm):
 
 def narrow_build_summary(libs, n_sm, occupancy):
     """Phase 1 for narrow rows (J <= 32): ptxas's registers, spills and
-    static shared memory of B2's and B3's (adaptbf) warp-row instances, the
-    dynamic shared memory a block and the blocks of ``warp_rows`` rows
-    resident on an SM, into ``occupancy`` as ``<name>_narrow``."""
+    static shared memory of B1's, B2's and B3's (adaptbf) warp-row
+    instances, the dynamic shared memory a block and the blocks of
+    ``warp_rows`` rows resident on an SM, into ``occupancy`` as
+    ``<name>_narrow``."""
     from repro_torch.kernels import _build
-    for name, marker in (("adaptbf_alloc", ("adaptbf_alloc_kernelILi1E",
+    for name, marker in (("fleet_window", ("fleet_window_kernelILi1E",
+                                           "RowWarp")),
+                         ("adaptbf_alloc", ("adaptbf_alloc_kernelILi1E",
                                             "RowWarp")),
                          ("window_mega", ("window_mega_kernelILi1ELi0ELb0E",
                                           "RowWarp"))):
@@ -2068,23 +2114,38 @@ def check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, clusters):
     return worst
 
 
-def check_narrow_kernels(torch, alloc_ops, mega_ops, dev):
+def check_narrow_kernels(torch, fw_ops, alloc_ops, mega_ops, dev):
     """Phase 2 for narrow rows (one warp a row, ``warp_rows`` rows a
     block): at J of 1, 8 (the small tenants') and 32, over 17 rows (the
     last block part-filled) and 4096 (the small tenants' 1024 fleets of 4):
-    B2 (allocations equal, record and remainder within 1e-3) and B3 for
+    B1 (within 1e-4 of the plain version, budgets of +inf and 0, backlog
+    caps below the queue, capacities that some row-ticks' phase 1
+    overflows; bitwise its one-block instance, ``one_block_bitwise``), B2
+    (allocations equal, record and remainder within 1e-3) and B3 for
     each built-in policy and coded dispatch (each code), one round and one
     round with a fault row (every leaf within 1e-3, adaptbf's allocation
     equal).  Returns the largest error of each."""
     from repro_torch.core.policies import CodedPolicy, get_policy
     from repro_torch.storage import DEFAULT_CODED_POLICIES, FLEET_CONTROL_CODES
-    worst = {"adaptbf_alloc": 0.0, "window_mega": 0.0}
+    worst = {"fleet_window": 0.0, "adaptbf_alloc": 0.0, "window_mega": 0.0}
     cases = [(name, get_policy(name), None) for name in
              ("adaptbf", "static", "nobw", "static_wc", "aimd")]
     cases += [(f"coded[{name}]", CodedPolicy(DEFAULT_CODED_POLICIES), code)
               for name, code in FLEET_CONTROL_CODES.items()]
     for j in (1, SMALL["j"], 32):
         for o in (17, 1024 * SMALL["o"]):
+            queue, vol, budget, rates, backlog, cap = window_case(
+                o, j, W, seed=o + j)
+            budget[:, ::7] = 0.0
+            backlog[:, ::5] = queue[:, ::5] * 0.5
+            wargs = [torch.as_tensor(x, device=dev)
+                     for x in (queue, vol, budget, rates, backlog, cap)]
+            made, got = captured(lambda: fw_ops.fleet_window_serve(*wargs))
+            worst["fleet_window"] = max(worst["fleet_window"], leaf_errs(
+                torch, f"fleet_window O={o} J={j}", got,
+                fw_ops.fleet_window_ref(*wargs), 1e-4))
+            one_block_bitwise(torch, f"fleet_window O={o} J={j}", made,
+                              list(got))
             host = list(alloc_case(o, j, seed=o * 7 + j))
             host[3] = (np.random.default_rng(o).random((o, j)) - 0.5
                        ).astype(np.float32)
@@ -2101,9 +2162,11 @@ def check_narrow_kernels(torch, alloc_ops, mega_ops, dev):
                     torch, mega_ops, policy, code, o, j, seed=500 + k, dev=dev,
                     label=f"window_mega {label} O={o} J={j}",
                     exact=label == "adaptbf"))
-        print(f"adaptbf_alloc and window_mega (every policy case, a fault "
-              f"round) on warp rows vs plain at J={j}, O of 17 and "
-              f"{1024 * SMALL['o']}: allocations equal, max |err| "
+        print(f"fleet_window, adaptbf_alloc and window_mega (every policy "
+              f"case, a fault round) on warp rows vs plain at J={j}, O of 17 "
+              f"and {1024 * SMALL['o']}: fleet_window max |err| "
+              f"{worst['fleet_window']} (atol 1e-4) and bitwise its one-block "
+              f"instance; allocations equal, max |err| "
               f"{worst['adaptbf_alloc']}, {worst['window_mega']} (atol 1e-3)")
     return worst
 
@@ -2505,6 +2568,81 @@ def cluster_reduction_cost(torch, fw_ops, dev, card, clusters, n_sm):
                       f"{cost[c][2]:.3f} us a reduction more"
                       for c in cost))
     return cost
+
+
+def fleet_s1_sum_share(fw_ops, run) -> float:
+    """``s1_sum_share`` over every window of ``run()``, a fleet run on the
+    plain serve path (``serve_backend="scan"``), counted on the inputs each
+    window hands ``fleet_window_ref`` (the run's own results unchanged)."""
+    real, tally = fw_ops.fleet_window_ref, []
+
+    def counting(*args):
+        _, formed = fw_ops.ref.fleet_window_model(*args)
+        tally.append((formed.sum(), formed.numel()))
+        return real(*args)
+
+    fw_ops.fleet_window_ref = counting
+    try:
+        run()
+    finally:
+        fw_ops.fleet_window_ref = real
+    total = sum(n for _, n in tally)
+    return sum(int(k) for k, _ in tally) / total if total else 0.0
+
+
+def s1_sum_phase(torch, dev, fw_ops, fw_args, fw_ms, inputs, scn, tenants,
+                 wide, card):
+    """Phase 4: B1 at J=4096 (the main cell's 256 rows and the 16 tenant
+    fleets' 4096) and at the wide cells, each beside the share of
+    row-ticks whose tick formed the second row sum, sum(s1), counted from
+    the plain path: on the timed fixture (``s1_sum_share``) and over the
+    fleet's own run (``fleet_s1_sum_share``: the cell's fleet, 60 windows
+    or wide-64k's 20, under plain scan/core; the tenants under coded
+    control with their codes, streaming).  The wide cells' B1 bounds take
+    their fixtures' share.  Returns {cell: {ms, fixture, fleet}}."""
+    from repro_torch.storage import FleetConfig, simulate_tenants
+    out = {}
+    main_fleet = fleet_s1_sum_share(fw_ops, lambda: fleet_run(
+        torch, dev, inputs, "scan", "core"))
+    out[f"{O}x{J}"] = dict(ms=fw_ms, fixture=s1_sum_share(fw_ops, fw_args),
+                           fleet=main_fleet)
+    nodes, volume = (torch.as_tensor(x, device=dev)
+                     for x in wide_tenant_inputs(scn, TENANT_F, O))
+    _, made = fleet_launch_calls(torch, dev, TENANT_F, inputs["rates"][:W],
+                                 inputs["cap"], nodes)
+    cfg = FleetConfig(control="coded", serve_backend="scan",
+                      alloc_backend="core", telemetry="streaming")
+
+    def tenant_run():
+        simulate_tenants(cfg, nodes, inputs["rates"], volume, inputs["cap"],
+                         inputs["backlog"], control_code=TENANT_CODES,
+                         n_windows=N_WINDOWS, device=dev)
+        torch.cuda.synchronize()
+
+    out[f"{TENANT_F * O}x{J}"] = dict(
+        ms=tenants["wide_ms"][0], fixture=s1_sum_share(fw_ops, made[:6]),
+        fleet=fleet_s1_sum_share(fw_ops, tenant_run))
+    del nodes, volume, made
+    for label, o, j, n_win in WIDE_CELLS:
+        args = [torch.as_tensor(x, device=dev)
+                for x in window_case(o, j, W, seed=11)]
+        share = s1_sum_share(fw_ops, args)
+        k = wide[label]["kernels"]["fleet_window"]
+        k["bound_ms"], k["bound_by"] = bound_ms(*window_work(
+            o, j, W, s1_share=share))
+        out[label] = dict(ms=k["ms"], fixture=share,
+                          fleet=fleet_s1_sum_share(fw_ops, lambda: fleet_run(
+                              torch, dev, wide[label]["inputs"], "scan",
+                              "core", n_windows=n_win)))
+        del args
+    torch.cuda.empty_cache()
+    print(f"fleet_window and the second row sum on {card} (ms a call at "
+          "the cell's fixture; the share of row-ticks that formed sum(s1), "
+          "counted from the plain path on the fixture and over the cell's "
+          "fleet run): "
+          + "; ".join(f"{cell} {v['ms']:.4f} ms, fixture {v['fixture']:.4f}, "
+                      f"fleet {v['fleet']:.4f}" for cell, v in out.items()))
+    return out
 
 
 def wide_entry(wide, name):
@@ -4065,7 +4203,7 @@ def main() -> int:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     occupancy = {}
     for name, marker in (
-            ("fleet_window", "fleet_window_kernelILi8ELb0EE"),
+            ("fleet_window", ("fleet_window_kernelILi8E", "RowBlockILb0E")),
             ("adaptbf_alloc", ("adaptbf_alloc_kernelILi8E", "RowBlockILb0E")),
             ("window_mega", ("window_mega_kernelILi8ELi0ELb0E",
                              "RowBlockILb0E"))):
@@ -4108,7 +4246,8 @@ def main() -> int:
     al_err, mega_err = max(al_err, stress_err), max(mega_err, stress_err)
     wide_err = check_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev,
                                   clusters)
-    narrow_err = check_narrow_kernels(torch, alloc_ops, mega_ops, dev)
+    narrow_err = check_narrow_kernels(torch, fw_ops, alloc_ops, mega_ops, dev)
+    fw_err = max(fw_err, narrow_err["fleet_window"])
     al_err = max(al_err, narrow_err["adaptbf_alloc"])
     mega_err = max(mega_err, narrow_err["window_mega"])
     fa_args, fa_err = check_attention_kernel(torch, attn_ops, dev)
@@ -4318,7 +4457,15 @@ def main() -> int:
                                     else "")
         rates[key] = N_WINDOWS / statistics.median(secs)
         spread[key] = (N_WINDOWS / max(secs), N_WINDOWS / min(secs))
-    fw_b, fw_by = bound_ms(*window_work(O, J, W))
+    time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
+                      clusters, n_sm)
+    for label, *_ in WIDE_CELLS:
+        for name, k in wide[label]["kernels"].items():
+            k["max_abs_err"] = max(k["max_abs_err"], wide_err[name])
+    s1_share = s1_sum_phase(torch, dev, fw_ops, fw_args, fw_ms, inputs, scn,
+                            tenants, wide, card)
+    fw_b, fw_by = bound_ms(*window_work(
+        O, J, W, s1_share=s1_share[f"{O}x{J}"]["fixture"]))
     al_b, al_by = bound_ms(*alloc_work(O, J))
     mega_b, mega_by = bound_ms(*mega_work(O, J, W))
     card = _smi()
@@ -4370,11 +4517,6 @@ def main() -> int:
           f"{lm['engine_answered']}/{SERVE['requests']} requests answered; "
           f"peak device memory {lm['prefill_peak_gib']:.2f} GiB over the "
           f"prefill runs, {lm['peak_gib']:.2f} GiB over the engine runs")
-    time_wide_kernels(torch, fw_ops, alloc_ops, mega_ops, dev, card, wide,
-                      clusters, n_sm)
-    for label, *_ in WIDE_CELLS:
-        for name, k in wide[label]["kernels"].items():
-            k["max_abs_err"] = max(k["max_abs_err"], wide_err[name])
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -4429,6 +4571,8 @@ def main() -> int:
          "ms": fw_ms, "plain_ms": fw_plain, "bound_ms": fw_b,
          "bound_by": fw_by, "library_ms": None,
          "blocks_per_sm": occupancy["fleet_window"],
+         "narrow_blocks_per_sm": occupancy["fleet_window_narrow"],
+         "s1_sum_share": s1_share,
          **tenant_entry(tenants, "fleet_window", 0),
          "shard_launches_per_rank": shards["fleet_window"],
          **wide_entry(wide, "fleet_window")},

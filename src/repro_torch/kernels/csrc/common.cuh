@@ -1,6 +1,6 @@
 // Shared pieces of the per-row kernels (fleet_window.cu, adaptbf_alloc.cu,
 // window_mega.cu; serve.cuh and alloc_round.cuh build on them).  A row runs
-// on one warp (J <= 32, RowWarp; B2 and B3), one block (J <= 8192,
+// on one warp (J <= 32, RowWarp), one block (J <= 8192,
 // RowBlock<false>) or a cluster (J <= 65536, RowBlock<true>): row_layout.
 //
 // A row of J <= 8192 jobs runs on one thread block (RowBlock<false>): thread
@@ -13,7 +13,10 @@
 // order in every warp), so block-uniform branches on it stay uniform.
 // Reductions alternate between two slot sets: reduction n writes set n & 1,
 // and the set it overwrites was last read in reduction n - 2, which every
-// thread finished before it reached reduction n - 1's barrier.  Independent
+// thread finished before it reached reduction n - 1's barrier.  n counts the
+// reductions run, so a reduction the row skips (serve.cuh skips the s1 sum
+// on a branch over row totals, which every thread takes alike) is counted
+// by no thread and the argument stands.  Independent
 // sums of one step ride in one reduction (block_sum2, block_sum_count).
 //
 // A wider row (8192 < J <= 65536) runs on a thread-block cluster of c
@@ -35,7 +38,10 @@
 // the peers write a block's slot set n & 1 in reduction n before its
 // barrier, the block reads it after that barrier and before it arrives at
 // the next, and no peer writes the set again before it has passed that
-// next barrier.  A peer's shared memory is written only once it has
+// next barrier.  A reduction skipped on a branch over cluster totals
+// (serve.cuh) is skipped by every thread of every block, since each reads
+// the same totals, so all blocks run the same reductions in the same
+// order, push into the same sets and meet at the same barriers.  A peer's shared memory is written only once it has
 // started: each block arrives (relaxed) at a cluster barrier as it starts
 // (RowBlock<true>) and waits for it just before its first push, so the
 // wait overlaps the row's loads (PERF.md compares it with a whole barrier

@@ -17,7 +17,9 @@
 // round (alloc_round.cuh), each a barrier.
 //
 // Design: one thread block per OST row, as in fleet_window.cu and
-// adaptbf_alloc.cu, whose device code it shares (serve.cuh, alloc_round.cuh).
+// adaptbf_alloc.cu, whose device code it shares (serve.cuh, alloc_round.cuh;
+// the ticks are serve.cuh's megakernel tick, not B1's lean one, with which
+// some of this kernel's instances ran slower: PERF.md).
 // The row's serve state lives in registers across the ticks; the window's
 // results are written out as soon as the ticks end, so only the observation
 // the step reads stays live into it, and the step reads the rest of its
@@ -221,16 +223,16 @@ window_mega_kernel(const MegaParams p) {
     // row r of fleet f: rates at (f * rate_fleet_rows + r) * J, ticks
     // O * J apart
     const int fleet = o / p.rows_per_fleet;
-    serve_window<LPT>(q, v, b, bl, acc,
-                      p.rates + (static_cast<size_t>(fleet) * p.rate_fleet_rows
-                                 + o - fleet * p.rows_per_fleet) * n_jobs
-                              + rb.first,
-                      static_cast<size_t>(p.rows_per_fleet) * n_jobs,
-                      p.n_ticks, p.cap_tick[o], n, s);
+    serve_window<LPT, false>(
+        q, v, b, bl, acc,
+        p.rates + (static_cast<size_t>(fleet) * p.rate_fleet_rows + o -
+                   fleet * p.rows_per_fleet) * n_jobs + rb.first,
+        static_cast<size_t>(p.rows_per_fleet) * n_jobs, p.n_ticks,
+        p.cap_tick[o], n, s);
   } else {
-    serve_window<LPT>(q, v, b, bl, acc, p.rates + row,
-                      static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
-                      p.cap_tick[o], n, s);
+    serve_window<LPT, false>(q, v, b, bl, acc, p.rates + row,
+                             static_cast<size_t>(p.n_ost) * n_jobs, p.n_ticks,
+                             p.cap_tick[o], n, s);
   }
 
   // observe: demand = served + standing queue; a lost-telemetry row hands

@@ -20,10 +20,10 @@ MAX_JOBS = 8 * BLOCK_JOBS
 
 
 def row_layout(n_jobs: int) -> str:
-    """What B2 and B3 run a row of ``n_jobs`` on: ``"warp"`` up to
-    ``WARP_JOBS`` (one warp a row, several rows a block), ``"block"`` up to
-    ``BLOCK_JOBS``, else ``"cluster"`` (``csrc/common.cuh::row_layout`` is
-    the same rule; B1 runs a narrow row on one block).  Raises
+    """What the fleet kernels (B1, B2, B3) run a row of ``n_jobs`` on:
+    ``"warp"`` up to ``WARP_JOBS`` (one warp a row, several rows a block),
+    ``"block"`` up to ``BLOCK_JOBS``, else ``"cluster"``
+    (``csrc/common.cuh::row_layout`` is the same rule).  Raises
     ``ValueError`` past ``MAX_JOBS``."""
     if cluster_size(n_jobs) > 1:
         return "cluster"

@@ -2,11 +2,13 @@
 (``kernels/csrc/fleet_window.cu``): CUDA tensors launch it, CPU tensors take
 the plain version (``ref.py``), anything else raises.
 
-On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs: rows of
-up to 8192 run on one thread block, wider rows on a thread-block cluster of
-2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row raises
-``ValueError`` before any launch; CPU tensors run the plain version at any
-width."""
+On the card a row takes at most ``dispatch.MAX_JOBS`` (65536) jobs
+(``dispatch.row_layout``): rows of up to 32 run on one warp, 16 rows a
+block, rows of up to 8192 on one thread block, wider rows on a thread-block
+cluster of 2, 4 or 8 blocks (``dispatch.cluster_size``).  A wider row
+raises ``ValueError`` before any launch; CPU tensors run the plain version
+at any width.  The kernel forms a tick's second row sum only where the
+tick needs it, with the same bits (``ref.serve_tick_model``)."""
 from __future__ import annotations
 
 import ctypes

@@ -25,10 +25,11 @@ profiler's kernel names and its TMA checks, both bitwise across two
 calls, and a trainer's crash and restore bitwise on the card; the MoE
 block (bitwise across two calls, the CPU's experts and output) and the
 MoE and frontend smoke models' attention launches.  Narrow rows (J <= 32,
-one warp a row in B2 and B3): every policy case, coded fleets with an
-out-of-range code and faults, the search stress rows, 1 to 4096 rows, and
-each library's launches by row layout (the warp-row instances, never the
-plain versions).
+one warp a row in B1, B2 and B3): every policy case, coded fleets with an
+out-of-range code and faults, the search stress rows, 1 to 4096 rows, B1's
+warp rows bitwise its one-block instance at fleet strides 0 and T*O, each
+library's launches by row layout (the warp-row instances, never the plain
+versions), and the small tenants' run on the warp rows alone.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU and skips
 without one.  JAX is not needed (and not installed on a GPU host); run
@@ -742,7 +743,7 @@ def test_simulate_tenants_on_the_card_equals_per_fleet_loop(
 
 
 # ----------------------------------------------------------- narrow rows
-# J <= 32: B2 and B3 run one warp a row, 16 rows a block (33: the first
+# J <= 32: B1, B2 and B3 run one warp a row, 16 rows a block (33: the first
 # one-block width); 17 rows leave the last block part-filled
 NARROW_WIDTHS = [1, 7, 8, 31, 32, 33]
 NARROW_ROWS = [1, 17, 64, 4096]
@@ -811,6 +812,89 @@ def test_narrow_coded_fleets_with_faults(cuda, j):
             assert torch.equal(g[rows], a), (f, i)
 
 
+def _window_by_entry(entry, queue, vol, budget, rates, backlog, cap):
+    """B1 launched by its C entry ``entry`` with the arguments its wrapper
+    passes, into fresh outputs filled with NaN (so every value compared is
+    one the launch wrote)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch import check_rates
+    r, j = queue.shape
+    w, o, fleet_rows = check_rates(rates, r, j)
+    outs = tuple(torch.full_like(queue, float("nan")) for _ in range(3))
+    err = _build.load(entry, fw_ops._ARGTYPES, lib="fleet_window")(
+        *(x.data_ptr() for x in (queue, vol, budget, backlog, rates, cap,
+                                 *outs)),
+        r, j, w, o, fleet_rows, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return outs
+
+
+@pytest.mark.parametrize("layout", ["shared", "batched"])
+@pytest.mark.parametrize("o", [17, 4096])
+@pytest.mark.parametrize("j", [1, 8, 32])
+def test_narrow_window_warp_rows_bitwise_one_block(cuda, j, o, layout):
+    """B1 on warp rows (fleets of 1 row at 17 rows, the small tenants' 1024
+    fleets of 4 at 4096; their rates one shared trace, fleet stride 0, or
+    each fleet's own, stride T*O): bitwise its one-block instance
+    (``fleet_window_one_block``), within 1e-4 of the plain version with
+    equal finite masks; budgets of +inf and 0, backlog caps below the
+    queue, capacities that some row-ticks' phase 1 overflows."""
+    per_fleet = 1 if o == 17 else 4
+    queue, vol, budget, _, backlog, cap = _window_case(o, j, 1, o + j, cuda)
+    budget[:, ::7] = 0.0
+    backlog[:, ::5] = queue[:, ::5] * 0.5
+    rates = _fleet_rates(o // per_fleet, per_fleet, j, 10, layout, seed=j,
+                         dev=cuda)
+    args = (queue, vol, budget, rates, backlog, cap)
+    before, layouts = fw_ops.launches, _layout_launches("fleet_window")
+    got = fw_ops.fleet_window_serve(*args)
+    assert fw_ops.launches == before + 1
+    assert [a - b for a, b in zip(_layout_launches("fleet_window"),
+                                  layouts)] == [1, 0, 0]
+    for name, g, x in zip(("queue", "vol_left", "served"), got,
+                          _window_by_entry("fleet_window_one_block", *args)):
+        assert torch.equal(g.view(torch.int32), x.view(torch.int32)), name
+    want = fw_ops.fleet_window_ref(*args)
+    for name, g, x in zip(("queue", "vol_left", "served"), got, want):
+        assert torch.equal(g.isfinite(), x.isfinite()), name
+        fin = x.isfinite()
+        torch.testing.assert_close(g[fin], x[fin], rtol=0, atol=1e-4,
+                                   msg=name)
+
+
+def test_small_tenants_launch_only_the_warp_rows(cuda):
+    """The small tenants (fleets of O=4 OSTs x J=8 jobs, one shared trace)
+    under fused/pallas: B1 and B2 once a window, every launch on the warp
+    rows by each library's own count; bitwise each fleet's own run."""
+    from repro_torch.pytree import leaves_with_paths
+    from repro_torch.storage import simulate_tenants
+    scn = random_fleet(0, n_ost=4, n_jobs=8, duration_s=0.5)
+    n_windows = scn.issue_rate.shape[0] // 10
+    rng = np.random.default_rng(3)
+    nodes = torch.as_tensor(rng.integers(1, 32, (64, 4, 8)).astype(
+        np.float32), device=cuda)
+    volume = torch.as_tensor(np.where(rng.random((64, 4, 8)) < 0.2, 500.0,
+                                      np.inf).astype(np.float32), device=cuda)
+    rates = torch.as_tensor(scn.issue_rate, device=cuda)
+    cap = torch.as_tensor(scn.capacity_per_tick, device=cuda)
+    cfg = FleetConfig(serve_backend="fused", alloc_backend="pallas",
+                      telemetry="streaming")
+    libs = ("fleet_window", "adaptbf_alloc")
+    before = [_layout_launches(lib) for lib in libs]
+    fw_ops.launches = alloc_ops.launches = 0
+    batched = simulate_tenants(cfg, nodes, rates, volume, cap)
+    assert (fw_ops.launches, alloc_ops.launches) == (n_windows, n_windows)
+    moved = [[a - b for a, b in zip(_layout_launches(lib), was)]
+             for lib, was in zip(libs, before)]
+    assert moved == [[n_windows, 0, 0]] * 2, moved
+    got = dict(leaves_with_paths(batched))
+    for f in (0, 17, 63):
+        one = simulate_fleet(cfg, nodes[f], rates, volume[f], cap)
+        for path, x in leaves_with_paths(one):
+            if torch.is_tensor(x):
+                assert torch.equal(got[path][f], x), (f, path)
+
+
 def _layout_launches(lib):
     """A fleet library's launches by row layout (warp, block, cluster),
     counted by its C entry where it picks the instance."""
@@ -822,30 +906,32 @@ def _layout_launches(lib):
 
 
 def test_narrow_rows_launch_the_warp_instances(cuda, monkeypatch):
-    """A CUDA tensor at J <= 32 launches B2's and B3's warp-row instances
-    (each library's count of warp-row launches moves once a call, every
-    policy case and coded), never the plain versions; J = 33 launches the
-    one-block instances."""
+    """A CUDA tensor at J <= 32 launches B1's, B2's and B3's warp-row
+    instances (each library's count of warp-row launches moves once a call,
+    every policy case and coded), never the plain versions; J = 33 launches
+    the one-block instances."""
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
+    monkeypatch.setattr(fw_ops.ref, "fleet_window_ref", plain)
     monkeypatch.setattr(alloc_ops.ref, "fleet_alloc_ref", plain)
     monkeypatch.setattr(mega_ops.ref, "mega_round_ref", plain)
+    libs = ("fleet_window", "adaptbf_alloc", "window_mega")
     for j in (1, 8, 32, 33):
         calls = [_mega_round(name, j, seed=j, dev=cuda, o=17)[0]
                  for name in MEGA_CASES]
         args = _alloc_case(17, j, seed=j, dev=cuda)
-        before = [_layout_launches(lib) for lib in ("adaptbf_alloc",
-                                                    "window_mega")]
+        wargs = _window_case(17, j, 10, seed=j, dev=cuda)
+        before = [_layout_launches(lib) for lib in libs]
+        fw_ops.fleet_window_serve(*wargs)
         alloc_ops.fleet_alloc(*args)
         for margs in calls:
             mega_ops.mega_window_round(*margs)
-        after = [_layout_launches(lib) for lib in ("adaptbf_alloc",
-                                                   "window_mega")]
+        after = [_layout_launches(lib) for lib in libs]
         moved = [[a - b for a, b in zip(x, y)] for x, y in zip(after, before)]
         n = len(MEGA_CASES)
-        want = ([[1, 0, 0], [n, 0, 0]] if j <= 32
-                else [[0, 1, 0], [0, n, 0]])
+        want = ([[1, 0, 0], [1, 0, 0], [n, 0, 0]] if j <= 32
+                else [[0, 1, 0], [0, 1, 0], [0, n, 0]])
         assert moved == want, (j, moved)
 
 

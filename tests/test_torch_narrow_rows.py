@@ -2,10 +2,15 @@
 the allocation kernel's warp-row searches held bitwise (``integerize_model``
 on them: ``tests/test_torch_alloc_search.py``, its ``warp-J`` cases).
 
-On the card B2 (``adaptbf_alloc``) and B3 (``window_mega``) run a row of at
-most ``dispatch.WARP_JOBS`` jobs on one warp, a lane a job, several rows a
-block (``dispatch.row_layout``; ``csrc/common.cuh::row_layout`` is the same
-rule).  There the top-k search is a direct rank over warp shuffles and the
+On the card B1 (``fleet_window``), B2 (``adaptbf_alloc``) and B3
+(``window_mega``) run a row of at most ``dispatch.WARP_JOBS`` jobs on one
+warp, a lane a job, several rows a block (``dispatch.row_layout``;
+``csrc/common.cuh::row_layout`` is the same rule, and each library's C
+entry dispatches on it).  B1's warp row runs the one-block tick loop
+unchanged, so its plain model is the window of the kernel's ticks
+(``fleet_window/ref.py::fleet_window_model``), held bitwise against the
+plain window and against the reference's at J of 1, 7, 8, 31 and 32.  In
+B2 the top-k search is a direct rank over warp shuffles and the
 excess descent reads each lane's floor by shuffle
 (``csrc/alloc_round.cuh``, the ``WarpRed`` overloads).  Their plain models,
 ``ref.topk_mask_rank`` and ``ref.excess_rounds_warp``, are held bitwise
@@ -28,15 +33,19 @@ from test_torch_alloc_search import _bit_descent, _counts, _keys, _pad
 from repro.core import remainder as jref
 from repro_torch.core import remainder as tref
 from repro_torch.kernels import dispatch
+from repro.kernels.fleet_window import ops as jwindow
 from repro_torch.kernels.adaptbf_alloc import ref as model
+from repro_torch.kernels.fleet_window import ref as window_model
 
 torch.set_num_threads(1)
 
 NARROW = [1, 7, 8, 31, 32]
 PAD = dispatch.WARP_JOBS
 ROWS = 6
-COMMON = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-          / "kernels" / "csrc" / "common.cuh")
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc")
+COMMON = CSRC / "common.cuh"
+FLEET_LIBS = ["fleet_window", "adaptbf_alloc", "window_mega"]
 
 
 @pytest.mark.parametrize("j,layout", [
@@ -78,6 +87,59 @@ def test_row_layout_is_the_kernels_rule():
         want = ("none" if n < 1 or n > dispatch.MAX_JOBS
                 else dispatch.row_layout(n))
         assert c_rule(n) == want, n
+
+
+@pytest.mark.parametrize("lib", FLEET_LIBS)
+def test_each_fleet_kernel_dispatches_by_row_layout(lib):
+    """Each fleet library (B1, B2, B3) has a warp-row instance
+    (``RowWarp<WARP_ROWS>``) that its launch takes at ``row_layout ==
+    ROW_WARP``, counts its launches by layout, and exports the one-block
+    entry and the rows a block that ``chip_smoke.py`` and the GPU tests
+    read."""
+    text = (CSRC / f"{lib}.cu").read_text()
+    assert re.search(r"row_layout\((p\.)?n_jobs\) == ROW_WARP", text)
+    assert "RowWarp<WARP_ROWS>" in text
+    for layout in ("ROW_WARP", "ROW_BLOCK", "ROW_CLUSTER"):
+        assert re.search(rf"layout_launches\.count\(\s*{layout}", text), layout
+    for entry in (lib, f"{lib}_one_block", f"{lib}_layout_launches",
+                  f"{lib}_warp_rows", f"{lib}_occupancy"):
+        assert re.search(rf'extern "C" int {entry}\(', text), entry
+
+
+@pytest.mark.parametrize("j", NARROW)
+def test_window_model_on_narrow_rows(j):
+    """B1's warp row: the window of the kernel's ticks (sum(s1) formed only
+    where needed) bitwise the plain window and within 1e-4 of the
+    reference's, on rows of j jobs with +inf and 0 budgets, backlog caps
+    below the queue and capacities that some row-ticks' phase 1
+    overflows."""
+    rng = np.random.default_rng(j + 53)
+    o, w = 9, 10
+    queue = (rng.random((o, j)) * 12).astype(np.float32)
+    vol = np.where(rng.random((o, j)) < 0.3, np.inf,
+                   rng.integers(0, 200, (o, j))).astype(np.float32)
+    budget = np.where(rng.random((o, j)) < 0.5, np.inf,
+                      rng.integers(0, 30, (o, j))).astype(np.float32)
+    budget[:, ::7] = 0.0
+    rates = rng.integers(0, 3, (w, o, j)).astype(np.float32)
+    backlog = rng.choice([16.0, 64.0, 256.0], (o, j)).astype(np.float32)
+    backlog[:, ::5] = queue[:, ::5] * 0.5
+    cap = rng.choice([0.5, 2.0, 40.0], o).astype(np.float32)
+    host = (queue, vol, budget, rates, backlog, cap)
+    args = [torch.from_numpy(x) for x in host]
+    got, formed = window_model.fleet_window_model(*args)
+    plain = window_model.fleet_window_ref(*args)
+    ref = jwindow.fleet_window_ref(*(jnp.asarray(x) for x in host))
+    for name, g, p, r in zip(("queue", "vol_left", "served"), got, plain,
+                             ref, strict=True):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32)), name
+        r = np.asarray(r)
+        np.testing.assert_array_equal(np.isfinite(g.numpy()),
+                                      np.isfinite(r), err_msg=name)
+        fin = np.isfinite(r)
+        np.testing.assert_allclose(g.numpy()[fin], r[fin], atol=1e-4,
+                                   err_msg=name)
+    assert formed.shape == (w, o)
 
 
 def _narrow_keys(rng, j):

@@ -28,12 +28,14 @@ import sys
 from pathlib import Path
 
 _TAG = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
-def kernels(lib: Path, cuobjdump: str, strip: bool = True):
+def kernels(lib: Path, cuobjdump: str, strip: bool = True,
+            addresses: bool = False):
     """{kernel name, tag stripped unless ``strip`` is false: [instruction,
-    ...]} of a library."""
+    ...]} of a library; each instruction an (address, text) pair with
+    ``addresses``."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     out, name = {}, None
@@ -46,7 +48,8 @@ def kernels(lib: Path, cuobjdump: str, strip: bool = True):
         elif name is not None:
             m = _INSN.search(line)
             if m:
-                out[name].append(m.group(1))
+                out[name].append((int(m.group(1), 16), m.group(2))
+                                 if addresses else m.group(2))
     return out
 
 
