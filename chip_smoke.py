@@ -181,7 +181,25 @@ Phases, each of which raises on failure (the run then exits non-zero):
    OSTs under mega/pallas with per-fleet codes each bitwise its own run;
    wide-64k (64 OSTs x 65536 jobs, 20 windows; clusters of 8):
    fused/pallas against plain, mega against fused/pallas; launch counters
-   once a window in every run.
+   once a window in every run.  Sharded training (``train_shard_phase``,
+   phase 3i): zamba2-2.7b at full width and 12 of its 54 layers (two
+   shared-attention applications; 2-4 ranks with whole gathered weights
+   fit one card), B=4 x S=2048 of ``TokenPipeline``, float32 masters, on
+   (data, model) meshes of gloo ranks sharing ``cuda:0``: 1x2 and 2x1 in a
+   world of 2, 2x2 in a world of 4, against the unsharded step at the same
+   depth in the same phase: 1x2 bitwise after two float32 steps (per-leaf
+   SHA-256), 2x1 and 2x2 the float32 loss within 1e-5 relative and the
+   all-reduced gradients within 1e-4 x max(1, max |g|) a leaf of the
+   unsharded step's over the same split of the batch (two microbatches,
+   themselves held to a float64 pass beside the one-pass step; the grad
+   norm beside the unsharded one), each rank's B4, B4-bwd, B6 and B6-bwd
+   launches in every pass equal to the unsharded step's; then bfloat16
+   steps: train tokens/s, peak memory a rank, collective bytes and host
+   seconds a step, the roofline's compute, memory and collective terms
+   (``launch/roofline.py``), and the roofline shares (model FLOPs over
+   step seconds x peak) of the full-depth train (3f) and prefill (3e)
+   steps.  Then the four examples (``python -m
+   repro_torch.examples.<name>``), started together, each exiting 0.
 4. Time each kernel and its plain version with CUDA events (and, for the
    attention kernels, ``scaled_dot_product_attention`` on the same inputs
    as the library yardstick), the fleet paths in windows per second
@@ -3529,6 +3547,442 @@ def lm_train_path(torch, dev, counts, zero_counts, card):
     return out
 
 
+# -------------------------------- sharded training and the examples (3i)
+
+SHARDED_DEPTH = 12      # of zamba2-2.7b's 54 layers: two shared-attention
+                        # applications, and 2-4 ranks with whole gathered
+                        # weights fit one 80 GB card
+#: (world, meshes): one group of gloo ranks on cuda:0 each, in turn
+TRAIN_GROUPS = [(2, [(1, 2), (2, 1)]), (4, [(2, 2)])]
+TRAIN_BF16_STEPS = 2    # bfloat16 steps a mesh; the first warms up
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+EXAMPLES = {"quickstart": [], "fleet_allocation": [], "serve_llm": [],
+            "train_lm": ["--ckpt-dir", str(ROOT / "build" /
+                                           "chip_smoke_train_lm")]}
+EXAMPLES_TIMEOUT_S = 300
+
+
+def sharded_cfg():
+    """zamba2-2.7b at full width, its depth cut to ``SHARDED_DEPTH``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=SHARDED_DEPTH)
+
+
+def train_batches(torch, cfg, dev, n):
+    """The first ``n`` batches of ``TokenPipeline(vocab, 2048, 4)``."""
+    from repro_torch.data import TokenPipeline
+    pipe = TokenPipeline(cfg.vocab, TRAIN_S, TRAIN_B)
+    return [{k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch(i).items()} for i in range(n)]
+
+
+def lm_launches() -> dict:
+    """The launch counts of the train step's four kernels."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"flash_attention": attn_ops.launches["flash_attention"],
+            "flash_attention_bwd": attn_ops.launches["flash_attention_bwd"],
+            "ssd_scan": ssd_ops.launches, "ssd_scan_bwd": ssd_ops.launches_bwd}
+
+
+def zero_lm_launches() -> None:
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    for name in attn_ops.launches:
+        attn_ops.launches[name] = 0
+    ssd_ops.launches = ssd_ops.launches_bwd = 0
+
+
+def train_rank_mesh(torch, cfg, mesh, dev, batches, want, tmp, rank):
+    """One rank's work on one mesh: the float32 gates (``1x2``: two steps,
+    the gathered state's per-leaf digests on rank 0; otherwise the loss
+    and all-reduced gradients at the initial state, each leaf against the
+    unsharded step's over the same split of the batch, which the parent
+    left in ``tmp``), then
+    ``TRAIN_BF16_STEPS`` bfloat16 steps timed, with the rank's peak device
+    memory and one step's collectives.  The launches of every pass."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import roofline, sharded
+    from repro_torch.launch.mesh import data_axis_size
+    from repro_torch.optim import global_norm
+    from repro_torch.pytree import leaves_with_paths
+    rec = {"mesh": "x".join(str(mesh.shape[a]) for a in mesh.shape),
+           "launches": []}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def counted(fn):
+        zero_lm_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["launches"].append(lm_launches())
+        return out
+
+    f32 = dict(compute_dtype=torch.float32)
+    state = sharded.init_sharded_train_state(cfg, gen(), mesh)
+    if data_axis_size(mesh) == 1:
+        fn = sharded.make_sharded_train_step(cfg, mesh, **f32)
+        rec["metrics"] = []
+        for b in batches[:2]:
+            state, m = counted(lambda: fn(state, b))
+            rec["metrics"].append([float(m["loss"]), float(m["grad_norm"])])
+        whole = sharded.gather_train_state(cfg, state, mesh)
+        if rank == 0:
+            rec["bitwise"] = leaf_digests(whole) == want["digests"]
+        del whole
+    else:
+        loss, g = counted(lambda: sharded.sharded_value_and_grad(
+            cfg, mesh, state.params, batches[0], **f32))
+        rec["loss"], rec["grad_norm"] = float(loss), float(global_norm(g))
+        worst, same = [0.0, ""], True
+        for i, (path, x) in enumerate(leaves_with_paths(g)):
+            w = torch.from_numpy(np.load(Path(tmp) / f"grad-{i:04d}.npy"))
+            w = w.to(dev)
+            err = float((x - w).abs().max()) / max(1.0, float(w.abs().max()))
+            worst = max(worst, [err, path])
+            same = same and torch.equal(x, w)
+        rec["grad_err"], rec["grad_bitwise"] = worst, same
+        del g
+    del state
+    torch.cuda.empty_cache()
+
+    state = sharded.init_sharded_train_state(cfg, gen(), mesh)
+    fn = sharded.make_sharded_train_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec["secs"] = []
+    for b in batches[:TRAIN_BF16_STEPS]:
+        M.reset_collectives()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = counted(lambda: fn(state, b))
+        rec["secs"].append(time.perf_counter() - t0)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"sharded bf16 step ({rec['mesh']}, rank "
+                                 f"{rank}): loss {float(m['loss'])}")
+    rec["coll"] = roofline.collective_stats()
+    rec["coll_secs"] = sum(c["seconds"] for c in M.collectives.values())
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_shard_rank(rank, world, tmp, meshes):
+    """One rank of the sharded-training phase: join a gloo group (a file
+    rendezvous; every rank on ``cuda:0``), run ``train_rank_mesh`` on each
+    of ``meshes`` and write its records to ``tmp``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    tmp = Path(tmp)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous-"
+                            f"{world}", rank=rank, world_size=world)
+    try:
+        want = json.loads((tmp / "unsharded.json").read_text())
+        cfg = sharded_cfg()
+        dev = rank_device()
+        batches = train_batches(torch, cfg, dev, TRAIN_BF16_STEPS)
+        records = [train_rank_mesh(torch, cfg, make_mesh(shape, ("data",
+                                                                 "model")),
+                                   dev, batches, want, tmp, rank)
+                   for shape in meshes]
+        (tmp / f"ranks-{world}-{rank}.json").write_text(json.dumps(records))
+        dist.barrier()         # no rank leaves the group while one works
+    finally:
+        dist.destroy_process_group()
+
+
+def train_shard_phase(torch, dev, card, lm, train):
+    """Sharded training on the card (phase 3i): zamba2-2.7b at full width
+    and ``SHARDED_DEPTH`` layers, B=4 x S=2048 of ``TokenPipeline``,
+    float32 masters.  The parent runs the unsharded step at that depth:
+    float32 gradients at the initial state (left per leaf in
+    ``TRAIN_DIR``), two float32 steps (per-leaf digests), bfloat16 steps
+    timed.  The float32 gradients of the step's whole batch in one pass
+    and in two microbatches (the split of the batch over the data axes of
+    2x1 and 2x2) are each held to a float64 pass: the split's mean error
+    within 1.25x and worst leaf within 2x the one pass's (phase 3f's
+    rule; two float32 reduction orders differ by more than 1e-4 x max(1,
+    max |g|) on ``conv_b``).  Then each group of ``TRAIN_GROUPS`` in turn
+    (gloo ranks sharing ``cuda:0``): ``1x2`` bitwise the unsharded state
+    after two float32 steps; ``2x1`` and ``2x2`` the loss within 1e-5
+    relative and the all-reduced gradients within 1e-4 x max(1, max |g|) a
+    leaf of the unsharded step's over the same split of the batch; every
+    rank's B4, B4-bwd, B6 and B6-bwd launches in every pass equal to the
+    unsharded step's; bfloat16 train tokens/s, peak memory a rank,
+    collective bytes and host seconds a step, the roofline's terms.  Also
+    the roofline shares of phase 3f's train step and phase 3e's prefill
+    step.  Returns each kernel's launches a step per rank by mesh."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import roofline, steps
+    from repro_torch.optim import global_norm
+    from repro_torch.pytree import leaves_with_paths
+    cfg = sharded_cfg()
+    n_attn = cfg.n_layers // cfg.shared_attn_every
+    want_k = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+              "ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
+    cell = ShapeCell("train", TRAIN_S, TRAIN_B, "train")
+    print(f"sharded training: {LM_ARCH} at full width, depth cut to "
+          f"{cfg.n_layers} of {get_config(LM_ARCH).n_layers} layers "
+          f"({n_attn} shared-attention applications), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters "
+          f"({cfg.param_count() * 4 / 1e9:.2f} GB float32), B={TRAIN_B} "
+          f"S={TRAIN_S}; meshes {[m for _, ms in TRAIN_GROUPS for m in ms]} "
+          "as gloo ranks sharing one card")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    out = {name: {} for name in want_k}
+    try:
+        batches = train_batches(torch, cfg, dev, TRAIN_BF16_STEPS)
+
+        def fresh():
+            return steps.init_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(0))
+
+        def counted(label, fn):
+            zero_lm_launches()
+            res = fn()
+            torch.cuda.synchronize()
+            if lm_launches() != want_k:
+                raise AssertionError(f"unsharded {label}: launches "
+                                     f"{lm_launches()}, expected {want_k}")
+            return res
+
+        state = fresh()
+        # the float32 gradients at the initial state: in one pass, and in
+        # two microbatches (the batch split as the data axes split it),
+        # each against a float64 pass (the witness, as phase 3f's)
+        w64 = models.common.map_tree(lambda t: t.double(), state.params)
+        _, g64 = steps._value_and_grad(
+            lambda p, b: models.loss_fn(p, cfg, b, dtype=torch.float64,
+                                        kernels=False), w64, batches[0])
+        del w64
+        g64 = [g for _, g in leaves_with_paths(g64)]
+        loss0, g0 = counted("float32 gradients", lambda: steps.loss_and_grads(
+            cfg, state.params, batches[0], 1, torch.float32))
+        zero_lm_launches()
+        loss2, g2 = steps.loss_and_grads(cfg, state.params, batches[0], 2,
+                                          torch.float32)
+        torch.cuda.synchronize()
+        if lm_launches() != {k: 2 * v for k, v in want_k.items()}:
+            raise AssertionError(f"unsharded float32 gradients in two "
+                                 f"microbatches: launches {lm_launches()}")
+        paths = [p for p, _ in leaves_with_paths(g0)]
+        g0 = [g for _, g in leaves_with_paths(g0)]
+        norm0, norm2 = float(global_norm(g0)), float(global_norm(g2))
+        g2 = [g for _, g in leaves_with_paths(g2)]
+        witness = {}
+        for tag, gs in (("one pass", g0), ("two microbatches", g2)):
+            total, n, worst = 0.0, 0, [0.0, ""]
+            for path, a, w in zip(paths, gs, g64):
+                d = (a.double() - w).abs()
+                total, n = total + float(d.sum()), n + d.numel()
+                worst = max(worst, [float(d.max()) / max(
+                    1.0, float(w.abs().max())), path])
+            witness[tag] = (total / n, worst)
+        split = max([float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())), p] for p, a, b in zip(paths, g2, g0))
+        del g64, g0
+        for i, g in enumerate(g2):
+            np.save(TRAIN_DIR / f"grad-{i:04d}.npy", g.cpu().numpy())
+        del g2
+        (m0, w0), (m2, w2) = witness["one pass"], witness["two microbatches"]
+        print(f"sharded training, float32 gradients at the initial state, "
+              f"against a float64 pass: one pass mean |err| {m0:.4g}, worst "
+              f"leaf {w0[1]} {w0[0]:.4g}; two microbatches (the 2x1 and 2x2 "
+              f"meshes' split of the batch) {m2:.4g}, worst leaf {w2[1]} "
+              f"{w2[0]:.4g} (bound: mean within 1.25x, worst leaf within "
+              f"2x); two microbatches against one pass: loss rel err "
+              f"{abs(float(loss2) - float(loss0)) / abs(float(loss0)):.3g}, "
+              f"worst leaf {split[1]} max |err| / max(1, max |g|) "
+              f"{split[0]:.3g}, grad norm {norm2:.6f} vs {norm0:.6f}")
+        if m2 > 1.25 * m0 or w2[0] > 2 * w0[0]:
+            raise AssertionError("sharded training: the gradients over the "
+                                 "data axes' split of the batch are farther "
+                                 "from float64 than the one-pass gradients")
+        fn = steps.make_train_step(cfg, compute_dtype=torch.float32)
+        metrics = []
+        for b in batches[:2]:
+            state, m = counted("float32 step", lambda: fn(state, b))
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        digests = leaf_digests(state)
+        del state
+        torch.cuda.empty_cache()
+        state = fresh()
+        fn = steps.make_train_step(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = counted("bfloat16 step", lambda: fn(state, b))
+            secs.append(time.perf_counter() - t0)
+        base_s = statistics.median(secs[1:])
+        base_peak = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        base = roofline.roofline_terms(
+            roofline.analytic_cost(cfg, cell), {}, 1,
+            roofline.model_flops_for(cfg, cell), {})
+        print(f"sharded training, the unsharded step at {cfg.n_layers} "
+              f"layers on {card}: float32 loss {float(loss0):.6f}, grad norm "
+              f"{norm0:.6f}, two steps {metrics}; bfloat16 step "
+              f"{base_s * 1e3:.1f} ms = {TRAIN_B * TRAIN_S / base_s:.1f} "
+              f"train tokens/s, peak device memory {base_peak / 2**30:.2f} "
+              f"GiB; launches a step {want_k}; roofline (one card) compute "
+              f"{base['compute_s'] * 1e3:.2f} ms, memory "
+              f"{base['memory_s'] * 1e3:.2f} ms; model_flops_for / (step "
+              f"seconds x peak) "
+              f"{base['model_flops'] / (base_s * roofline.PEAK_FLOPS):.4f}")
+        (TRAIN_DIR / "unsharded.json").write_text(json.dumps(
+            dict(digests=digests)))
+        for world, meshes in TRAIN_GROUPS:
+            t0 = time.perf_counter()
+            mp.spawn(train_shard_rank, args=(world, str(TRAIN_DIR), meshes),
+                     nprocs=world, join=True)
+            wall = time.perf_counter() - t0
+            ranks = [json.loads((TRAIN_DIR / f"ranks-{world}-{r}.json")
+                                .read_text()) for r in range(world)]
+            for k, shape in enumerate(meshes):
+                recs = [rk[k] for rk in ranks]
+                label = "x".join(map(str, shape))
+                train_shard_check(label, recs, want_k, float(loss2), norm2,
+                                  metrics)
+                for name in out:
+                    out[name][label] = [rec["launches"][-1][name]
+                                        for rec in recs]
+                terms = roofline.roofline_terms(
+                    roofline.analytic_cost(cfg, cell), recs[0]["coll"],
+                    world, roofline.model_flops_for(cfg, cell), {})
+                step_s = statistics.median(
+                    max(rec["secs"][i] for rec in recs)
+                    for i in range(1, TRAIN_BF16_STEPS))
+                coll = recs[0]["coll"]
+                print(f"  sharded {label} (gloo x{world} on one card: not a "
+                      f"scaling figure; spawn to exit {wall:.1f} s) on "
+                      f"{card}: bfloat16 step {step_s * 1e3:.1f} ms (slowest "
+                      f"rank, median of {TRAIN_BF16_STEPS - 1} after one to "
+                      "warm up) = "
+                      f"{TRAIN_B * TRAIN_S / step_s:.1f} train tokens/s "
+                      f"(unsharded {TRAIN_B * TRAIN_S / base_s:.1f}); peak "
+                      f"device memory per rank "
+                      f"{[round(r['peak'] / 2**30, 2) for r in recs]} GiB "
+                      f"(unsharded {base_peak / 2**30:.2f}); collectives a "
+                      f"step, rank 0: "
+                      + ", ".join(f"{k} {int(v['count'])} calls, "
+                                  f"{v['operand_bytes']:,.0f} B operand, "
+                                  f"{v['ring_bytes']:,.0f} B ring"
+                                  for k, v in coll.items())
+                      + f"; host seconds in collectives a step "
+                      f"{max(r['coll_secs'] for r in recs):.3f} (slowest "
+                      f"rank); roofline ({world} cards) compute "
+                      f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+                      f"{terms['memory_s'] * 1e3:.2f} ms, collective_ring "
+                      f"{terms['collective_ring_s'] * 1e3:.2f} ms")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    full = get_config(LM_ARCH)
+    train_s = train["train_step_ms"] / 1e3
+    prefill_s = PREFILL_B * PREFILL_S / lm["prefill_tok_s_kernel"]
+    shares = {
+        "train": roofline.model_flops_for(full, cell) / (
+            train_s * roofline.PEAK_FLOPS),
+        "prefill": roofline.model_flops_for(full, ShapeCell(
+            "prefill", PREFILL_S, PREFILL_B, "prefill")) / (
+            prefill_s * roofline.PEAK_FLOPS)}
+    print(f"roofline shares of the unsharded full-depth {LM_ARCH} steps on "
+          f"{card}: model_flops_for / (step seconds x {roofline.PEAK_FLOPS:g}"
+          f" FLOP/s): train (3f, {train_s * 1e3:.1f} ms) "
+          f"{shares['train']:.4f}, prefill (3e, {prefill_s * 1e3:.1f} ms) "
+          f"{shares['prefill']:.4f}")
+    return out
+
+
+def train_shard_check(label, recs, want_k, loss0, norm0, metrics):
+    """Phase 3i's gates on one mesh's rank records."""
+    for r, rec in enumerate(recs):
+        for i, got in enumerate(rec["launches"]):
+            if got != want_k:
+                raise AssertionError(f"sharded {label} rank {r} pass {i}: "
+                                     f"launches {got}, expected {want_k}")
+    if label == "1x2":
+        if not recs[0]["bitwise"]:
+            raise AssertionError("sharded 1x2: the gathered state after two "
+                                 "float32 steps is not bitwise the unsharded "
+                                 "state")
+        if any(rec["metrics"] != metrics for rec in recs):
+            raise AssertionError(f"sharded 1x2: metrics "
+                                 f"{[r['metrics'] for r in recs]}, unsharded "
+                                 f"{metrics}")
+        print(f"  sharded 1x2, float32: the gathered state bitwise the "
+              f"unsharded state after two steps (per-leaf SHA-256); losses "
+              f"and grad norms {recs[0]['metrics']} equal")
+        return
+    for r, rec in enumerate(recs):
+        rel = abs(rec["loss"] - loss0) / abs(loss0)
+        if rel > 1e-5 or rec["grad_err"][0] > 1e-4:
+            raise AssertionError(
+                f"sharded {label} rank {r}: loss rel err {rel:.3g} (bound "
+                f"1e-5), worst gradient leaf {rec['grad_err']} (bound 1e-4)")
+    worst = max(rec["grad_err"] for rec in recs)
+    print(f"  sharded {label}, float32, against the unsharded step over the "
+          f"same split of the batch: loss {recs[0]['loss']:.6f} (unsharded "
+          f"{loss0:.6f}, rel err "
+          f"{max(abs(r['loss'] - loss0) for r in recs) / abs(loss0):.3g}); "
+          f"grad norm {recs[0]['grad_norm']:.6f} (unsharded {norm0:.6f}); "
+          f"worst gradient leaf {worst[1]}: max |err| / max(1, max |g|) "
+          f"{worst[0]:.3g} over every rank; bitwise on every rank: "
+          f"{all(r['grad_bitwise'] for r in recs)}")
+
+
+def examples_phase(card):
+    """The four examples, ``python -m repro_torch.examples.<name>`` on the
+    card, started together; each must exit 0 within
+    ``EXAMPLES_TIMEOUT_S`` with no traceback in its output (a background
+    checkpoint thread's failure does not change the exit code).  Prints
+    each one's seconds and last lines."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, t0 = {}, time.perf_counter()
+    for name, extra in EXAMPLES.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *extra],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    done = {}
+    try:
+        for name, p in procs.items():
+            left = max(1.0, EXAMPLES_TIMEOUT_S - (time.perf_counter() - t0))
+            text = p.communicate(timeout=left)[0]
+            done[name] = (p.returncode, time.perf_counter() - t0, text)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm",
+                      ignore_errors=True)
+    for name, (rc, secs, text) in done.items():
+        tail = [ln for ln in text.splitlines() if ln.strip()][-4:]
+        print(f"example {name} on {card}: exit {rc} (done by "
+              f"{secs:.1f} s); last lines: " + " | ".join(tail))
+        if rc != 0 or "Traceback" in text:
+            raise AssertionError(f"example {name} exited {rc}:\n{text}")
+    return done
+
+
 # ----------------------------------- the MoE block and the frontends (3g)
 
 # (arch, depth of its bfloat16 full-width run, depth of its float32 gates):
@@ -4375,6 +4829,11 @@ def main() -> int:
     wide = wide_phase(torch, dev, counts, zero_counts, names, card)
 
     lap("3h rows over clusters")
+    # 3i. sharded training on meshes of ranks, and the four examples -------
+    sharded = train_shard_phase(torch, dev, card, lm, train)
+    examples_phase(card)
+
+    lap("3i sharded training, examples")
     # 4. times -----------------------------------------------------------
     fw_ms, al_ms, mega_ms = fleet_kernel_ms(fw_ops, alloc_ops, mega_ops,
                                             fw_args, al_args, mega_args)
@@ -4605,6 +5064,7 @@ def main() -> int:
          "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
          "bound_ms": fa_b, "bound_by": fa_by, "library_ms": fa_lib,
          "train_launches": train["train_launches"]["flash_attention"],
+         "sharded_train_launches_per_step": sharded["flash_attention"],
          **frontier_entry(frontier, "flash_attention", "launches")},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4612,6 +5072,7 @@ def main() -> int:
          "launches": train["train_launches"]["flash_attention_bwd"],
          "launches_per_step":
              train["train_launches_per_step"]["flash_attention_bwd"],
+         "sharded_train_launches_per_step": sharded["flash_attention_bwd"],
          "max_abs_err": fb_err, "ms": fb_ms, "plain_ms": fb_plain,
          "bound_ms": fb_b, "bound_by": fb_by, "library_ms": fb_lib},
         {"name": "ssd_scan_bwd", "route": "cuda",
@@ -4620,6 +5081,7 @@ def main() -> int:
          "launches": train["train_launches"]["ssd_scan_bwd"],
          "launches_per_step":
              train["train_launches_per_step"]["ssd_scan_bwd"],
+         "sharded_train_launches_per_step": sharded["ssd_scan_bwd"],
          "device_kernels_per_call": ["ssd_bwd_walk_tc", "ssd_bwd_chunk_tc",
                                      "ssd_bwd_reduce"],
          "max_abs_err": sb_err, "ms": sb_ms, "plain_ms": sb_plain,
@@ -4641,7 +5103,8 @@ def main() -> int:
          "launches": lm["prefill_launches_kernel"]["ssd_scan"],
          "max_abs_err": ssd_err, "ms": ssd_ms, "plain_ms": ssd_plain,
          "bound_ms": ssd_b, "bound_by": ssd_by, "library_ms": None,
-         "train_launches": train["train_launches"]["ssd_scan"]},
+         "train_launches": train["train_launches"]["ssd_scan"],
+         "sharded_train_launches_per_step": sharded["ssd_scan"]},
     ]
     print(f"seconds by phase on {card}: "
           + ", ".join(f"{label} {t - laps[i][1]:.1f}"

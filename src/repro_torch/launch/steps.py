@@ -12,7 +12,8 @@ inside the call; pass weights cast once (``models.cast_params``) and that
 cast is a no-op.  The train step keeps float32 masters and differentiates
 through the cast.  ``make_prefill_step(kernels=False)`` (and ``models.loss_fn(...,
 kernels=False)``) runs the plain versions of the attention and SSD
-kernels, forward and backward (the comparison path).
+kernels, forward and backward (the comparison path).  The train step on a
+mesh of ranks is ``launch/sharded.py``'s.
 """
 from __future__ import annotations
 
@@ -50,6 +51,27 @@ def _value_and_grad(loss_of, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
+def loss_and_grads(cfg, params, batch, microbatches: int, compute_dtype):
+    """Loss and gradients over ``microbatches`` splits of ``batch`` (one
+    after another, so peak activation memory is one microbatch): a running
+    sum, divided by the count."""
+
+    def loss_of(params, batch):
+        return models.loss_fn(params, cfg, batch, dtype=compute_dtype)
+
+    if microbatches == 1:
+        return _value_and_grad(loss_of, params, batch)
+    gsum, lsum = None, 0.0
+    for i in range(microbatches):
+        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                           + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+        loss, g = _value_and_grad(loss_of, params, mb)
+        gsum = g if gsum is None else map_leaves(torch.add, gsum, g)
+        lsum = lsum + loss
+    return lsum / microbatches, map_tree(lambda g: g / microbatches, gsum)
+
+
 def make_train_step(cfg, *, microbatches: int = 1,
                     compute_dtype=torch.bfloat16, **hyper):
     """Gradient accumulation over ``microbatches`` splits of the global batch
@@ -59,24 +81,9 @@ def make_train_step(cfg, *, microbatches: int = 1,
     the state it is given (``adamw_update`` works in place, as the
     reference's launchers donate the state to their jitted step)."""
 
-    def loss_of(params, batch):
-        return models.loss_fn(params, cfg, batch, dtype=compute_dtype)
-
     def train_step(state: TrainState, batch):
-        if microbatches > 1:
-            gsum, lsum = None, 0.0
-            for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                loss, g = _value_and_grad(loss_of, state.params, mb)
-                gsum = g if gsum is None else map_leaves(torch.add, gsum, g)
-                lsum = lsum + loss
-            grads = map_tree(lambda g: g / microbatches, gsum)
-            loss = lsum / microbatches
-        else:
-            loss, grads = _value_and_grad(loss_of, state.params, batch)
-
+        loss, grads = loss_and_grads(cfg, state.params, batch, microbatches,
+                                      compute_dtype)
         new_params, opt, metrics = adamw_update(
             grads, state.opt, state.params, **hyper)
         metrics["loss"] = loss

@@ -3,6 +3,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import (
     cache_defs,
     cache_shapes,
+    cache_specs,
     cast_params,
     decode_step,
     forward,
@@ -12,6 +13,7 @@ from repro_torch.models.model import (
     loss_fn,
     model_defs,
     param_shapes,
+    param_specs,
     params_from_numpy,
     train_state_from_numpy,
 )
@@ -20,6 +22,7 @@ __all__ = [
     "ModelConfig",
     "model_defs",
     "init_params",
+    "param_specs",
     "param_shapes",
     "params_from_numpy",
     "train_state_from_numpy",
@@ -29,6 +32,7 @@ __all__ = [
     "loss_fn",
     "init_cache",
     "cache_defs",
+    "cache_specs",
     "cache_shapes",
     "decode_step",
 ]

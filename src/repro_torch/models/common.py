@@ -1,16 +1,28 @@
-"""Model configuration and parameter templates.
+"""Model configuration, parameter templates and logical sharding axes.
 
 Plain-dictionary module system, as in the reference package: every layer
-is a ``*_defs(cfg)`` function returning a tree of ``ParamDef`` plus an
-``*_apply(p, x, ...)`` function on tensors.  The reference's logical
-sharding axes and its ``shard`` constraints are TPU-mesh code and wait
-for ROADMAP.md queue A, item A.5; a ``ParamDef`` here is a shape and an
-initializer.
+is a ``*_defs(cfg)`` function returning a tree of ``ParamDef`` (shape,
+logical axes, initializer) plus an ``*_apply(p, x, ...)`` function on
+tensors.  Parameter sharding is expressed with the reference's *logical
+axis names*; ``logical_to_mesh`` maps them onto the axes of a mesh of
+ranks (``launch/mesh.py``):
+
+  logical axis -> mesh axis
+  ------------------------------
+  'fsdp'   -> 'data'  (ZeRO/FSDP parameter+optimizer sharding)
+  'tp'     -> 'model' (heads / mlp hidden / experts / vocab)
+  'batch'  -> ('pod', 'data')
+  None     -> replicated
+
+A *layout* is what a ``PartitionSpec`` is to the reference: one entry a
+dimension, an axis name, a tuple of axis names (row-major, the first the
+slowest) or ``None`` (whole).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -110,15 +122,79 @@ class ModelConfig:
         return self.param_count() - self.n_layers * (moe_all - moe_act)
 
 
+# ---------------------------------------------------------------- sharding
+
+LOGICAL_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "fsdp": "data",
+    "tp": "model",
+    "seq": None,
+    "kv_seq": None,
+    "embed": None,
+    "heads": "model",
+    "vocab": "model",
+    "mlp": "model",
+    "experts": "model",
+    "layers": None,
+    "stage": None,
+}
+
+#: the axes of a production mesh, for a layout asked for without a mesh
+_ALL_AXES = ("data", "model", "pod")
+
+
+def logical_to_mesh(logical: Tuple[Optional[str], ...], mesh=None) -> tuple:
+    """The layout of a tuple of logical axis names on ``mesh`` (anything
+    with a ``shape`` dict of axis sizes; None: every production axis),
+    dropping mesh axes the mesh lacks (e.g. 'pod' on a single pod)."""
+    names = set(mesh.shape) if mesh is not None else set(_ALL_AXES)
+    out = []
+    for ax in logical:
+        m = None if ax is None else LOGICAL_RULES.get(ax)
+        if m is None:
+            out.append(None)
+        elif isinstance(m, tuple):
+            kept = tuple(x for x in m if x in names)
+            out.append(kept if len(kept) > 1 else (kept[0] if kept else None))
+        else:
+            out.append(m if m in names else None)
+    return tuple(out)
+
+
+def is_layout(x) -> bool:
+    """A leaf of a tree of logical axes or of layouts: a tuple of axis
+    names, tuples of axis names and Nones."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def spec_tree_to_shardings(specs, mesh):
+    """A tree of logical-axis tuples as a tree of layouts on ``mesh``."""
+    return map_tree(lambda lg: logical_to_mesh(lg, mesh), specs)
+
+
+def shard(x, logical: Tuple[Optional[str], ...]):
+    """The reference's activation sharding constraint: ``x`` unchanged.
+    The reference resolves it against the ambient mesh and is a no-op
+    when there is none; the port has none to give it: its sharded train
+    step (``launch/steps.py``) runs each rank's forward and backward on
+    gathered weights, and eager PyTorch has no layout constraint to
+    attach to a tensor."""
+    return x
+
+
 # ------------------------------------------------------------- param utils
 
 
 class ParamDef:
-    """A parameter template: shape + initializer (normal, zeros, ones,
-    ssm_a, dt_bias)."""
+    """A parameter template: shape, logical sharding axes (one a dimension)
+    and initializer (normal, zeros, ones, ssm_a, dt_bias)."""
 
-    def __init__(self, shape, init="normal", scale=None):
+    def __init__(self, shape, logical, init="normal", scale=None):
         self.shape = tuple(shape)
+        self.logical = tuple(logical)
         self.init = init
         self.scale = scale
 
@@ -150,7 +226,8 @@ class ParamDef:
 
 
 def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    """Apply ``fn`` to every leaf of a tree of dicts and lists (a tuple is
+    a leaf: a tree of layouts maps too)."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -168,3 +245,8 @@ def init_tree(defs, generator: torch.Generator, dtype=torch.float32):
     if isinstance(defs, list):
         return [init_tree(d, generator, dtype) for d in defs]
     return defs.materialize(generator, dtype)
+
+
+def spec_tree(defs):
+    """The tree of logical axes of a tree of ParamDef."""
+    return map_tree(lambda d: d.logical, defs)

@@ -1,7 +1,7 @@
 """Layer library: RMSNorm, RoPE, GQA attention, dense/MoE FFN, Mamba-2 block.
 
 Every layer is a pair of functions, as in the reference package:
-  ``*_defs(cfg)``  -> tree of ParamDef (shapes + init)
+  ``*_defs(cfg)``  -> tree of ParamDef (shapes + logical sharding + init)
   ``*_apply(p, x, cfg, ...)`` -> output
 
 Compute dtype follows ``x.dtype`` (weights are cast at use, a no-op when
@@ -27,7 +27,7 @@ from repro_torch.models.common import ModelConfig, ParamDef
 
 
 def rmsnorm_defs(d):
-    return {"scale": ParamDef((d,), init="ones")}
+    return {"scale": ParamDef((d,), ("embed",), init="ones")}
 
 
 def rmsnorm(p, x, eps):
@@ -71,10 +71,10 @@ def attention_defs(cfg: ModelConfig):
     # fused [D, H*hd] layouts, as in the reference
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
     return {
-        "wq": ParamDef((d, hq * hd)),
-        "wk": ParamDef((d, hkv * hd)),
-        "wv": ParamDef((d, hkv * hd)),
-        "wo": ParamDef((hq * hd, d)),
+        "wq": ParamDef((d, hq * hd), ("fsdp", "tp")),
+        "wk": ParamDef((d, hkv * hd), ("fsdp", "tp")),
+        "wv": ParamDef((d, hkv * hd), ("fsdp", "tp")),
+        "wo": ParamDef((hq * hd, d), ("tp", "fsdp")),
     }
 
 
@@ -141,9 +141,10 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
 
 def ffn_defs(cfg: ModelConfig, gated: bool = True):
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"wi": ParamDef((d, f)), "wo": ParamDef((f, d))}
+    defs = {"wi": ParamDef((d, f), ("fsdp", "mlp")),
+            "wo": ParamDef((f, d), ("mlp", "fsdp"))}
     if gated:
-        defs["wg"] = ParamDef((d, f))
+        defs["wg"] = ParamDef((d, f), ("fsdp", "mlp"))
     return defs
 
 
@@ -163,9 +164,9 @@ def ffn_apply(p, x, cfg: ModelConfig):
 def moe_defs(cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamDef((d, e), scale=d ** -0.5),
-        "wi": ParamDef((e, d, 2 * f)),
-        "wo": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), ("fsdp", None), scale=d ** -0.5),
+        "wi": ParamDef((e, d, 2 * f), ("experts", "fsdp", None)),
+        "wo": ParamDef((e, f, d), ("experts", None, "fsdp")),
     }
 
 
@@ -257,19 +258,19 @@ def mamba_defs(cfg: ModelConfig):
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     w = cfg.ssm_conv
     return {
-        "in_z": ParamDef((d, di)),
-        "in_x": ParamDef((d, di)),
-        "in_b": ParamDef((d, n)),
-        "in_c": ParamDef((d, n)),
-        "in_dt": ParamDef((d, h)),
-        "conv_x": ParamDef((w, di), scale=w ** -0.5),
-        "conv_b": ParamDef((w, n), scale=w ** -0.5),
-        "conv_c": ParamDef((w, n), scale=w ** -0.5),
-        "a_log": ParamDef((h,), init="ssm_a"),
-        "dt_bias": ParamDef((h,), init="dt_bias"),
-        "d_skip": ParamDef((h,), init="ones"),
-        "norm": ParamDef((di,), init="ones"),
-        "out": ParamDef((di, d)),
+        "in_z": ParamDef((d, di), ("fsdp", "tp")),
+        "in_x": ParamDef((d, di), ("fsdp", "tp")),
+        "in_b": ParamDef((d, n), ("fsdp", None)),
+        "in_c": ParamDef((d, n), ("fsdp", None)),
+        "in_dt": ParamDef((d, h), ("fsdp", "tp")),
+        "conv_x": ParamDef((w, di), (None, "tp"), scale=w ** -0.5),
+        "conv_b": ParamDef((w, n), (None, None), scale=w ** -0.5),
+        "conv_c": ParamDef((w, n), (None, None), scale=w ** -0.5),
+        "a_log": ParamDef((h,), ("tp",), init="ssm_a"),
+        "dt_bias": ParamDef((h,), ("tp",), init="dt_bias"),
+        "d_skip": ParamDef((h,), ("tp",), init="ones"),
+        "norm": ParamDef((di,), ("tp",), init="ones"),
+        "out": ParamDef((di, d), ("tp", "fsdp")),
     }
 
 

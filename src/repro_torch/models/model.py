@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, ParamDef, init_tree, map_tree
+from repro_torch.models.common import (ModelConfig, ParamDef, init_tree,
+                                       map_tree, spec_tree)
 
 # ------------------------------------------------------------- definitions
 
@@ -67,20 +68,23 @@ def _stacked_scale(defs, n_layers: int):
     an explicit scale is drawn at ``n_layers ** -0.5``.  The port keeps the
     blocks as a list, so the scale is set here, leaf by leaf."""
     return map_tree(
-        lambda d: ParamDef(d.shape, scale=n_layers ** -0.5)
+        lambda d: ParamDef(d.shape, d.logical, scale=n_layers ** -0.5)
         if d.init == "normal" and d.scale is None else d, defs)
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     block = _stacked_scale(_block_defs(cfg), cfg.n_layers)
     defs: Dict[str, Any] = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), scale=1.0),
+        # vocab-sharded only, as in the reference
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", None),
+                          scale=1.0),
         "final_norm": L.rmsnorm_defs(cfg.d_model),
-        "head": ParamDef((cfg.d_model, cfg.vocab)),
+        "head": ParamDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab")),
         "layers": [block] * cfg.n_layers,
     }
     if cfg.frontend != "none":
-        defs["frontend"] = {"proj": ParamDef((cfg.frontend_dim, cfg.d_model))}
+        defs["frontend"] = {"proj": ParamDef((cfg.frontend_dim, cfg.d_model),
+                                             ("fsdp", None))}
     if cfg.block == "zamba":
         defs["shared"] = {
             "ln1": L.rmsnorm_defs(cfg.d_model),
@@ -186,6 +190,13 @@ def train_state_from_numpy(cfg: ModelConfig,
     params, m, v = (params_from_numpy(cfg, parts[p], dev) for p in parts)
     return TrainState(params, OptState(m, v, torch.tensor(
         int(step), dtype=torch.int32, device=dev)))
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree's logical axes, in the port's layout: a block's
+    leaves carry the reference's axes without its stacked ``"layers"``
+    axis (always replicated)."""
+    return spec_tree(model_defs(cfg))
 
 
 def param_shapes(cfg: ModelConfig, dtype=torch.float32):
@@ -344,16 +355,25 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int):
                        cfg.ssm_head_dim, cfg.ssm_conv)
 
     def kv(n_layers):
-        # fused head*dim axis, as in the reference
-        return {"k": ParamDef((n_layers, batch, max_len, hkv * hd), "zeros"),
-                "v": ParamDef((n_layers, batch, max_len, hkv * hd), "zeros")}
+        # fused head*dim axis, as in the reference: always divisible by the
+        # model axis
+        axes = ("layers", "batch", "kv_seq", "tp")
+        return {"k": ParamDef((n_layers, batch, max_len, hkv * hd), axes,
+                              init="zeros"),
+                "v": ParamDef((n_layers, batch, max_len, hkv * hd), axes,
+                              init="zeros")}
 
     def mamba_state(n_layers):
         return {
-            "conv_x": ParamDef((n_layers, batch, w - 1, di), "zeros"),
-            "conv_b": ParamDef((n_layers, batch, w - 1, n), "zeros"),
-            "conv_c": ParamDef((n_layers, batch, w - 1, n), "zeros"),
-            "ssm": ParamDef((n_layers, batch, h, p_, n), "zeros"),
+            "conv_x": ParamDef((n_layers, batch, w - 1, di),
+                               ("layers", "batch", None, "tp"), init="zeros"),
+            "conv_b": ParamDef((n_layers, batch, w - 1, n),
+                               ("layers", "batch", None, None), init="zeros"),
+            "conv_c": ParamDef((n_layers, batch, w - 1, n),
+                               ("layers", "batch", None, None), init="zeros"),
+            "ssm": ParamDef((n_layers, batch, h, p_, n),
+                            ("layers", "batch", "tp", None, None),
+                            init="zeros"),
         }
 
     if cfg.block in ("attn", "moe"):
@@ -371,6 +391,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     return map_tree(lambda d: torch.zeros(d.shape, dtype=dtype, device=dev),
                     cache_defs(cfg, batch, max_len))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode cache's logical axes, in its stacked layout."""
+    return spec_tree(cache_defs(cfg, batch, max_len))
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,

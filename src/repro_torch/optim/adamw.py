@@ -12,7 +12,7 @@ zamba2-2.7b's 2.4 B parameters, 29 GB rather than 58).
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -59,12 +59,16 @@ def adamw_update(
     clip_norm: float = 1.0,
     warmup: int = 100,
     total_steps: int = 10000,
+    gnorm: Optional[torch.Tensor] = None,
 ):
     """Returns (new_params, new_state, metrics): ``params``' and
     ``state``'s own tensors, overwritten in place.  The reference's order:
     clip by the global norm, the moments, the bias-corrected step with the
-    decoupled weight decay inside it."""
-    gnorm = global_norm(grads)
+    decoupled weight decay inside it.  ``gnorm``: the whole gradient's
+    norm where ``grads``, ``params`` and the moments are one rank's blocks
+    of a sharded state (``launch/sharded.py``); by default ``grads``'."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     step = state.step + 1

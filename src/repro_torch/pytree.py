@@ -25,24 +25,29 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def leaves_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``[(path, leaf), ...]`` in the reference's flatten order."""
+def leaves_with_paths(tree, prefix: str = "", is_leaf=None
+                      ) -> List[Tuple[str, Any]]:
+    """``[(path, leaf), ...]`` in the reference's flatten order;
+    ``is_leaf(x)`` true makes ``x`` a leaf (a layout is a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if tree is None:
         return []
     if _is_namedtuple(tree):
         out = []
         for name, child in zip(tree._fields, tree):
-            out += leaves_with_paths(child, f"{prefix}.{name}")
+            out += leaves_with_paths(child, f"{prefix}.{name}", is_leaf)
         return out
     if isinstance(tree, (tuple, list)):
         out = []
         for i, child in enumerate(tree):
-            out += leaves_with_paths(child, f"{prefix}[{i}]")
+            out += leaves_with_paths(child, f"{prefix}[{i}]", is_leaf)
         return out
     if isinstance(tree, dict):
         out = []
         for key in sorted(tree):
-            out += leaves_with_paths(tree[key], f"{prefix}[{key!r}]")
+            out += leaves_with_paths(tree[key], f"{prefix}[{key!r}]",
+                                     is_leaf)
         return out
     return [(prefix, tree)]
 

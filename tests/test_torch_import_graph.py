@@ -38,7 +38,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     walked = set(proc.stdout.split()[2:])
     assert {"repro_torch.data.pipeline", "repro_torch.optim.adamw",
             "repro_torch.training.trainer", "repro_torch.launch.train",
-            "repro_torch.launch.steps"} <= walked
+            "repro_torch.launch.steps", "repro_torch.launch.specs",
+            "repro_torch.launch.sharded",
+            "repro_torch.launch.roofline", "repro_torch.examples.quickstart",
+            "repro_torch.examples.fleet_allocation",
+            "repro_torch.examples.serve_llm",
+            "repro_torch.examples.train_lm"} <= walked
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

@@ -2,8 +2,8 @@
 ``__all__`` of a ported reference module exists in the port's counterpart,
 and every public top-level function and class of a ported reference module
 without an ``__all__`` does too.  Names the port does not have yet are listed
-below with the ROADMAP item that ports each; a listed name that appears in
-the port fails the test, so the list shrinks as items land."""
+in ``NOT_YET`` with the ROADMAP item that ports each (none now); a listed
+name that appears in the port fails the test."""
 import importlib
 import inspect
 
@@ -16,30 +16,22 @@ from repro.core import baselines as jbase
 from repro_torch.core import no_bw_allocate
 
 # reference name -> the ROADMAP.md queue A item that ports it
-NOT_YET = {
-    "launch.mesh": {
-        "make_production_mesh": "A.5, the TPU meshes",
-        "make_mesh": "A.5, the TPU meshes",
-        "data_axis_size": "A.5, the TPU meshes",
-    },
-    "models": {
-        "param_specs": "A.5, specs and shape helpers",
-        "cache_specs": "A.5, specs and shape helpers",
-    },
-}
+NOT_YET = {}
 
 WITH_ALL = ["core", "storage", "models", "serving", "kernels.fleet_window",
             "kernels.window_mega", "checkpoint", "data", "optim", "training"]
 WITHOUT_ALL = ["configs.shapes", "launch.steps", "launch.mesh",
-               "launch.train",
+               "launch.train", "launch.specs", "launch.roofline",
                "kernels.adaptbf_alloc.ops", "kernels.attention.ops",
                "kernels.ssd.ops", "storage.telemetry", "storage.metrics",
                "storage.service", "storage.workloads", "checkpoint.manager",
                "data.pipeline", "optim.adamw", "training.trainer"]
 
 
-# reference parameter -> the port's, where the port renames it on purpose
-RENAMED = {"key": "generator"}   # jax.random keys become torch.Generators
+# reference parameter -> the port's, where the port renames it on purpose:
+# jax.random keys become torch.Generators; the roofline's collective bytes
+# come from the port's counters (launch/mesh.collectives), not from HLO
+RENAMED = {"key": "generator", "hlo_text": "counters"}
 
 
 def _public_definitions(module):
